@@ -1,0 +1,74 @@
+"""Gate bootstrapping: blind rotation, sample extraction, key switch.
+
+Counterpart of ``rustfhe_tpu/bootstrap.py``.  The JAX package runs the n
+CMux steps as a ``lax.scan``; here they are a Python loop of n launches of
+the step kernel K1 (``engine.cmux_k.cmux_step``), with the whole batch of
+gates inside each launch.  Scaling matches the reference exactly:
+
+  b~   = b >> (32 - nbit - 1)                  (floor)
+  a~_i = (a_i + 2^(32-nbit-2)) >> (32-nbit-1)   (round)
+  acc  = X^{-b~} * testvec;  acc = CMux(bk_i, X^{a~_i} * acc, acc)
+
+The shifts are logical: on int32 words an arithmetic shift would make
+b~ and a~ negative for words >= 2^31.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import poly, trlwe
+from ._u32 import srl
+from .decomp import decompose_unsigned
+from .engine import cmux_k
+from .engine.plain import key_switch_digits
+from .keys import CloudKey
+from .params import TFHEParams
+
+
+def rotation_start(ct: torch.Tensor, testvec: torch.Tensor,
+                   params: TFHEParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blind rotation's inputs for lv0 TLWE ``ct (B, n+1)``: the first
+    accumulator X^{-b~} * testvec, int32 (B, 2, N), and the rotations a~,
+    int32 (n, B), one contiguous row per step."""
+    shift = 32 - params.nbit - 1
+    b_tilde = srl(ct[:, 0], shift)
+    a_tilde = srl(ct[:, 1:] + (1 << (shift - 1)), shift)
+    neg_b = torch.remainder(-b_tilde, 2 * params.N)
+    acc = poly.rotate(testvec, neg_b[:, None]).contiguous()
+    return acc, a_tilde.t().contiguous()
+
+
+def blind_rotate(ct: torch.Tensor, bk: torch.Tensor, testvec: torch.Tensor,
+                 params: TFHEParams) -> torch.Tensor:
+    """Rotate ``testvec (2, N)`` by the encrypted phase of lv0 TLWE ``ct
+    (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N).  Returns
+    int32 (..., 2, N)."""
+    lead = ct.shape[:-1]
+    acc, a_steps = rotation_start(ct.reshape(-1, params.n + 1), testvec, params)
+    for i in range(params.n):
+        acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], params)
+    return acc.reshape(lead + (2, params.N))
+
+
+def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor, bk: torch.Tensor,
+                                 params: TFHEParams) -> torch.Tensor:
+    """lv0 TLWE -> lv1 TLWE encrypting mu * sign."""
+    mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=ct.device)
+    rotated = blind_rotate(ct, bk, trlwe.trivial(mu), params)
+    return trlwe.sample_extract(rotated, 0)
+
+
+def identity_key_switch(ct_lv1: torch.Tensor, ksk: torch.Tensor,
+                        params: TFHEParams) -> torch.Tensor:
+    """lv1 TLWE (..., N+1) -> lv0 TLWE (..., n+1)."""
+    digits = decompose_unsigned(ct_lv1[..., 1:], params)  # (..., N, iks_l)
+    out = -key_switch_digits(ksk, digits, params)
+    out[..., 0] += ct_lv1[..., 0]
+    return out
+
+
+def bootstrap(ct: torch.Tensor, ck: CloudKey, params: TFHEParams) -> torch.Tensor:
+    """Full gate bootstrap: blind rotate, extract, key switch."""
+    lv1 = gate_bootstrapping_tlwe2tlwe(ct, ck.bk, params)
+    return identity_key_switch(lv1, ck.ksk, params)

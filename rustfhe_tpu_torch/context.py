@@ -1,0 +1,110 @@
+"""High-level TFHE context: the user-facing object API.
+
+Counterpart of ``rustfhe_tpu/context.py`` (keygen, encrypt/decrypt and the
+gate set; the typed-integer, PBS, seeded and public-key methods are not
+ported yet).  Randomness comes from one ``torch.Generator`` on the
+context's device, used for keygen and then for every encryption.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import gates, tlwe, torus
+from .engine import select_engine
+from .keys import CloudKey, SecretKey, gen_keys
+from .params import DEFAULT_PARAMS, TFHEParams
+
+
+class TFHE:
+    """Keyed TFHE evaluator on one device.
+
+    >>> ctx = TFHE.new(0, params, device="cuda")
+    >>> c = ctx.encrypt(torch.tensor([0, 1, 1, 0]))
+    >>> bits = ctx.decrypt(ctx.nand(c, c))
+    """
+
+    def __init__(self, sk: SecretKey | None, ck: CloudKey, params: TFHEParams,
+                 device, gen: torch.Generator | None = None, engine_name: str = ""):
+        self.sk = sk
+        self.ck = ck
+        self.params = params
+        self.device = torch.device(device)
+        self.gen = gen
+        self.engine_name = engine_name
+
+    @classmethod
+    def new(cls, seed_or_generator, params: TFHEParams = DEFAULT_PARAMS,
+            device="cpu") -> "TFHE":
+        """Keygen on ``device`` from an int seed or a ``torch.Generator``
+        that lives there.  The engine is admitted on the device first
+        (``engine.select_engine``: K2 against the oracle), and a CUDA
+        device that is not available raises."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested, but "
+                               "torch.cuda.is_available() is False")
+        if isinstance(seed_or_generator, torch.Generator):
+            gen = seed_or_generator
+            if gen.device.type != device.type:
+                raise ValueError(f"generator is on {gen.device}, context on {device}")
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(seed_or_generator))
+        engine_name = select_engine(params, device)
+        sk, ck = gen_keys(gen, params, device)
+        return cls(sk, ck, params, device, gen, engine_name)
+
+    # -------------------------- client side --------------------------- #
+    def _bits(self, bits) -> torch.Tensor:
+        return torch.as_tensor(bits).to(device=self.device, dtype=torch.int32)
+
+    def encrypt(self, bits) -> torch.Tensor:
+        """bits: {0,1} array (...,) -> TLWE batch (..., n+1)."""
+        if self.sk is None:
+            raise ValueError("cloud-only context cannot encrypt")
+        return tlwe.encrypt_binary(self.gen, self.sk.lv0, self._bits(bits), self.params)
+
+    def decrypt(self, cts: torch.Tensor) -> torch.Tensor:
+        if self.sk is None:
+            raise ValueError("cloud-only context cannot decrypt")
+        return tlwe.decrypt_binary(cts, self.sk.lv0)
+
+    def trivial(self, bits) -> torch.Tensor:
+        """Noiseless ciphertexts of constants."""
+        return tlwe.trivial(torus.binary_to_torus(self._bits(bits)), self.params.n)
+
+    def cloud_only(self) -> "TFHE":
+        """Drop the secret key and the generator: the evaluator-side view."""
+        return TFHE(None, self.ck, self.params, self.device, None, self.engine_name)
+
+    # -------------------------- gate set ------------------------------ #
+    def bootstrap_raw(self, pre: torch.Tensor) -> torch.Tensor:
+        """Bootstrap a pre-combined batch."""
+        return gates.hom_bootstrap(self.ck, pre, params=self.params)
+
+    def _gate(self, op: str, x, y=None) -> torch.Tensor:
+        return self.bootstrap_raw(gates.precombine(op, x, y, params=self.params))
+
+    def nand(self, x, y):
+        return self._gate("nand", x, y)
+
+    def and_(self, x, y):
+        return self._gate("and", x, y)
+
+    def or_(self, x, y):
+        return self._gate("or", x, y)
+
+    def xor(self, x, y):
+        return self._gate("xor", x, y)
+
+    def not_(self, x):
+        return self._gate("not", x)
+
+    def mux(self, control, in0, in1):
+        """(in1 & control) | (in0 & !control): the two independent ANDs run
+        as one double-width bootstrap batch, then one OR pass."""
+        pre_a = gates.precombine("and", control, in1, params=self.params)
+        pre_b = gates.precombine("andn", control, in0, params=self.params)
+        both = self.bootstrap_raw(torch.stack([pre_a, pre_b]))
+        return self._gate("or", both[0], both[1])

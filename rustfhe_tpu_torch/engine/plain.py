@@ -1,0 +1,103 @@
+"""Plain torch versions of the engine's products.
+
+Counterpart of ``rustfhe_tpu/engine/matmul.py``.  Every product here is a
+float64 matrix product of small integers against 32-bit key words, with
+every partial sum an integer below 2^53, so float64 carries it exactly in
+any summation order; the result is reduced mod 2^32 (``_u32.wrap``).  TF32
+settings apply to float32 only and do not touch these products.
+
+* ``external_product``: the plain version of the external product that the
+  kernels of ``engine/cmux_k.py`` compute, against the prepared (doubled)
+  TRGSW table of ``prepare_trgsw``.
+* ``poly_mul_torus_binary``: torus poly times binary poly (encryption,
+  phase, keygen).
+* ``prepare_ksk`` / ``key_switch_digits``: the identity key switch as one
+  mask product per digit value.  The JAX package runs it as plain XLA, not
+  Pallas, so it stays torch ops on the card too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._u32 import wrap
+from ..params import TFHEParams
+
+
+def prepare_trgsw(rows: torch.Tensor) -> torch.Tensor:
+    """TRGSW rows ``(..., 2L, 2, N)`` int32 -> doubled table
+    ``(..., 2L, 2, 2N)`` int32, ``T = [-q, q]`` per row polynomial q.
+
+    The negacyclic product out[k] = sum_i d[i] * q[(k - i) mod^- N] reads
+    ``T[k - i + N]`` for every k, i in [0, N): k >= i lands in the upper
+    half (q[k - i]), k < i in the lower half (-q[k - i + N]).  No index
+    needs a reduction, and no sign is applied in the inner loop.
+    """
+    return torch.cat([-rows, rows], dim=-1).contiguous()
+
+
+def _circulant(table: torch.Tensor) -> torch.Tensor:
+    """Doubled table ``(2L, 2, 2N)`` -> float64 ``(2L*N, 2*N)`` with
+    C[(j, i), (c, k)] = T[j, c, k - i + N]."""
+    two_l, _, tn = table.shape
+    N = tn // 2
+    ar = torch.arange(N, device=table.device)
+    idx = ar[None, :] - ar[:, None] + N  # (i, k)
+    circ = table[:, :, idx]  # (2L, 2, i, k)
+    return circ.permute(0, 2, 1, 3).reshape(two_l * N, 2 * N).to(torch.float64)
+
+
+def external_product(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """ExtProd(rows, digits) from the doubled table.
+
+    ``digits`` int8 ``(B, 2L, N)``; ``table`` int32 ``(2L, 2, 2N)``
+    (``prepare_trgsw``).  Returns int32 ``(B, 2, N)``.
+
+    Exactness: |d| <= 128 and |T| <= 2^31, so |sum| <= 2L*N * 2^7 * 2^31,
+    below 2^53 while 2L*N <= 2^15 (DEFAULT_PARAMS: 6144 * 2^38 ~ 2^50.6).
+    """
+    if digits.dtype != torch.int8:
+        raise TypeError(f"digits must be int8, got {digits.dtype}")
+    two_l, _, tn = table.shape
+    N = tn // 2
+    if two_l * N > 1 << 15:
+        raise ValueError(f"2L*N = {two_l * N} breaks the float64 exactness bound")
+    B = digits.shape[0]
+    d = digits.reshape(B, two_l * N).to(torch.float64)
+    out = d @ _circulant(table)
+    return wrap(out).reshape(B, 2, N)
+
+
+def poly_mul_torus_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Negacyclic product of torus poly(s) ``a (..., N)`` int32 by the
+    binary poly ``s (N,)``, exact mod 2^32 (|sum| <= N * 2^31 < 2^53)."""
+    N = a.shape[-1]
+    sd = torch.cat([s, -s]).to(torch.float64)
+    ar = torch.arange(N, device=a.device)
+    circ = sd[torch.remainder(ar[None, :] - ar[:, None], 2 * N)]  # (i, k)
+    return wrap(a.to(torch.float64) @ circ)
+
+
+def prepare_ksk(ksk_raw: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """Raw KSK int32 ``(N, iks_l, T, n+1)`` -> float64
+    ``(T-1, N*iks_l, n+1)``: slot t-1 is the row that digit value t selects
+    (digits lie in [0, T), and digit 0 selects nothing)."""
+    used = ksk_raw[:, :, : params.iks_t - 1, :]
+    rows = params.N * params.iks_l
+    return used.permute(2, 0, 1, 3).reshape(params.iks_t - 1, rows, -1).to(torch.float64)
+
+
+def key_switch_digits(ksk: torch.Tensor, digits: torch.Tensor,
+                      params: TFHEParams) -> torch.Tensor:
+    """sum_{i,l} KSK[i, l, digits[..., i, l]] as int32 ``(..., n+1)``.
+
+    One (digit == t) mask product per digit value t; |sum| <= 3 * N*iks_l
+    * 2^31 = 2^45.6 at DEFAULT_PARAMS, exact in float64.
+    """
+    lead = digits.shape[:-2]
+    d = digits.reshape(-1, params.N * params.iks_l)
+    out = None
+    for t in range(1, params.iks_t):
+        part = (d == t).to(torch.float64) @ ksk[t - 1]
+        out = part if out is None else out + part
+    return wrap(out).reshape(lead + (ksk.shape[-1],))

@@ -1,0 +1,107 @@
+"""Key generation and the keys carried across from the JAX package.
+
+Counterpart of ``rustfhe_tpu/keys.py`` (standard keys only):
+  * the secret keys, lv0 (n,) and lv1 (N,) bits;
+  * the raw evaluation keys, engine-independent: BK int32 (n, 2L, 2, N),
+    n TRGSW encryptions of the lv0 bits under lv1, and KSK int32
+    (N, iks_l, T, n+1), TLWE encryptions of (t+1) * s1_i / 2^(basebit*(l+1));
+  * the prepared cloud key: BK as the doubled tables the step kernel reads
+    (``engine.plain.prepare_trgsw``, 62 MB at DEFAULT_PARAMS) and the KSK
+    as float64 slot rows (``engine.plain.prepare_ksk``).
+
+``from_jax_keys`` takes the numpy uint32 arrays of the JAX package's
+``gen_secret_key`` / ``gen_cloud_key_raw``: raw keys are the whole
+"weights carried across" step, so the two packages can be compared on one
+key set.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import tlwe, trgsw
+from ._u32 import from_numpy
+from .engine.plain import prepare_ksk, prepare_trgsw
+from .params import TFHEParams
+from .utils.rng import binary_array
+
+
+class SecretKey(NamedTuple):
+    """lv0: (n,) int32 bits; lv1: (N,) int32 bits."""
+
+    lv0: torch.Tensor
+    lv1: torch.Tensor
+
+
+class CloudKey(NamedTuple):
+    """bk: doubled TRGSW tables int32 (n, 2L, 2, 2N); ksk: float64
+    (T-1, N*iks_l, n+1)."""
+
+    bk: torch.Tensor
+    ksk: torch.Tensor
+
+
+def gen_secret_key(gen: torch.Generator, params: TFHEParams, device) -> SecretKey:
+    return SecretKey(
+        lv0=binary_array(gen, (params.n,), device),
+        lv1=binary_array(gen, (params.N,), device),
+    )
+
+
+def gen_bootstrapping_key_raw(gen: torch.Generator, sk: SecretKey,
+                              params: TFHEParams) -> torch.Tensor:
+    """Raw BK int32 (n, 2L, 2, N): TRGSW(s0_i) under s1."""
+    return trgsw.encrypt_int(gen, sk.lv1, sk.lv0, params)
+
+
+def gen_key_switching_key_raw(gen: torch.Generator, sk: SecretKey,
+                              params: TFHEParams) -> torch.Tensor:
+    """Raw KSK int32 (N, iks_l, T, n+1); slot t encrypts
+    (t+1) * s1_i * 2^(32 - basebit*(l+1)) (wrapping) under lv0."""
+    dev = sk.lv1.device
+    t_vals = torch.arange(1, params.iks_t + 1, dtype=torch.int32, device=dev)
+    shifts = torch.tensor([32 - params.iks_basebit * (l + 1) for l in range(params.iks_l)],
+                          dtype=torch.int32, device=dev)
+    msgs = (sk.lv1[:, None, None] * t_vals[None, None, :]) << shifts[None, :, None]
+    return tlwe.encrypt_torus(gen, sk.lv0, msgs, params)
+
+
+def gen_cloud_key_raw(gen: torch.Generator, sk: SecretKey, params: TFHEParams):
+    """(bk_raw, ksk_raw) int32 on the device of ``sk``."""
+    bk_raw = gen_bootstrapping_key_raw(gen, sk, params)
+    return bk_raw, gen_key_switching_key_raw(gen, sk, params)
+
+
+def prepare_cloud_key(bk_raw: torch.Tensor, ksk_raw: torch.Tensor,
+                      params: TFHEParams) -> CloudKey:
+    return CloudKey(bk=prepare_trgsw(bk_raw), ksk=prepare_ksk(ksk_raw, params))
+
+
+def gen_keys(gen: torch.Generator, params: TFHEParams, device) -> tuple[SecretKey, CloudKey]:
+    """One-call keygen on ``device``: (SecretKey, CloudKey)."""
+    sk = gen_secret_key(gen, params, device)
+    return sk, prepare_cloud_key(*gen_cloud_key_raw(gen, sk, params), params)
+
+
+def from_jax_keys(lv0, lv1, bk_raw, ksk_raw, params: TFHEParams,
+                  device) -> tuple[SecretKey, CloudKey]:
+    """The JAX package's keys (numpy uint32 arrays: lv0 (n,), lv1 (N,),
+    bk_raw (n, 2L, 2, N), ksk_raw (N, iks_l, T, n+1)) -> the port's keys
+    on ``device``."""
+    shapes = {
+        "lv0": (params.n,),
+        "lv1": (params.N,),
+        "bk_raw": (params.n, 2 * params.l, 2, params.N),
+        "ksk_raw": (params.N, params.iks_l, params.iks_t, params.n + 1),
+    }
+    arrays = {"lv0": lv0, "lv1": lv1, "bk_raw": bk_raw, "ksk_raw": ksk_raw}
+    t = {}
+    for name, want in shapes.items():
+        arr = arrays[name]
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(arr.shape)}, expected {want}")
+        t[name] = from_numpy(arr, device)
+    sk = SecretKey(lv0=t["lv0"], lv1=t["lv1"])
+    return sk, prepare_cloud_key(t["bk_raw"], t["ksk_raw"], params)

@@ -1,0 +1,71 @@
+"""The CUDA kernels K1 and K2 against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no jax, so it also runs on a GPU host that has no jax, with the
+JAX-side conftest left out:
+
+    python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py
+
+Inputs come from numpy seeds; comparisons are exact (words mod 2^32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rustfhe_tpu_torch import TFHE, _u32, engine, params
+from rustfhe_tpu_torch.engine import cmux_k, oracle, plain
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(seed, B, p):
+    rs = np.random.RandomState(seed)
+    rows = rs.randint(0, 2**32, size=(2 * p.l, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    acc = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    acc[0, 0, :5] = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    ai = rs.randint(0, 2 * p.N, size=(B,)).astype(np.int32)
+    ai[:4] = [0, 1, p.N, 2 * p.N - 1]
+    digits = rs.randint(-128, 128, size=(B, 2 * p.l, p.N)).astype(np.int8)
+    return rows, acc, ai, digits
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
+def test_cmux_step_kernel_matches_plain(cuda, name):
+    p = getattr(params, name)
+    rows, acc, ai, _ = _case(37, 13, p)  # 13 samples: a ragged last tile
+    key = plain.prepare_trgsw(_u32.from_numpy(rows))
+    want = cmux_k.cmux_step(_u32.from_numpy(acc), torch.from_numpy(ai), key, p)
+    before = cmux_k.cmux_step.launches
+    got = cmux_k.cmux_step(_u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda),
+                           key.to(cuda), p)
+    assert cmux_k.cmux_step.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
+def test_external_product_kernel_matches_plain_and_oracle(cuda, name):
+    p = getattr(params, name)
+    rows, _, _, digits = _case(38, 13, p)
+    t_rows = _u32.from_numpy(rows)
+    key = plain.prepare_trgsw(t_rows)
+    d8 = torch.from_numpy(digits)
+    want = cmux_k.external_product(d8, key, p)
+    got = cmux_k.external_product(d8.to(cuda), key.to(cuda), p)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, oracle.external_product(t_rows, d8))
+
+
+def test_selector_and_gates_on_card(cuda):
+    p = params.TEST_PARAMS
+    assert engine.select_engine(p, cuda) == "cmux_k"
+    ctx = TFHE.new(5, p, device=cuda)
+    x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
+    before = cmux_k.cmux_step.launches
+    assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
+    assert cmux_k.cmux_step.launches == before + p.n
