@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's batched gate bootstrap once on a CUDA card.
+"""Drive the port's batched gate bootstrap and its interactive console once
+on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -25,7 +26,16 @@ from seed 0.  Phases, one line each:
      device time, the device's idle share, peak device memory, and the SM
      clock sampled by nvidia-smi during the pass);
   6. K1 on the real bootstrapping key: the first steps of both main-path
-     batches' blind rotations, kernel against plain version, bit for bit.
+     batches' blind rotations, kernel against plain version, bit for bit;
+  7. latency path: K3 (the single-launch blind rotation) against its plain
+     version and the K1 loop over all n steps, bit for bit, on random keys
+     at B = 1, 8, 32, 33; K3's time per rotation beside the K1 loop's and
+     the plain version's; then the nander console in latency mode
+     (``nander_console(..., latency_mode=True)``) on a fixed script, every
+     ``res:`` checked against ``PlainLogic``, with exactly one K3 launch
+     per blind rotation and no K1 launch; then K3 on the real latency key
+     from the real first accumulators, and the console's single-NAND
+     program layer by layer under ``torch.profiler``.
 
 Then one JSON line of kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -34,7 +44,9 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -42,11 +54,14 @@ import time
 import numpy as np
 import torch
 
-from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, trlwe
-from rustfhe_tpu_torch.engine import cmux_k, oracle, plain, probe_vectors
+from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, tlwe, trlwe
+from rustfhe_tpu_torch.apps import nander
+from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
+from rustfhe_tpu_torch.engine import build, cmux_k, oracle, plain, probe_vectors, rotate_all_k
 from rustfhe_tpu_torch.params import DEFAULT_PARAMS
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
+K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
@@ -350,6 +365,209 @@ def phase_real_key(ctx, p, batches):
     return err
 
 
+# --------------------------------------------------------------------- #
+# 7. The latency path: K3 and the nander console in latency mode
+# --------------------------------------------------------------------- #
+LATENCY_CHECK = (1, 8, 32, 33)            # K3 against plain and K1 loop, bit for bit
+LATENCY_TIMES = (1, 8, 32, 128, 256, 512)  # K3 and K1 loop per rotation
+PLAIN_TIMES = (1, 8, 32, 128)             # and the plain version
+# The console script: the 13 expressions of the JAX package's REPL tests,
+# one pipelined line of 32 single gates, and one parse error.
+EXPRS = [
+    "1", "0", "!1", "!!0",
+    "1 $ 0", "0 $ 0", "1 & 1", "1 | 0", "1 ^ 1",
+    "(1 & 0) ^ !0",
+    "1 & 1 & 0 | 1",
+    "((1|0)&(1^1))$(0|1)",
+    "!(1 & (0 | !1)) ^ (1 $ (0 ^ 1))",
+]
+PIPELINED = [f"{neg}{a} {op} {b}" for op in "$&|^" for a in "01" for b in "01"
+             for neg in ("", "!")]
+PARSE_ERROR = "1 & 2"
+SINGLE_NAND = ("1 $ 0", "0 $ 0")
+
+
+def rotation_case(rs, p, b, dev):
+    acc = words(rs, (b, 2, p.N), dev)
+    a = torch.from_numpy(rs.randint(0, 2 * p.N, size=(p.n, b)).astype(np.int32)).to(dev)
+    return acc, a
+
+
+def k1_loop(acc, a_steps, bk, p):
+    for i in range(p.n):
+        acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], p)
+    return acc
+
+
+def phase_latency_kernels(p, dev, rs, card):
+    """K3 against its plain version and the K1 loop over all n steps, on a
+    random key; then the three times per rotation."""
+    bk = plain.prepare_trgsw(words(rs, (p.n, 2 * p.l, 2, p.N), dev))
+    err = 0
+    for b in LATENCY_CHECK:
+        acc, a = rotation_case(rs, p, b, dev)
+        got = rotate_all_k.rotate_all(acc, a, bk, p)
+        err = max(err, exact(f"K3 B={b} vs plain", got, rotate_all_k.rotate_all_plain(acc, a, bk, p)),
+                  exact(f"K3 B={b} vs K1 loop", got, k1_loop(acc, a, bk, p)))
+    torch.cuda.synchronize()
+    log("latency", f"K3 bit-exact against its plain version and the K1 loop over all {p.n} "
+        f"steps, random key, B={', '.join(map(str, LATENCY_CHECK))}; the card holds "
+        f"{rotate_all_k.max_clusters(p)} K3 clusters at once")
+
+    times = {}
+    for b in LATENCY_TIMES:
+        acc, a = rotation_case(rs, p, b, dev)
+        k3, k1 = ab_ms(lambda: rotate_all_k.rotate_all(acc, a, bk, p),
+                       lambda: k1_loop(acc, a, bk, p), 2)
+        pl = cuda_ms(lambda: rotate_all_k.rotate_all_plain(acc, a, bk, p), 1) \
+            if b in PLAIN_TIMES else None
+        times[b] = (k3, k1, pl)
+        log("latency", f"B={b} on {card}: K3 {k3:.3f} ms per rotation, K1 loop {k1:.3f} ms, "
+            + (f"plain {pl:.3f} ms" if pl is not None else "plain not timed at this batch"))
+    return err, times
+
+
+def expected_rotations(script):
+    """Blind rotations the console runs for the script: one per level of
+    each fused plan (width 32, 128 wires: the console's capacities on the
+    card), none for a constant."""
+    fused = FusedEvaluator(None, width=32, max_wires=128)  # planning only
+    total = 0
+    for line in script:
+        if ";" in line:
+            asts = [nander.parse_logic_expr(e) for e in line.split(";")]
+            plan = fused._plan_many(asts)
+            if plan is None:
+                raise AssertionError("the pipelined line does not fit the fused evaluator")
+            total += 0 if plan[0] == "const" else len(plan[2])
+            continue
+        try:
+            plan = fused._plan(nander.parse_logic_expr(line))
+        except nander.ParseError:
+            continue
+        if plan is None:
+            raise AssertionError(f"{line!r} does not fit the fused evaluator")
+        total += 0 if plan[0] == "const" else len(plan[3]) + 1
+    return total
+
+
+def phase_console(p, dev, card):
+    """The nander console in latency mode on the fixed script: every res:
+    line against PlainLogic, one K3 launch per blind rotation, no K1."""
+    plain_logic = nander.PlainLogic()
+    script = EXPRS + ["; ".join(PIPELINED), PARSE_ERROR]
+    want_rot = expected_rotations(script)
+    out = io.StringIO()
+    cmux_k.reset_counters()
+    rotate_all_k.rotate_all.launches = 0
+    t0 = time.perf_counter()
+    nander.nander_console(p, dev, io.StringIO("\n".join(script) + "\n"), out,
+                          latency_mode=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k3": rotate_all_k.rotate_all.launches, "k1": cmux_k.cmux_step.launches,
+                "k2": cmux_k.external_product.launches}
+    if launches["k3"] != want_rot or launches["k1"] != 0:
+        raise AssertionError(f"console launches {launches}, expected K3 = {want_rot} "
+                             "(one per blind rotation) and no K1")
+
+    lines = out.getvalue().splitlines()
+    res = [ln for ln in lines if ln.startswith("res: ")]
+    tms = [ln for ln in lines if ln.startswith("time: ")]
+    if len(res) != len(EXPRS) + 1 or len(tms) != len(res):
+        raise AssertionError("console output:\n" + out.getvalue())
+    for e, ln in zip(EXPRS, res):
+        want = nander.eval_logic_expr(plain_logic, nander.parse_logic_expr(e))
+        if ln != f"res: {want}":
+            raise AssertionError(f"console: {e!r} gave {ln!r}, want res: {want}")
+    want = " ".join(str(nander.eval_logic_expr(plain_logic, nander.parse_logic_expr(e)))
+                    for e in PIPELINED)
+    if res[-1] != f"res: {want}":
+        raise AssertionError(f"console: pipelined line gave {res[-1]!r}, want res: {want}")
+    if not any(ln.startswith("parse error: ") for ln in lines):
+        raise AssertionError("console: no parse error for " + repr(PARSE_ERROR))
+
+    us = [float(re.match(r"time: (\d+) us", t).group(1)) for t in tms]
+    nand_us = [us[EXPRS.index(e)] for e in SINGLE_NAND]
+    per_expr = float(re.search(r"(\d+) us/expr", tms[-1]).group(1))
+    log("console", f"nander console, latency mode, on {card}: {len(res)} res: lines correct "
+        f"({len(EXPRS)} expressions, {len(PIPELINED)} pipelined, 1 parse error); "
+        f"K3 {launches['k3']} launches = {want_rot} blind rotations, K1 0, K2 "
+        f"{launches['k2']} (engine probe); single NAND {', '.join(f'{x:.0f}' for x in nand_us)} us "
+        f"per expression; pipelined {per_expr:.0f} us/expr ({len(PIPELINED)} in "
+        f"{us[-1] / 1e3:.1f} ms); script {wall:.1f} s with keygen")
+    return launches
+
+
+def phase_latency_real_key(p, dev, seed):
+    """K3 on the real latency key, from the real first accumulators of a
+    single NAND and a batch of 32, against its plain version and the K1 loop."""
+    ctx = TFHE.new(seed, p, device=dev, latency_mode=True)
+    bk = ctx.ck.bk.bk
+    testvec = trlwe.trivial(torch.full((p.N,), p.mu, dtype=torch.int32, device=dev))
+    err = 0
+    for b in (1, 32):
+        bits = np.arange(2 * b) % 2
+        cx, cy = ctx.encrypt(bits[:b]), ctx.encrypt(bits[b:])
+        acc, a = bootstrap.rotation_start(gates.precombine("nand", cx, cy, params=p), testvec, p)
+        got = rotate_all_k.rotate_all(acc, a, bk, p)
+        err = max(err, exact(f"K3 real key B={b} vs plain", got,
+                             rotate_all_k.rotate_all_plain(acc, a, bk, p)),
+                  exact(f"K3 real key B={b} vs K1 loop", got, k1_loop(acc, a, bk, p)))
+        lv0 = bootstrap.identity_key_switch(trlwe.sample_extract(got, 0), ctx.ck.ksk, p)
+        check_bits(f"NAND B={b}", ctx.decrypt(lv0).cpu().numpy(), 1 - (bits[:b] & bits[b:]))
+    log("latency", "K3 bit-exact against its plain version and the K1 loop on the real "
+        "latency key from the real first accumulators (B=1, 32); the NANDs decrypt correctly")
+    return err, ctx
+
+
+def phase_latency_profile(ctx, p, card):
+    """The console's single-gate program for one NAND (``1 $ 0``), layer by
+    layer (host clock around synchronised work), under torch.profiler."""
+    fused = FusedEvaluator(ctx, width=32, max_wires=128)
+    _, leaf_bits, _, _, (iab, coeff), root_neg = fused._plan(nander.parse_logic_expr("1 $ 0"))
+    leaves = np.full(fused.max_wires, 2, np.uint32)
+    leaves[: len(leaf_bits)] = leaf_bits
+    nonce = np.zeros(p.n, np.uint32)
+    testvec = trlwe.trivial(torch.full((p.N,), p.mu, dtype=torch.int32, device=ctx.device))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    fused.eval_bit(nander.parse_logic_expr("1 $ 0"))  # warm-up
+    before = rotate_all_k.rotate_all.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        wires, t_wires = timed(lambda: fused._init_wires(leaves, nonce))
+        idx = fused._index(iab)
+        pre, t_pre = timed(lambda: fused._precombine(wires[idx[0]], wires[idx[1]],
+                                                     fused._words(coeff)))
+        acc, t_rot = timed(lambda: bootstrap.blind_rotate(pre, ctx.ck.bk, testvec, p))
+        lv1, t_ext = timed(lambda: trlwe.sample_extract(acc, 0))
+        bit, t_dec = timed(lambda: int(tlwe.decrypt_binary(lv1, ctx.sk.lv1)))
+        wall = (time.perf_counter() - t0) * 1e3
+    if rotate_all_k.rotate_all.launches - before != 1 or bit ^ root_neg != 1:
+        raise AssertionError("the profiled single NAND did not run one K3 launch to 1")
+    log("breakdown", f"console single NAND on {card}, profiled: wire file {t_wires:.2f} ms, "
+        f"precombine {t_pre:.2f} ms, blind rotate {t_rot:.2f} ms (1 K3 launch), sample "
+        f"extract {t_ext:.2f} ms, lv1 decrypt {t_dec:.2f} ms; {wall:.2f} ms in all")
+    dev_ms = device_times(prof)
+    busy = sum(dev_ms.values())
+    k3 = sum(v for k, v in dev_ms.items() if "rotate_all_kernel" in k)
+    if busy > 0:
+        log("profile", f"console single NAND on {card}: device busy {busy:.2f} ms of "
+            f"{wall:.2f} ms wall, idle share {1 - busy / wall:.4f}; rotate_all_kernel "
+            f"{k3:.2f} ms ({k3 / busy:.2%} of device time); {len(dev_ms)} kernels by name")
+    else:
+        log("profile", f"console single NAND on {card}: the profiler saw no device time "
+            "(device breakdown not measured)")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -363,19 +581,22 @@ def main() -> int:
     # 1. environment
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card = card.splitlines()[0]
-    nvcc = run([cmux_k._nvcc(), "--version"]).splitlines()[-1]
+    nvcc = run([build.nvcc(), "--version"]).splitlines()[-1]
     log("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, {nvcc}; "
         f"device {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
         f"nvidia-smi: {card}")
 
-    # 2. build
+    # 2. build: one nvcc per source, side by side
     t0 = time.perf_counter()
-    lib, report = cmux_k.build()
+    libs = build.build()
     cmux_k.load_library()
-    log("build", f"{lib.name} from {KERNEL_SOURCE} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", "ptxas: " + line.strip())
+    rotate_all_k.load_library()
+    log("build", f"{', '.join(lib.name for lib, _ in libs.values())} from "
+        f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
+    for lib, report in libs.values():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("build", "ptxas: " + line.strip())
 
     # 3. kernels against their plain versions
     rs = np.random.RandomState(SEED)
@@ -396,6 +617,15 @@ def main() -> int:
     # 6. K1 on the real key, after the main path's counts were read
     nand_pre = gates.precombine("nand", cx, cy, params=p)
     errs["k1"] = max(errs["k1"], phase_real_key(ctx, p, (mixed_pre, nand_pre)))
+    del ctx, mixed_pre, cx, cy, nand_pre
+
+    # 7. the latency path: K3 checks and times, then the console with the
+    # launch counts of its run only, then K3 on the real latency key
+    errs["k3"], k3_times = phase_latency_kernels(p, dev, rs, card)
+    lat = phase_console(p, dev, card)
+    err, lat_ctx = phase_latency_real_key(p, dev, SEED)
+    errs["k3"] = max(errs["k3"], err)
+    phase_latency_profile(lat_ctx, p, card)
 
     kernels = [
         {"name": "cmux_step_k", "route": "cuda", "source": KERNEL_SOURCE,
@@ -404,6 +634,9 @@ def main() -> int:
         {"name": "external_product_k", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "rustfhe_tpu/engine/pallas_k.py:506", "launches": launches["k2"],
          "max_abs_err": errs["k2"], "ms": times["k2"][0], "plain_ms": times["k2"][1]},
+        {"name": "rotate_all_k", "route": "cuda", "source": K3_SOURCE,
+         "replaces": "rustfhe_tpu/engine/pallas_k.py:432", "launches": lat["k3"],
+         "max_abs_err": errs["k3"], "ms": k3_times[1][0], "plain_ms": k3_times[1][2]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

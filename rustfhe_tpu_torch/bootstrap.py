@@ -11,18 +11,26 @@ gates inside each launch.  Scaling matches the reference exactly:
 
 The shifts are logical: on int32 words an arithmetic shift would make
 b~ and a~ negative for words >= 2^31.
+
+A latency-mode key (``keys.LatencyBK``) at a flattened batch of at most
+``rotate_all_k.MAX_BATCH`` runs the whole rotation as one launch of K3
+(``engine.rotate_all_k.rotate_all``), the JAX package's latency branch
+(``rustfhe_tpu/bootstrap.py:66-75``).  A larger batch warns once per key
+and takes the K1 loop, as the JAX engine's ``rotate_all_steps`` does.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
 from . import poly, trlwe
 from ._u32 import srl
 from .decomp import decompose_unsigned
-from .engine import cmux_k
+from .engine import cmux_k, rotate_all_k
 from .engine.plain import key_switch_digits
-from .keys import CloudKey
+from .keys import CloudKey, LatencyBK
 from .params import TFHEParams
 
 
@@ -39,13 +47,25 @@ def rotation_start(ct: torch.Tensor, testvec: torch.Tensor,
     return acc, a_tilde.t().contiguous()
 
 
-def blind_rotate(ct: torch.Tensor, bk: torch.Tensor, testvec: torch.Tensor,
+def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK, testvec: torch.Tensor,
                  params: TFHEParams) -> torch.Tensor:
     """Rotate ``testvec (2, N)`` by the encrypted phase of lv0 TLWE ``ct
-    (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N).  Returns
-    int32 (..., 2, N)."""
+    (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N), or it as a
+    latency key.  Returns int32 (..., 2, N)."""
     lead = ct.shape[:-1]
     acc, a_steps = rotation_start(ct.reshape(-1, params.n + 1), testvec, params)
+    if isinstance(bk, LatencyBK):
+        if acc.shape[0] <= rotate_all_k.MAX_BATCH:
+            acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
+            return acc.reshape(lead + (2, params.N))
+        if not bk.warned:
+            bk.warned = True
+            warnings.warn(
+                f"latency-mode key used for a flattened batch of {acc.shape[0]} > "
+                f"{rotate_all_k.MAX_BATCH}: the single-launch rotation K3 is slower "
+                "than the per-step kernel K1 there, and this call takes the K1 loop; "
+                "use the standard key for large batches", stacklevel=2)
+        bk = bk.bk
     for i in range(params.n):
         acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], params)
     return acc.reshape(lead + (2, params.N))

@@ -1,9 +1,10 @@
 """High-level TFHE context: the user-facing object API.
 
-Counterpart of ``rustfhe_tpu/context.py`` (keygen, encrypt/decrypt and the
-gate set; the typed-integer, PBS, seeded and public-key methods are not
-ported yet).  Randomness comes from one ``torch.Generator`` on the
-context's device, used for keygen and then for every encryption.
+Counterpart of ``rustfhe_tpu/context.py`` (keygen, the latency mode, the
+key cache, encrypt/decrypt and the gate set; the typed-integer, PBS,
+seeded and public-key methods are not ported yet).  Randomness comes from
+one ``torch.Generator`` on the context's device, used for keygen and then
+for every encryption.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from . import gates, tlwe, torus
 from .engine import select_engine
-from .keys import CloudKey, SecretKey, gen_keys
+from .keys import CloudKey, SecretKey, cloud_key_latency, gen_keys
 from .params import DEFAULT_PARAMS, TFHEParams
 
 
@@ -35,11 +36,21 @@ class TFHE:
 
     @classmethod
     def new(cls, seed_or_generator, params: TFHEParams = DEFAULT_PARAMS,
-            device="cpu") -> "TFHE":
+            device="cpu", latency_mode: bool = False,
+            keyfile: str | None = None) -> "TFHE":
         """Keygen on ``device`` from an int seed or a ``torch.Generator``
         that lives there.  The engine is admitted on the device first
         (``engine.select_engine``: K2 against the oracle), and a CUDA
-        device that is not available raises."""
+        device that is not available raises.
+
+        ``latency_mode`` marks the bootstrapping key for the single-launch
+        rotation K3 (``keys.cloud_key_latency``): small batches, as an
+        interactive console evaluates, run one kernel launch per blind
+        rotation instead of n.  It adds no memory.
+        ``keyfile``: path prefix of the on-disk raw-key cache
+        (``utils.serialization.cached_keys``): keygen runs once, later
+        contexts load the keys.  A cached context reuses the same secret
+        key across runs."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested, but "
@@ -52,7 +63,14 @@ class TFHE:
             gen = torch.Generator(device=device)
             gen.manual_seed(int(seed_or_generator))
         engine_name = select_engine(params, device)
-        sk, ck = gen_keys(gen, params, device)
+        if keyfile:
+            from .utils.serialization import cached_keys
+
+            sk, ck = cached_keys(keyfile, gen, params, device, verbose=True)
+        else:
+            sk, ck = gen_keys(gen, params, device)
+        if latency_mode:
+            ck = cloud_key_latency(ck)
         return cls(sk, ck, params, device, gen, engine_name)
 
     # -------------------------- client side --------------------------- #

@@ -35,20 +35,24 @@
 //     vector (a broadcast within the warp) and one key word (a sliding
 //     window of 8 words held in registers), then issues 64 IMADs.
 // int8 tensor cores (wgmma), TMA and the Karatsuba split are later work.
+// The digit build and the multiply-add are in cmux_common.cuh, shared with
+// the single-launch rotation K3 (rotate_all_k.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cmux_common.cuh"
+
 namespace {
 
+using rustfhe::KPT;
+using rustfhe::pad_idx;
+
 constexpr int TB = 8;   // samples per block
-constexpr int KPT = 8;  // consecutive output coefficients per thread
 constexpr int MAX_THREADS = 256;
 
-__device__ __forceinline__ int pad_idx(int y) { return y + (y >> 3); }
-
 __host__ __device__ inline size_t key_plane_words(int N) {
-  return (size_t)(2 * N + (2 * N) / 8);
+  return (size_t)rustfhe::padded_words(2 * N);
 }
 
 __host__ inline size_t smem_bytes(int N, int two_l) {
@@ -67,52 +71,13 @@ __device__ __forceinline__ void load_key(uint32_t* key_s, const int32_t* __restr
   }
 }
 
-__device__ __forceinline__ int32_t sext8(uint32_t w, int byte) {
-  return (int32_t)(w << (24 - 8 * byte)) >> 24;
-}
-
 // acc[s][t] += sum_j sum_i dig[j][i][s] * T_j[k0 + t - i + N]
 __device__ __forceinline__ void accumulate(const uint32_t* key_s, const int8_t* dig_s,
                                            int two_l, int N, int k0,
                                            uint32_t (&acc)[TB][KPT]) {
   const int pw = (int)key_plane_words(N);
-  for (int j = 0; j < two_l; ++j) {
-    const uint32_t* T = key_s + j * pw;
-    const int8_t* D = dig_s + (size_t)j * N * TB;
-    // Sliding window: at digit index i, slot (t - i) & 7 holds T[k0 + t - i + N].
-    uint32_t w[KPT];
-#pragma unroll
-    for (int t = 0; t < KPT; ++t) w[t] = T[pad_idx(k0 + t + N)];
-    for (int i0 = 0; i0 < N; i0 += KPT) {
-#pragma unroll
-      for (int ii = 0; ii < KPT; ++ii) {
-        const int i = i0 + ii;
-        const uint2 dd = *reinterpret_cast<const uint2*>(D + (size_t)i * TB);
-        uint32_t d[TB];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          d[s] = (uint32_t)sext8(dd.x, s);
-          d[s + 4] = (uint32_t)sext8(dd.y, s);
-        }
-#pragma unroll
-        for (int s = 0; s < TB; ++s) {
-#pragma unroll
-          for (int t = 0; t < KPT; ++t) acc[s][t] += d[s] * w[(t - ii) & (KPT - 1)];
-        }
-        // Next index i+1 needs T[k0 - i - 1 + N] for t = 0, in the slot that
-        // held t = KPT-1 (no longer needed).  At i = N-1 this reads T[k0],
-        // still inside the table, and is never used.
-        w[(KPT - 1 - ii) & (KPT - 1)] = T[pad_idx(k0 - i - 1 + N)];
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(uint32_t (&acc)[TB][KPT]) {
-#pragma unroll
-  for (int s = 0; s < TB; ++s)
-#pragma unroll
-    for (int t = 0; t < KPT; ++t) acc[s][t] = 0u;
+  for (int j = 0; j < two_l; ++j)
+    rustfhe::accumulate_plane<TB>(key_s + j * pw, dig_s + (size_t)j * N * TB, N, k0, acc);
 }
 
 // K1.  acc, out: (B, 2, N) words; a_tilde: (B,) in [0, 2N) (reduced here
@@ -145,27 +110,17 @@ cmux_step_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__
       int a = a_tilde[b] % tn;
       if (a < 0) a += tn;
       const int32_t* poly = acc_in + ((size_t)b * 2 + p) * N;
-      int k = i - a;
-      if (k < 0) k += tn;
-      uint32_t v;
-      if (k >= N) {
-        v = 0u - (uint32_t)poly[k - N];
-      } else {
-        v = (uint32_t)poly[k];
-      }
-      const uint32_t diff = v - (uint32_t)poly[i];
-      u = (diff + mask) ^ mask;
+      const auto at = [poly](int x) { return (uint32_t)poly[x]; };
+      u = rustfhe::rounded_diff(rustfhe::rotated_coeff(at, i, a, N), at(i), mask);
     }
-    for (int lv = 0; lv < l; ++lv) {
-      const int32_t dg = live ? ((int32_t)(u << (bgbit * lv)) >> (32 - bgbit)) : 0;
-      dig_s[((size_t)(p * l + lv) * N + i) * TB + s] = (int8_t)dg;
-    }
+    for (int lv = 0; lv < l; ++lv)
+      dig_s[((size_t)(p * l + lv) * N + i) * TB + s] = live ? rustfhe::digit(u, lv, bgbit) : 0;
   }
   __syncthreads();
 
   const int k0 = threadIdx.x * KPT;
   uint32_t acc[TB][KPT];
-  zero(acc);
+  rustfhe::zero<TB>(acc);
   accumulate(key_s, dig_s, two_l, N, k0, acc);
 
 #pragma unroll
@@ -202,7 +157,7 @@ external_product_kernel(const int8_t* __restrict__ digits, const int32_t* __rest
 
   const int k0 = threadIdx.x * KPT;
   uint32_t acc[TB][KPT];
-  zero(acc);
+  rustfhe::zero<TB>(acc);
   accumulate(key_s, dig_s, two_l, N, k0, acc);
 
 #pragma unroll

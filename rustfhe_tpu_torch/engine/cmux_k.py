@@ -3,8 +3,9 @@
 Counterpart of ``rustfhe_tpu/engine/pallas_k.py``: K1 replaces
 ``fused_cmux_step_k`` (pallas_k.py:295) and K2 ``fused_external_product_k``
 (pallas_k.py:506).  The kernels are CUDA C++ for sm_90a in
-``csrc/cmux_k.cu``, built with nvcc into a shared library with a plain C
-interface on first use and called through ctypes.
+``csrc/cmux_k.cu`` (with ``csrc/cmux_common.cuh``), built with nvcc into a
+shared library with a plain C interface on first use (``build``) and
+called through ctypes.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
@@ -17,73 +18,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from .. import poly
 from ..params import TFHEParams
-from . import plain
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "cmux_k.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-# --------------------------------------------------------------------- #
-# Build and bind
-# --------------------------------------------------------------------- #
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       f"{SOURCE} with the CUDA toolkit's nvcc")
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/cmux_k.cu`` into ``build/`` unless a library of the
-    same source already exists.  Returns (library path, nvcc's output: the
-    ptxas register and spill report, empty when the library was cached)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libcmux_k-{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
+from . import build, plain
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernel library.  Raises RuntimeError
-    when no CUDA device is available: the kernels never run elsewhere."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the CUDA kernels need a CUDA device, and "
-                           "torch.cuda.is_available() is False")
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    """Build (first use) and bind the library of ``csrc/cmux_k.cu``.
+    Raises RuntimeError when no CUDA device is available."""
+    lib = build.load("cmux_k")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rustfhe_cmux_step_k.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_uint, vp]
     lib.rustfhe_cmux_step_k.restype = ci

@@ -1,6 +1,6 @@
 """Key generation and the keys carried across from the JAX package.
 
-Counterpart of ``rustfhe_tpu/keys.py`` (standard keys only):
+Counterpart of ``rustfhe_tpu/keys.py`` (standard and latency keys):
   * the secret keys, lv0 (n,) and lv1 (N,) bits;
   * the raw evaluation keys, engine-independent: BK int32 (n, 2L, 2, N),
     n TRGSW encryptions of the lv0 bits under lv1, and KSK int32
@@ -8,6 +8,10 @@ Counterpart of ``rustfhe_tpu/keys.py`` (standard keys only):
   * the prepared cloud key: BK as the doubled tables the step kernel reads
     (``engine.plain.prepare_trgsw``, 62 MB at DEFAULT_PARAMS) and the KSK
     as float64 slot rows (``engine.plain.prepare_ksk``).
+
+The latency-mode key (``cloud_key_latency``, counterpart of
+``cloud_key_panels``) marks the bootstrapping key as ``LatencyBK``, so that
+``bootstrap.blind_rotate`` runs the whole rotation as one launch of K3.
 
 ``from_jax_keys`` takes the numpy uint32 arrays of the JAX package's
 ``gen_secret_key`` / ``gen_cloud_key_raw``: raw keys are the whole
@@ -17,6 +21,7 @@ key set.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -35,11 +40,24 @@ class SecretKey(NamedTuple):
     lv1: torch.Tensor
 
 
-class CloudKey(NamedTuple):
-    """bk: doubled TRGSW tables int32 (n, 2L, 2, 2N); ksk: float64
-    (T-1, N*iks_l, n+1)."""
+@dataclass(eq=False)
+class LatencyBK:
+    """A bootstrapping key marked for the latency path: the same prepared
+    tables (``bk``, int32 (n, 2L, 2, 2N)), which ``bootstrap.blind_rotate``
+    hands to the single-launch rotation K3 at small batches.  The mark
+    travels with the key itself, as the JAX package's panel form does, so
+    code that passes ``ck.bk`` alone keeps it.  ``warned`` records that the
+    above-cap warning was given for this key."""
 
     bk: torch.Tensor
+    warned: bool = False
+
+
+class CloudKey(NamedTuple):
+    """bk: doubled TRGSW tables int32 (n, 2L, 2, 2N), or those tables as a
+    ``LatencyBK``; ksk: float64 (T-1, N*iks_l, n+1)."""
+
+    bk: torch.Tensor | LatencyBK
     ksk: torch.Tensor
 
 
@@ -77,6 +95,16 @@ def gen_cloud_key_raw(gen: torch.Generator, sk: SecretKey, params: TFHEParams):
 def prepare_cloud_key(bk_raw: torch.Tensor, ksk_raw: torch.Tensor,
                       params: TFHEParams) -> CloudKey:
     return CloudKey(bk=prepare_trgsw(bk_raw), ksk=prepare_ksk(ksk_raw, params))
+
+
+def cloud_key_latency(ck: CloudKey) -> CloudKey:
+    """The latency-mode cloud key (counterpart of ``cloud_key_panels``): the
+    bootstrapping key marked ``LatencyBK``.  K3 reads the standard prepared
+    tables, so no memory is added; the JAX package's panel-memory guard
+    (``_guard_panel_hbm``) has nothing to guard here."""
+    if isinstance(ck.bk, LatencyBK):
+        return ck
+    return CloudKey(bk=LatencyBK(ck.bk), ksk=ck.ksk)
 
 
 def gen_keys(gen: torch.Generator, params: TFHEParams, device) -> tuple[SecretKey, CloudKey]:

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 against their plain versions, on the card.
+"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from rustfhe_tpu_torch import TFHE, _u32, engine, params
-from rustfhe_tpu_torch.engine import cmux_k, oracle, plain
+from rustfhe_tpu_torch.engine import cmux_k, oracle, plain, rotate_all_k
 
 
 @pytest.fixture
@@ -69,3 +69,31 @@ def test_selector_and_gates_on_card(cuda):
     before = cmux_k.cmux_step.launches
     assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
     assert cmux_k.cmux_step.launches == before + p.n
+
+
+@pytest.mark.parametrize("N,B", [(64, 1), (64, 9), (1024, 3)])
+def test_rotate_all_kernel_matches_plain(cuda, N, B):
+    p = params.TFHEParams(n=13, N=N)
+    rs = np.random.RandomState(40 + B)
+    rows = rs.randint(0, 2**32, size=(p.n, 2 * p.l, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    acc = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    a = rs.randint(0, 2 * p.N, size=(p.n, B)).astype(np.int32)
+    a[:4, 0] = [0, p.N, 2 * p.N - 1, 1]
+    bk = plain.prepare_trgsw(_u32.from_numpy(rows))
+    t_acc, t_a = _u32.from_numpy(acc), torch.from_numpy(a)
+    want = rotate_all_k.rotate_all(t_acc, t_a, bk, p)
+    assert torch.equal(want, rotate_all_k.rotate_all_plain(t_acc, t_a, bk, p))
+    before = rotate_all_k.rotate_all.launches
+    got = rotate_all_k.rotate_all(t_acc.to(cuda), t_a.to(cuda), bk.to(cuda), p)
+    assert rotate_all_k.rotate_all.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_latency_mode_gates_on_card(cuda):
+    p = params.TEST_PARAMS
+    ctx = TFHE.new(6, p, device=cuda, latency_mode=True)
+    x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
+    k1, k3 = cmux_k.cmux_step.launches, rotate_all_k.rotate_all.launches
+    assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
+    assert cmux_k.cmux_step.launches == k1
+    assert rotate_all_k.rotate_all.launches == k3 + 1
