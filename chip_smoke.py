@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's batched gate bootstrap and its interactive console once
-on a CUDA card.
+"""Drive the port's batched gate bootstrap, its interactive console and its
+limb engine once on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -8,8 +8,9 @@ Run from the repository root, on a host with one NVIDIA H100:
 
 It takes no arguments.  It imports ``rustfhe_tpu_torch`` and nothing of
 JAX, and runs at DEFAULT_PARAMS (n=635, N=1024, l=3, Bg=2^6, key switch
-2x8), the reference's ~128-bit parameter set, with keys and inputs made
-from seed 0.  Phases, one line each:
+2x8), the reference's ~128-bit parameter set, and (phase 8) at
+FAST_PARAMS (l=2, Bg=2^8), with keys and inputs made from seed 0.
+Phases, one line each:
 
   1. environment: torch, CUDA, nvcc, the card;
   2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use);
@@ -35,7 +36,19 @@ from seed 0.  Phases, one line each:
      ``res:`` checked against ``PlainLogic``, with exactly one K3 launch
      per blind rotation and no K1 launch; then K3 on the real latency key
      from the real first accumulators, and the console's single-NAND
-     program layer by layer under ``torch.profiler``.
+     program layer by layer under ``torch.profiler``;
+  8. the limb engine (the JAX engine "pallas"): K4 (merged CMux step), K6
+     (c-split step) and K5 (external product) against their plain
+     versions, bit for bit (K5 also against the oracle), at FAST_PARAMS
+     (l=2, Bg=2^8) and DEFAULT_PARAMS, on the probe vectors and random
+     tiles at B = 1, 13, 33, 1024, 4096, and their times beside the plain
+     version and K1/K2; then the FAST_PARAMS path: ``TFHE.new`` picks the
+     limb engine, the mixed batch, the MUX second pass and three NAND
+     batches run K4 on every step and nothing else, and every lv0 output
+     equals that of a K1 context on the same keys (the preset is unsound
+     at n=635, so decrypt errors are counted, under a bound); then
+     DEFAULT_PARAMS through K4, K6 and K5 per step on phase 4's mixed
+     batch, every output decrypted and equal to phase 4's.
 
 Then one JSON line of kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -44,6 +57,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import re
@@ -57,11 +71,14 @@ import torch
 from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, tlwe, trlwe
 from rustfhe_tpu_torch.apps import nander
 from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
-from rustfhe_tpu_torch.engine import build, cmux_k, oracle, plain, probe_vectors, rotate_all_k
-from rustfhe_tpu_torch.params import DEFAULT_PARAMS
+from rustfhe_tpu_torch.engine import (build, cmux_k, limb_step, oracle, plain, probe_vectors,
+                                      rotate_all_k)
+from rustfhe_tpu_torch.keys import CloudKey
+from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
+LIMB_SOURCE = "rustfhe_tpu_torch/csrc/limb_step.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
@@ -110,13 +127,20 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns(fns: dict, iters: int) -> dict:
+    """Device time of each function, timed forward then backward through
+    ``fns`` (a, b, c, c, b, a) and averaged over the two turns."""
+    order = list(fns) + list(fns)[::-1]
+    acc = {k: [] for k in fns}
+    for k in order:
+        acc[k].append(cuda_ms(fns[k], iters))
+    return {k: sum(v) / len(v) for k, v in acc.items()}
+
+
 def ab_ms(kernel, plain_fn, iters: int) -> tuple[float, float]:
     """Times in turns (plain, kernel, kernel, plain); the mean of each pair."""
-    p1 = cuda_ms(plain_fn, iters)
-    k1 = cuda_ms(kernel, iters)
-    k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain_fn, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    t = turns({"plain": plain_fn, "kernel": kernel}, iters)
+    return t["kernel"], t["plain"]
 
 
 def words(rs, shape, dev):
@@ -186,26 +210,23 @@ def check_bits(name: str, got: np.ndarray, want: np.ndarray) -> None:
         raise AssertionError(f"{name}: {bad}/{len(want)} outputs decrypt wrong")
 
 
-def one_pass(fn, p):
-    """Run one bootstrap pass and check that it launched K1 once per step."""
-    before = cmux_k.cmux_step.launches
+def one_pass(fn, p, kernel=cmux_k.cmux_step):
+    """Run one bootstrap pass and check that it launched ``kernel`` (a
+    wrapper with a launch count; K1 unless said) once per step."""
+    before = kernel.launches
     out = fn()
     torch.cuda.synchronize()
-    launched = cmux_k.cmux_step.launches - before
+    launched = kernel.launches - before
     if launched != p.n:
-        raise AssertionError(f"a bootstrap pass launched K1 {launched} times, expected {p.n}")
+        raise AssertionError(f"a bootstrap pass launched {kernel.__name__} {launched} times, "
+                             f"expected {p.n}")
     return out
 
 
-def phase_main_path(p, dev):
-    """Keygen on the card, then bench.py's mixed truth-table batch and the
-    MUX second pass, every output decrypted and checked."""
-    t0 = time.perf_counter()
-    ctx = TFHE.new(SEED, p, device=dev)
-    torch.cuda.synchronize()
-    log("main", f"TFHE.new on {dev}: engine {ctx.engine_name} admitted by the K2 oracle "
-        f"probe, keys generated in {time.perf_counter() - t0:.2f} s")
-
+def mixed_batch(ctx, p):
+    """bench.py's mixed truth-table batch of MIXED gates: (segments (op, x
+    bits, y bits, pre), the whole pre-combined batch, the MUX combinations,
+    the expected bit of every lane)."""
     seg = MIXED // 8
     segs = []  # (op, x bits, y bits, pre)
     for op in ("nand", "and", "or", "xor"):
@@ -224,7 +245,23 @@ def phase_main_path(p, dev):
     pre = torch.cat([s[3] for s in segs])
     pad = MIXED - pre.shape[0]
     pre = torch.cat([pre, segs[0][3].repeat(pad // seg + 1, 1)[:pad]])
+    want = np.concatenate([TRUTH[op](x, y) if op in TRUTH else
+                           (x & y if op == "mux_a" else (1 - x) & y) for op, x, y, _ in segs])
+    want = np.concatenate([want, np.resize(TRUTH["nand"](segs[0][1], segs[0][2]), pad)])
+    return segs, pre, mx, want
 
+
+def phase_main_path(p, dev):
+    """Keygen on the card, then bench.py's mixed truth-table batch and the
+    MUX second pass, every output decrypted and checked."""
+    t0 = time.perf_counter()
+    ctx = TFHE.new(SEED, p, device=dev)
+    torch.cuda.synchronize()
+    log("main", f"TFHE.new on {dev}: engine {ctx.engine_name} admitted by the K2 oracle "
+        f"probe, keys generated in {time.perf_counter() - t0:.2f} s")
+
+    seg = MIXED // 8
+    segs, pre, mx, want = mixed_batch(ctx, p)
     t0 = time.perf_counter()
     out = one_pass(lambda: ctx.bootstrap_raw(pre), p)
     t_mixed = time.perf_counter() - t0
@@ -238,10 +275,11 @@ def phase_main_path(p, dev):
     out2 = one_pass(lambda: ctx.bootstrap_raw(pre_or.repeat(MIXED // seg, 1)), p)
     check_bits("mux", ctx.decrypt(out2[:seg]).cpu().numpy(),
                np.where(mx[:, 0] == 1, mx[:, 2], mx[:, 1]))
+    check_bits("mixed batch", dec, want)
     log("main", f"mixed batch of {MIXED} gates ({seg} each of NAND, AND, OR, XOR, NOT and "
         f"both MUX lanes) in {t_mixed:.3f} s, then the MUX second pass: every output "
         "decrypts correctly (NAND/AND/OR/XOR truth tables, NOT, MUX over all 8 combinations)")
-    return ctx, pre
+    return ctx, pre, out, want
 
 
 def sample_sm_clock():
@@ -567,6 +605,191 @@ def phase_latency_profile(ctx, p, card):
         log("profile", f"console single NAND on {card}: the profiler saw no device time "
             "(device breakdown not measured)")
 
+# --------------------------------------------------------------------- #
+# 8. The limb engine: K4, K5 and K6 (the JAX engine "pallas")
+# --------------------------------------------------------------------- #
+LIMB_CHECK = (1, 13, 33, MIXED, BATCH)  # random tiles, kernel against plain
+# FAST_PARAMS is unsound at n=635 (params.py): its decomposition rounding
+# makes a few outputs in a thousand decrypt wrong with any exact engine,
+# so its gate is word-for-word equality with the K1 path.  A broken
+# kernel gives about half wrong; this bound on the share of wrong outputs
+# tells the two apart.
+FAST_DECRYPT_BOUND = 0.02
+
+
+def phase_limb_kernels(dev, rs, card):
+    """K4, K6 and K5 against their plain versions, bit for bit (K5 also
+    against the oracle), at FAST_PARAMS and DEFAULT_PARAMS: the probe
+    vectors and random tiles at B = 1, 13, 33, 1024, 4096.  Then their
+    times beside the plain version and K1 (K2 for K5) at the same shape."""
+    errs = {"k4": 0, "k5": 0, "k6": 0}
+    times = {}
+    for tag, p in (("FAST", FAST_PARAMS), ("DEFAULT", DEFAULT_PARAMS)):
+        two_l, N, hb = 2 * p.l, p.N, p.half_bg
+        rows_np, digits_np = probe_vectors(p)
+        prows = _u32.from_numpy(rows_np, dev)
+        ptab = plain.prepare_trgsw_limbs(prows)
+        pd = torch.from_numpy(digits_np).to(torch.int8).to(dev)
+        got = limb_step.external_product(pd, ptab, p)
+        want = oracle.external_product(_u32.from_numpy(rows_np), torch.from_numpy(digits_np))
+        errs["k5"] = max(errs["k5"],
+                         exact(f"K5 probe {tag}", got, limb_step.external_product_plain(pd, ptab)),
+                         exact(f"K5 probe vs oracle {tag}", got, want))
+        # K4 and K6 on accumulators made from the probe rows, at edge rotations.
+        pacc = prows.repeat(2, 1, 1)[:6].contiguous()
+        pai = torch.tensor([0, 1, N - 1, N, N + 1, 2 * N - 1], dtype=torch.int32, device=dev)
+        pwant = limb_step.cmux_step_plain(pacc, pai, ptab, p)
+        errs["k4"] = max(errs["k4"], exact(f"K4 probe {tag}",
+                                           limb_step.cmux_step_merged(pacc, pai, ptab, p), pwant))
+        errs["k6"] = max(errs["k6"], exact(f"K6 probe {tag}",
+                                           limb_step.cmux_step_split(pacc, pai, ptab, p), pwant))
+        rows = words(rs, (two_l, 2, N), dev)
+        tab, key = plain.prepare_trgsw_limbs(rows), plain.prepare_trgsw(rows)
+        for b in LIMB_CHECK:
+            acc = words(rs, (b, 2, N), dev)
+            ai = torch.from_numpy(rs.randint(0, 2 * N, size=b).astype(np.int32)).to(dev)
+            want = limb_step.cmux_step_plain(acc, ai, tab, p)
+            errs["k4"] = max(errs["k4"], exact(f"K4 {tag} B={b}",
+                                               limb_step.cmux_step_merged(acc, ai, tab, p), want))
+            errs["k6"] = max(errs["k6"], exact(f"K6 {tag} B={b}",
+                                               limb_step.cmux_step_split(acc, ai, tab, p), want))
+            d = torch.from_numpy(rs.randint(-hb, hb, size=(b, two_l, N)).astype(np.int8)).to(dev)
+            errs["k5"] = max(errs["k5"], exact(f"K5 {tag} B={b}",
+                                               limb_step.external_product(d, tab, p),
+                                               limb_step.external_product_plain(d, tab)))
+        torch.cuda.synchronize()
+        log("limb", f"{tag}: K4, K6 and K5 bit-exact against their plain versions on {dev} "
+            f"(probe vectors, B={', '.join(map(str, LIMB_CHECK))}); K5 equals the oracle on "
+            "the probe vectors")
+
+        # Times at the path's shapes: the steps at B=4096, K5 there and at the probe's B=4.
+        t = turns({"plain": lambda: limb_step.cmux_step_plain(acc, ai, tab, p),
+                   "k1": lambda: cmux_k.cmux_step(acc, ai, key, p),
+                   "k4": lambda: limb_step.cmux_step_merged(acc, ai, tab, p),
+                   "k6": lambda: limb_step.cmux_step_split(acc, ai, tab, p)}, 5)
+        t5 = turns({"plain": lambda: limb_step.external_product_plain(d, tab),
+                    "k2": lambda: cmux_k.external_product(d, key, p),
+                    "k5": lambda: limb_step.external_product(d, tab, p)}, 5)
+        pkey = plain.prepare_trgsw(prows)
+        t5p = turns({"plain": lambda: limb_step.external_product_plain(pd, ptab),
+                     "k2": lambda: cmux_k.external_product(pd, pkey, p),
+                     "k5": lambda: limb_step.external_product(pd, ptab, p)}, 20)
+        times[tag] = {"step": t, "k5": t5, "k5_probe": t5p}
+        log("limb", f"{tag} on {card}, B={BATCH}, ms per step: K4 {t['k4']:.4f}, "
+            f"K6 {t['k6']:.4f}, K1 {t['k1']:.4f}, plain {t['plain']:.4f} | K5 "
+            f"{t5['k5']:.4f}, K2 {t5['k2']:.4f}, plain {t5['plain']:.4f} | at B=4 (probe): "
+            f"K5 {t5p['k5']:.4f}, K2 {t5p['k2']:.4f}, plain {t5p['plain']:.4f}")
+    return errs, times
+
+
+def fast_passes(ctx, p, kernel, pre, nand_in):
+    """The FAST path's passes with ``ctx``: the mixed batch, the MUX second
+    pass, then the NAND batch (a warm-up and two timed passes).  Each pass
+    launches ``kernel`` once per step.  Returns (the outputs, the best
+    NAND pass in seconds)."""
+    seg = MIXED // 8
+    out = one_pass(lambda: ctx.bootstrap_raw(pre), p, kernel)
+    pre_or = gates.precombine("or", out[5 * seg: 6 * seg], out[6 * seg: 7 * seg], params=p)
+    outs = [out, one_pass(lambda: ctx.bootstrap_raw(pre_or.repeat(MIXED // seg, 1)), p, kernel)]
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        outs.append(one_pass(lambda: ctx.nand(*nand_in), p, kernel))
+        if i:
+            times.append(time.perf_counter() - t0)
+    return outs, min(times)
+
+
+def phase_fast_path(dev, card):
+    """FAST_PARAMS at full width through ``TFHE.new``: the engine rule picks
+    the limb engine, every step runs K4 and K5 is the probe; every lv0
+    output equals, word for word, that of a K1 context on the same keys."""
+    p = FAST_PARAMS
+    cmux_k.reset_counters()
+    limb_step.reset_counters()
+    rotate_all_k.rotate_all.launches = 0
+    t0 = time.perf_counter()
+    ctx = TFHE.new(SEED, p, device=dev)
+    torch.cuda.synchronize()
+    probe = limb_step.external_product.launches
+    if ctx.engine_name != "limb" or probe < 1:
+        raise AssertionError(f"FAST_PARAMS: engine {ctx.engine_name}, {probe} K5 launches")
+    log("fast", f"TFHE.new(FAST_PARAMS) on {dev}: engine {ctx.engine_name} admitted by the "
+        f"K5 oracle probe, keys in {time.perf_counter() - t0:.2f} s")
+
+    segs, pre, mx, want = mixed_batch(ctx, p)
+    pat = np.tile(np.array([[0, 0], [1, 0], [0, 1], [1, 1]]), (BATCH // 4 + 1, 1))[:BATCH]
+    nand_in = (ctx.encrypt(pat[:, 0]), ctx.encrypt(pat[:, 1]))
+    outs, best = fast_passes(ctx, p, limb_step.cmux_step_merged, pre, nand_in)
+    passes = len(outs)
+    launches = {"k4": limb_step.cmux_step_merged.launches, "k6": limb_step.cmux_step_split.launches,
+                "k5": limb_step.external_product.launches, "k1": cmux_k.cmux_step.launches,
+                "k2": cmux_k.external_product.launches, "k3": rotate_all_k.rotate_all.launches}
+    if (launches["k4"] != passes * p.n or launches["k5"] != probe
+            or any(launches[k] for k in ("k1", "k2", "k3", "k6"))):
+        raise AssertionError(f"FAST path launches {launches}, expected K4 = {passes * p.n}, "
+                             f"K5 = {probe} (the probe) and no other kernel")
+
+    # Decrypt errors, counted: the mixed lanes, the MUX results, the NAND batches.
+    seg = MIXED // 8
+    wants = [want, np.resize(np.where(mx[:, 0] == 1, mx[:, 2], mx[:, 1]), MIXED)]
+    wants += [1 - (pat[:, 0] & pat[:, 1])] * 3
+    wrong = sum(int((ctx.decrypt(o).cpu().numpy() != w).sum()) for o, w in zip(outs, wants))
+    total = sum(len(w) for w in wants)
+    if wrong >= FAST_DECRYPT_BOUND * total:
+        raise AssertionError(f"FAST path: {wrong}/{total} outputs decrypt wrong")
+
+    # The K1 path on the same raw keys: the same seed draws the same words.
+    k1 = TFHE.new(SEED, p, device=dev, engine_name="cmux_k")
+    if not (torch.equal(k1.sk.lv0, ctx.sk.lv0) and torch.equal(k1.ck.ksk, ctx.ck.ksk)
+            and torch.equal(plain.prepare_trgsw_limbs(k1.ck.bk[..., p.N:]), ctx.ck.bk.table)):
+        raise AssertionError("the K1 context's keys differ from the limb context's")
+    k1_outs, k1_best = fast_passes(k1, p, cmux_k.cmux_step, pre, nand_in)
+    for i, (a, b) in enumerate(zip(outs, k1_outs)):
+        exact(f"FAST pass {i}: limb engine vs K1", a, b)
+    log("fast", f"FAST_PARAMS (n={p.n}, N={p.N}, l={p.l}, Bg=2^{p.bgbit}) on {card}: "
+        f"{passes} passes (mixed {MIXED} + MUX second pass + 3 NAND x {BATCH}); K4 "
+        f"{launches['k4']} launches = {passes} x {p.n}, K5 {probe} (probe), K1/K2/K3/K6 0; "
+        f"every lv0 output equals the K1 path's word for word; {wrong}/{total} outputs "
+        f"decrypt wrong (bound {FAST_DECRYPT_BOUND:.0%}); NAND B={BATCH}: limb "
+        f"{BATCH / best:.1f} gates/s ({best * 1e3:.1f} ms), K1 {BATCH / k1_best:.1f} gates/s "
+        f"({k1_best * 1e3:.1f} ms)")
+    return launches
+
+
+def phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want):
+    """DEFAULT_PARAMS through the limb engine chosen by name, on phase 4's
+    mixed batch: one pass each of K4, K6 (merge_c=False) and K5 per step
+    (fuse_step=False); every output decrypts correctly and all three equal
+    phase 4's K1 output word for word."""
+    p = DEFAULT_PARAMS
+    cmux_k.reset_counters()
+    limb_step.reset_counters()
+    ctx = TFHE.new(SEED, p, device=dev, engine_name="limb")
+    probe = limb_step.external_product.launches
+    wall = {}
+    forms = {"K4": (ctx.ck, limb_step.cmux_step_merged),
+             "K6": (CloudKey(dataclasses.replace(ctx.ck.bk, merge_c=False), ctx.ck.ksk),
+                    limb_step.cmux_step_split),
+             "K5 per step": (CloudKey(dataclasses.replace(ctx.ck.bk, fuse_step=False),
+                                      ctx.ck.ksk), limb_step.external_product)}
+    for form, (ck, kernel) in forms.items():
+        t0 = time.perf_counter()
+        out = one_pass(lambda: gates.hom_bootstrap(ck, mixed_pre, params=p), p, kernel)
+        wall[form] = time.perf_counter() - t0
+        check_bits(f"DEFAULT limb {form}", ctx.decrypt(out).cpu().numpy(), mixed_want)
+        exact(f"DEFAULT limb {form} vs K1", out, mixed_out)
+    launches = {"k4": limb_step.cmux_step_merged.launches, "k6": limb_step.cmux_step_split.launches,
+                "k5": limb_step.external_product.launches, "k1": cmux_k.cmux_step.launches}
+    if launches != {"k4": p.n, "k6": p.n, "k5": p.n + probe, "k1": 0}:
+        raise AssertionError(f"DEFAULT limb launches {launches}, expected K4 = K6 = {p.n}, "
+                             f"K5 = {p.n} + {probe} (probe), no K1")
+    log("limb", f"DEFAULT_PARAMS, engine limb by name, on {card}: the mixed batch of {MIXED} "
+        "through K4, K6 (merge_c=False) and K5 per step (fuse_step=False): every output "
+        "decrypts correctly and equals phase 4's K1 output word for word; launches "
+        f"{launches}; pass " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in wall.items()))
+    return launches
+
 
 def main() -> int:
     if len(sys.argv) > 1:
@@ -577,6 +800,7 @@ def main() -> int:
         return 1
     p = DEFAULT_PARAMS
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. environment
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -591,6 +815,7 @@ def main() -> int:
     libs = build.build()
     cmux_k.load_library()
     rotate_all_k.load_library()
+    limb_step.load_library()
     log("build", f"{', '.join(lib.name for lib, _ in libs.values())} from "
         f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for lib, report in libs.values():
@@ -604,7 +829,7 @@ def main() -> int:
 
     # 4-5. the main path, with the launch counts of this run only
     cmux_k.reset_counters()
-    ctx, mixed_pre = phase_main_path(p, dev)
+    ctx, mixed_pre, mixed_out, mixed_want = phase_main_path(p, dev)
     cx, cy, nand_passes = phase_nand(ctx, p, card)
     passes = 2 + nand_passes
     launches = {"k1": cmux_k.cmux_step.launches, "k2": cmux_k.external_product.launches}
@@ -617,7 +842,7 @@ def main() -> int:
     # 6. K1 on the real key, after the main path's counts were read
     nand_pre = gates.precombine("nand", cx, cy, params=p)
     errs["k1"] = max(errs["k1"], phase_real_key(ctx, p, (mixed_pre, nand_pre)))
-    del ctx, mixed_pre, cx, cy, nand_pre
+    del ctx, cx, cy, nand_pre
 
     # 7. the latency path: K3 checks and times, then the console with the
     # launch counts of its run only, then K3 on the real latency key
@@ -626,7 +851,17 @@ def main() -> int:
     err, lat_ctx = phase_latency_real_key(p, dev, SEED)
     errs["k3"] = max(errs["k3"], err)
     phase_latency_profile(lat_ctx, p, card)
+    del lat_ctx
 
+    # 8. the limb engine: K4, K6 and K5 against their plain versions and
+    # their times; the FAST_PARAMS path (K4 on every step) with the launch
+    # counts of its run only; DEFAULT_PARAMS through K4, K6 and K5 per step
+    limb_errs, limb_times = phase_limb_kernels(dev, rs, card)
+    errs.update(limb_errs)
+    fast = phase_fast_path(dev, card)
+    dflt = phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want)
+
+    fast_t = limb_times["FAST"]
     kernels = [
         {"name": "cmux_step_k", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "rustfhe_tpu/engine/pallas_k.py:295", "launches": launches["k1"],
@@ -637,7 +872,20 @@ def main() -> int:
         {"name": "rotate_all_k", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rustfhe_tpu/engine/pallas_k.py:432", "launches": lat["k3"],
          "max_abs_err": errs["k3"], "ms": k3_times[1][0], "plain_ms": k3_times[1][2]},
+        {"name": "limb_cmux_step_merged", "route": "cuda", "source": LIMB_SOURCE,
+         "replaces": "rustfhe_tpu/engine/pallas_step.py:363", "launches": fast["k4"],
+         "max_abs_err": errs["k4"], "ms": fast_t["step"]["k4"],
+         "plain_ms": fast_t["step"]["plain"]},
+        {"name": "limb_external_product", "route": "cuda", "source": LIMB_SOURCE,
+         "replaces": "rustfhe_tpu/engine/pallas_step.py:158", "launches": fast["k5"],
+         "max_abs_err": errs["k5"], "ms": fast_t["k5_probe"]["k5"],
+         "plain_ms": fast_t["k5_probe"]["plain"]},
+        {"name": "limb_cmux_step_split", "route": "cuda", "source": LIMB_SOURCE,
+         "replaces": "rustfhe_tpu/engine/pallas_step.py:267", "launches": dflt["k6"],
+         "max_abs_err": errs["k6"], "ms": fast_t["step"]["k6"],
+         "plain_ms": fast_t["step"]["plain"]},
     ]
+    log("done", f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

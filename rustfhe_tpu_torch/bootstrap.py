@@ -17,6 +17,11 @@ A latency-mode key (``keys.LatencyBK``) at a flattened batch of at most
 (``engine.rotate_all_k.rotate_all``), the JAX package's latency branch
 (``rustfhe_tpu/bootstrap.py:66-75``).  A larger batch warns once per key
 and takes the K1 loop, as the JAX engine's ``rotate_all_steps`` does.
+
+A limb key (``keys.LimbBK``) runs the limb engine, the JAX engine
+``"pallas"`` (``rustfhe_tpu/bootstrap.py:101-117``): one launch of K4 per
+step, of K6 with ``merge_c`` False, or, with ``fuse_step`` False, the
+rotation, difference and decomposition in torch and one launch of K5.
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ import torch
 from . import poly, trlwe
 from ._u32 import srl
 from .decomp import decompose_unsigned
-from .engine import cmux_k, rotate_all_k
+from .engine import cmux_k, limb_step, rotate_all_k
 from .engine.plain import key_switch_digits
-from .keys import CloudKey, LatencyBK
+from .keys import CloudKey, LatencyBK, LimbBK
+from .trgsw import decompose_trlwe
 from .params import TFHEParams
 
 
@@ -47,13 +53,29 @@ def rotation_start(ct: torch.Tensor, testvec: torch.Tensor,
     return acc, a_tilde.t().contiguous()
 
 
-def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK, testvec: torch.Tensor,
+def _limb_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: LimbBK,
                  params: TFHEParams) -> torch.Tensor:
+    if bk.fuse_step:
+        step = limb_step.cmux_step_merged if bk.merge_c else limb_step.cmux_step_split
+        for i in range(params.n):
+            acc = step(acc, a_steps[i], bk.table[i], params)
+        return acc
+    for i in range(params.n):
+        diff = poly.rotate(acc, a_steps[i][:, None]) - acc
+        digits = decompose_trlwe(diff, params).to(torch.int8)
+        acc = acc + limb_step.external_product(digits, bk.table[i], params)
+    return acc
+
+
+def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK,
+                 testvec: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """Rotate ``testvec (2, N)`` by the encrypted phase of lv0 TLWE ``ct
     (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N), or it as a
-    latency key.  Returns int32 (..., 2, N)."""
+    latency key, or a limb key.  Returns int32 (..., 2, N)."""
     lead = ct.shape[:-1]
     acc, a_steps = rotation_start(ct.reshape(-1, params.n + 1), testvec, params)
+    if isinstance(bk, LimbBK):
+        return _limb_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
     if isinstance(bk, LatencyBK):
         if acc.shape[0] <= rotate_all_k.MAX_BATCH:
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
@@ -71,7 +93,7 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK, testvec: torch.
     return acc.reshape(lead + (2, params.N))
 
 
-def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor, bk: torch.Tensor,
+def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK,
                                  params: TFHEParams) -> torch.Tensor:
     """lv0 TLWE -> lv1 TLWE encrypting mu * sign."""
     mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=ct.device)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import gates, tlwe, torus
-from .engine import select_engine
+from .engine import resolve_engine, select_engine
 from .keys import CloudKey, SecretKey, cloud_key_latency, gen_keys
 from .params import DEFAULT_PARAMS, TFHEParams
 
@@ -37,11 +37,18 @@ class TFHE:
     @classmethod
     def new(cls, seed_or_generator, params: TFHEParams = DEFAULT_PARAMS,
             device="cpu", latency_mode: bool = False,
-            keyfile: str | None = None) -> "TFHE":
+            keyfile: str | None = None, engine_name=None) -> "TFHE":
         """Keygen on ``device`` from an int seed or a ``torch.Generator``
         that lives there.  The engine is admitted on the device first
-        (``engine.select_engine``: K2 against the oracle), and a CUDA
-        device that is not available raises.
+        (``engine.select_engine``: its external product, K2 or K5, against
+        the oracle), and a CUDA device that is not available raises.
+
+        ``engine_name``: ``None`` picks the engine by the JAX package's
+        rule, as its ``TFHE.new(engine_name=None)`` does: ``"cmux_k"``
+        (K1-K3) for Bg <= 2^7, ``"limb"`` (K4-K6) for Bg = 2^8, so
+        FAST_PARAMS runs the limb engine.  A name or an engine instance
+        (``engine.LimbEngine(merge_c=False)``) is honoured.  The keys and
+        every encryption draw the same random words for either engine.
 
         ``latency_mode`` marks the bootstrapping key for the single-launch
         rotation K3 (``keys.cloud_key_latency``): small batches, as an
@@ -62,16 +69,17 @@ class TFHE:
         else:
             gen = torch.Generator(device=device)
             gen.manual_seed(int(seed_or_generator))
-        engine_name = select_engine(params, device)
+        name = select_engine(params, device, engine_name)
+        engine = resolve_engine(engine_name or name)
         if keyfile:
             from .utils.serialization import cached_keys
 
-            sk, ck = cached_keys(keyfile, gen, params, device, verbose=True)
+            sk, ck = cached_keys(keyfile, gen, params, device, verbose=True, engine=engine)
         else:
-            sk, ck = gen_keys(gen, params, device)
+            sk, ck = gen_keys(gen, params, device, engine)
         if latency_mode:
             ck = cloud_key_latency(ck)
-        return cls(sk, ck, params, device, gen, engine_name)
+        return cls(sk, ck, params, device, gen, name)
 
     # -------------------------- client side --------------------------- #
     def _bits(self, bits) -> torch.Tensor:

@@ -1,23 +1,86 @@
-"""Polynomial engine: the exactness probe and the engine selector.
+"""Polynomial engines: the exactness probe and the engine selector.
 
-Counterpart of ``rustfhe_tpu/engine/__init__.py``.  The port has one
-engine, dispatched by device: on a CUDA tensor the hand-written kernels of
-``cmux_k`` (K1, K2), on a CPU tensor their plain torch versions
-(``plain``).  ``select_engine`` admits it on a device only after K2
-reproduces the naive mod-2^32 oracle (``oracle``) on every adversarial
-probe pattern, on that device.  An inexact result or a failed launch
-raises; nothing cascades to another engine.
+Counterpart of ``rustfhe_tpu/engine/__init__.py``.  The port has two
+engines, each a family of hand-written CUDA kernels with the plain torch
+version of every kernel beside it; a wrapper launches its kernel on a CUDA
+tensor and runs the plain version on a CPU tensor:
+
+* ``"cmux_k"`` (``CmuxKEngine``): K1-K3 (``cmux_k``, ``rotate_all_k``) on
+  the int32 doubled key table, the counterpart of the JAX engines
+  ``pallas_k2`` and ``pallas_k``;
+* ``"limb"`` (``LimbEngine``): K4-K6 (``limb_step``) on the int8 limb
+  table, the counterpart of the JAX engine ``"pallas"``.
+
+``select_engine`` takes the engine that the JAX cascade's rule names for
+the parameters (``engine_for``), or the one asked for, and admits it on a
+device only after its external product (K2 or K5) reproduces the naive
+mod-2^32 oracle (``oracle``) on every adversarial probe pattern, on that
+device.  An inexact result or a failed launch raises; nothing cascades to
+another engine.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import ClassVar
 
 import numpy as np
 import torch
 
 from .._u32 import from_numpy
 from ..params import TFHEParams
-from . import cmux_k, oracle
-from .plain import prepare_trgsw
+from . import cmux_k, limb_step, oracle
+from .plain import prepare_trgsw, prepare_trgsw_limbs
+
+
+@dataclass(frozen=True)
+class CmuxKEngine:
+    """K1-K3 on the int32 doubled key table (``plain.prepare_trgsw``)."""
+
+    name: ClassVar[str] = "cmux_k"
+
+
+@dataclass(frozen=True)
+class LimbEngine:
+    """K4-K6 on the int8 limb table (``plain.prepare_trgsw_limbs``), with
+    the two options of the JAX engine's constructor (``PallasEngine``):
+    ``merge_c=False`` runs the c-split step K6 in place of K4, and
+    ``fuse_step=False`` runs each step as torch rotation, difference and
+    decomposition followed by K5."""
+
+    merge_c: bool = True
+    fuse_step: bool = True
+    name: ClassVar[str] = "limb"
+
+
+_ENGINES = {e.name: e for e in (CmuxKEngine(), LimbEngine())}
+
+
+def get_engine(name: str = "cmux_k"):
+    if name not in _ENGINES:
+        raise KeyError(f"unknown engine {name!r}; have {sorted(_ENGINES)}")
+    return _ENGINES[name]
+
+
+def resolve_engine(engine):
+    """Engine name or engine instance (e.g. ``LimbEngine(merge_c=False)``)
+    -> engine instance."""
+    return get_engine(engine) if isinstance(engine, str) else engine
+
+
+def engine_for(params: TFHEParams) -> str:
+    """The JAX cascade's rule (``select_fast_engine`` on an accelerator)
+    for the port's two families: the Karatsuba engines while half_bg * 2 <=
+    128 (their digit sums must fit int8), then ``"pallas"`` while half_bg
+    <= 128 (digits must fit int8)."""
+    if params.half_bg <= 64:
+        return "cmux_k"
+    if params.half_bg <= 128:
+        return "limb"
+    raise ValueError(
+        f"bgbit={params.bgbit}: digits of up to {params.half_bg} in magnitude do not fit "
+        "int8, which both of the port's engines need; the JAX package runs such "
+        "parameters on its 'matmul' engine, not ported yet (ROADMAP.md, Queue 1 item 19)")
 
 
 def probe_vectors(params: TFHEParams):
@@ -63,12 +126,13 @@ def probe_vectors(params: TFHEParams):
 
 
 def engine_probe_result(external_product, params: TFHEParams, rows: torch.Tensor,
-                        digits: torch.Tensor, want: torch.Tensor) -> tuple[bool, str]:
-    """(ok, why): run ``external_product(digits_int8, prepared_rows, params)``
+                        digits: torch.Tensor, want: torch.Tensor,
+                        prepare=prepare_trgsw) -> tuple[bool, str]:
+    """(ok, why): run ``external_product(digits_int8, prepare(rows), params)``
     on the device of ``rows`` and compare with the oracle's ``want``.
     Exceptions propagate: a kernel that fails to run is not an exactness
     verdict, and is not hidden."""
-    got = external_product(digits.to(torch.int8).contiguous(), prepare_trgsw(rows), params)
+    got = external_product(digits.to(torch.int8).contiguous(), prepare(rows), params)
     got = got.cpu()
     if got.shape != want.shape:
         return False, f"wrong output shape {tuple(got.shape)} (want {tuple(want.shape)})"
@@ -79,21 +143,29 @@ def engine_probe_result(external_product, params: TFHEParams, rows: torch.Tensor
     return True, "exact"
 
 
-def select_engine(params: TFHEParams, device) -> str:
-    """Admit the engine on ``device`` after K2 (or its plain version on the
-    CPU) matches the oracle on ``probe_vectors`` there.  Returns the engine
-    name ("cmux_k" for the CUDA kernels, "plain" on the CPU); raises
-    RuntimeError when the result is inexact."""
+def select_engine(params: TFHEParams, device, engine_name=None) -> str:
+    """The engine for ``params`` on ``device``: ``engine_name`` (a name or an
+    engine instance) when given, else ``engine_for(params)``.  Admitted
+    after its external product, K2 or K5 (their plain versions on the
+    CPU), matches the oracle on ``probe_vectors`` there.  Returns the
+    engine's name; raises RuntimeError when the result is inexact."""
     device = torch.device(device)
+    name = resolve_engine(engine_name).name if engine_name is not None else engine_for(params)
+    if name == "limb":
+        product, prepare = limb_step.external_product, prepare_trgsw_limbs
+    else:
+        product, prepare = cmux_k.external_product, prepare_trgsw
     rows_np, digits_np = probe_vectors(params)
     rows = from_numpy(rows_np)
     digits = torch.from_numpy(digits_np)
     want = oracle.external_product(rows, digits)  # ground truth, on the host
-    ok, why = engine_probe_result(cmux_k.external_product, params, rows.to(device),
-                                  digits.to(device), want)
+    ok, why = engine_probe_result(product, params, rows.to(device), digits.to(device), want,
+                                  prepare)
     if not ok:
-        raise RuntimeError(f"the external product on {device} failed the oracle probe: {why}")
-    return "cmux_k" if device.type == "cuda" else "plain"
+        raise RuntimeError(f"the {name} engine's external product on {device} failed the "
+                           f"oracle probe: {why}")
+    return name
 
 
-__all__ = ["probe_vectors", "engine_probe_result", "select_engine"]
+__all__ = ["CmuxKEngine", "LimbEngine", "get_engine", "resolve_engine", "engine_for",
+           "probe_vectors", "engine_probe_result", "select_engine"]

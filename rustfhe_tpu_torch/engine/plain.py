@@ -9,6 +9,9 @@ settings apply to float32 only and do not touch these products.
 * ``external_product``: the plain version of the external product that the
   kernels of ``engine/cmux_k.py`` compute, against the prepared (doubled)
   TRGSW table of ``prepare_trgsw``.
+* ``external_product_limbs``: the same product in limb form, the plain
+  version of what the kernels of ``engine/limb_step.py`` compute, against
+  the doubled int8 limb table of ``prepare_trgsw_limbs``.
 * ``poly_mul_torus_binary``: torus poly times binary poly (encryption,
   phase, keygen).
 * ``prepare_ksk`` / ``key_switch_digits``: the identity key switch as one
@@ -22,6 +25,11 @@ import torch
 
 from .._u32 import wrap
 from ..params import TFHEParams
+from ..poly import to_signed_limbs
+
+# The limb form: every key word as K=4 balanced signed 8-bit limbs.
+NUM_LIMBS = 4
+LIMB_BITS = 8
 
 
 def prepare_trgsw(rows: torch.Tensor) -> torch.Tensor:
@@ -65,6 +73,47 @@ def external_product(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     B = digits.shape[0]
     d = digits.reshape(B, two_l * N).to(torch.float64)
     out = d @ _circulant(table)
+    return wrap(out).reshape(B, 2, N)
+
+
+def prepare_trgsw_limbs(rows: torch.Tensor) -> torch.Tensor:
+    """TRGSW rows ``(..., 2L, 2, N)`` int32 -> doubled limb table
+    ``(..., 2L, 2, K, 2N)`` int8: per row polynomial q and limb k,
+    ``[limbs(-q)[k], limbs(q)[k]]``, the layout of ``prepare_trgsw``.
+
+    -q is decomposed on its own: a limb of -128 has no int8 negation, so
+    the limbs of -q are not the negated limbs of q (any balanced split of
+    -q recombines to it).  The JAX package's table (``MatmulEngine.
+    prepare_trgsw``) holds the same limbs with the halves swapped,
+    ``[limbs(q), limbs(-q)]``.
+    """
+    neg = to_signed_limbs(-rows, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)
+    pos = to_signed_limbs(rows, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)
+    return torch.cat([neg, pos], dim=-1).contiguous()
+
+
+def external_product_limbs(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """ExtProd(rows, digits) from the doubled limb table, limb by limb.
+
+    ``digits`` int8 ``(B, 2L, N)``; ``table`` int8 ``(2L, 2, K, 2N)``
+    (``prepare_trgsw_limbs``).  Returns int32 ``(B, 2, N)``.
+
+    For each limb k the sum over all 2L planes comes first, as one float64
+    product against the circulant of both output halves; it is reduced mod
+    2^32 as the kernels' int32 sums are, and only then recombined with a
+    wrapping ``<< 8k``.  Exactness: |sum| <= 2L*N * 2^7 * 2^7, below 2^53
+    while 2L*N <= 2^39.
+    """
+    if digits.dtype != torch.int8:
+        raise TypeError(f"digits must be int8, got {digits.dtype}")
+    two_l, _, num_limbs, tn = table.shape
+    N = tn // 2
+    B = digits.shape[0]
+    d = digits.reshape(B, two_l * N).to(torch.float64)
+    out = torch.zeros((B, 2 * N), dtype=torch.int64, device=digits.device)
+    for k in range(num_limbs):
+        part = wrap(d @ _circulant(table[:, :, k]))
+        out += part.to(torch.int64) << (LIMB_BITS * k)
     return wrap(out).reshape(B, 2, N)
 
 

@@ -5,7 +5,8 @@ format, so that files cross between the two packages: a JSON header
 (magic ``rustfhe_tpu``, version 1, the parameter fields) as uint8 bytes,
 then raw uint32 arrays.  Keys are stored raw (``bk`` (n, 2L, 2, N), ``ksk``
 (N, iks_l, T, n+1), ``lv0``/``lv1``), not in a prepared form; preparation
-runs again on load, on the device asked for.
+runs again on load, on the device and for the engine asked for, so one
+file serves both engines.
 """
 
 from __future__ import annotations
@@ -73,18 +74,20 @@ def save_cloud_key_raw(path: str, bk_raw, ksk_raw, params: TFHEParams) -> None:
                         bk=_words(bk_raw), ksk=_words(ksk_raw))
 
 
-def load_cloud_key(path: str, device="cpu") -> tuple[CloudKey, TFHEParams]:
-    """Load the raw evaluation keys and prepare them on ``device``."""
+def load_cloud_key(path: str, device="cpu", engine="cmux_k") -> tuple[CloudKey, TFHEParams]:
+    """Load the raw evaluation keys and prepare them on ``device`` for
+    ``engine`` (a name or an engine instance)."""
     with np.load(path) as z:
         params = _parse_header(z["header"])
         ck = _keys.prepare_cloud_key(from_numpy(z["bk"], device), from_numpy(z["ksk"], device),
-                                     params)
+                                     params, engine)
     return ck, params
 
 
 def cached_keys(prefix: str, seed_or_generator, params: TFHEParams, device="cpu",
-                verbose: bool = False) -> tuple[SecretKey, CloudKey]:
-    """(SecretKey, CloudKey) with the raw key material cached on disk.
+                verbose: bool = False, engine="cmux_k") -> tuple[SecretKey, CloudKey]:
+    """(SecretKey, CloudKey) with the raw key material cached on disk, the
+    cloud key prepared for ``engine``.
 
     The first call generates keys (from an int seed or a ``torch.Generator``
     on ``device``) and writes ``{prefix}.sk.npz`` and ``{prefix}.ck.npz``;
@@ -97,7 +100,7 @@ def cached_keys(prefix: str, seed_or_generator, params: TFHEParams, device="cpu"
         try:
             t0 = time.time()
             sk, p_sk = load_secret_key(sk_path, device)
-            ck, p_ck = load_cloud_key(ck_path, device)
+            ck, p_ck = load_cloud_key(ck_path, device, engine)
             if p_sk == params and p_ck == params:
                 if verbose:
                     print(f"loaded cached keys from {prefix}.*.npz in "
@@ -118,7 +121,7 @@ def cached_keys(prefix: str, seed_or_generator, params: TFHEParams, device="cpu"
     bk_raw, ksk_raw = _keys.gen_cloud_key_raw(gen, sk, params)
     save_secret_key(sk_path, sk, params)
     save_cloud_key_raw(ck_path, bk_raw, ksk_raw, params)
-    ck = _keys.prepare_cloud_key(bk_raw, ksk_raw, params)
+    ck = _keys.prepare_cloud_key(bk_raw, ksk_raw, params, engine)
     if verbose:
         print(f"generated + cached keys at {prefix}.*.npz in {time.time() - t0:.1f}s")
     return sk, ck

@@ -285,7 +285,7 @@ def test_python_dash_m_console():
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert "res: 0" in r.stdout and "res: 1 0 1" in r.stdout, (r.stdout, r.stderr[-2000:])
-    assert "engine plain" in r.stdout
+    assert "engine cmux_k" in r.stdout
 
 
 def test_profile_harness_and_cli_arguments(capsys):

@@ -109,7 +109,7 @@ def test_bootstrap_matches_jax_word_for_word_default_params():
 
 def test_port_keygen_gates_truth_tables():
     ctx = TFHE.new(11, params.TEST_PARAMS)
-    assert ctx.engine_name == "plain"
+    assert ctx.engine_name == "cmux_k"
     x = ctx.encrypt([0, 1, 0, 1])
     y = ctx.encrypt([0, 0, 1, 1])
     before = cmux_k.cmux_step.launches

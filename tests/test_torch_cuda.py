@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card.
+"""The CUDA kernels K1-K6 against their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from rustfhe_tpu_torch import TFHE, _u32, engine, params
-from rustfhe_tpu_torch.engine import cmux_k, oracle, plain, rotate_all_k
+from rustfhe_tpu_torch.engine import cmux_k, limb_step, oracle, plain, rotate_all_k
 
 
 @pytest.fixture
@@ -97,3 +97,49 @@ def test_latency_mode_gates_on_card(cuda):
     assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
     assert cmux_k.cmux_step.launches == k1
     assert rotate_all_k.rotate_all.launches == k3 + 1
+
+
+@pytest.mark.parametrize("name", ["FAST_PARAMS", "DEFAULT_PARAMS"])
+def test_limb_kernels_match_plain(cuda, name):
+    p = getattr(params, name)
+    rows, acc, ai, digits = _case(41, 13, p)  # 13 samples: a ragged last tile
+    t_rows = _u32.from_numpy(rows)
+    table = plain.prepare_trgsw_limbs(t_rows)
+    t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+    want = limb_step.cmux_step_plain(t_acc, t_ai, table, p)
+    for step in (limb_step.cmux_step_merged, limb_step.cmux_step_split):  # K4, K6
+        before = step.launches
+        got = step(t_acc.to(cuda), t_ai.to(cuda), table.to(cuda), p)
+        assert step.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+    d8 = torch.from_numpy(digits)
+    before = limb_step.external_product.launches
+    got = limb_step.external_product(d8.to(cuda), table.to(cuda), p)  # K5
+    assert limb_step.external_product.launches == before + 1
+    assert torch.equal(got.cpu(), limb_step.external_product_plain(d8, table))
+    assert torch.equal(got.cpu(), oracle.external_product(t_rows, d8))
+
+
+def test_limb_engine_selected_and_gates_on_card(cuda):
+    assert engine.select_engine(params.FAST_PARAMS, cuda) == "limb"
+    p = params.FAST_PARAMS.replace(n=16)
+    ctx = TFHE.new(7, p, device=cuda)
+    assert ctx.engine_name == "limb"
+    x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
+    k4, k1 = limb_step.cmux_step_merged.launches, cmux_k.cmux_step.launches
+    assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
+    assert limb_step.cmux_step_merged.launches == k4 + p.n
+    assert cmux_k.cmux_step.launches == k1
+
+
+def test_limb_kernels_refuse_shapes_over_the_shared_memory_limit(cuda):
+    p = params.PBS_PARAMS  # N=2048, l=4: 384 KB for K4, 256 KB for K6 and K5
+    table = torch.zeros((2 * p.l, 2, 4, 2 * p.N), dtype=torch.int8, device=cuda)
+    acc = torch.zeros((1, 2, p.N), dtype=torch.int32, device=cuda)
+    ai = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for step in (limb_step.cmux_step_merged, limb_step.cmux_step_split):
+        with pytest.raises(ValueError, match="opt-in limit"):
+            step(acc, ai, table, p)
+    digits = torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="opt-in limit"):
+        limb_step.external_product(digits, table, p)
