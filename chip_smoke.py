@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's batched gate bootstrap, its interactive console and its
-limb engine once on a CUDA card.
+"""Drive the port's batched gate bootstrap, its interactive console, its
+limb engine and its measurement probes once on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -48,7 +48,19 @@ Phases, one line each:
      equals that of a K1 context on the same keys (the preset is unsound
      at n=635, so decrypt errors are counted, under a bound); then
      DEFAULT_PARAMS through K4, K6 and K5 per step on phase 4's mixed
-     batch, every output decrypted and equal to phase 4's.
+     batch, every output decrypted and equal to phase 4's;
+  9. the probes (the JAX package's ``benches/`` kernels the port carries):
+     P6 (the limb step without its products or its rotation), P5 (K4's
+     two recombination orders), P7 and P9 (the int8 GEMM on the tensor
+     cores) against their plain versions, word for word, on a limb table
+     mapped from a random JAX-layout ``qd`` (P6 at B = 1, 13, 33, 8192,
+     "full" also against K6; P5 also against K4; P7/P9 at each tile, at
+     the probe shapes 8192 x 6144 x 1024 and 4096 x 6144 x 8192, and a
+     ragged shape that must raise); their times in turns beside the plain
+     versions (the step's breakdown, TOPS beside ``torch._int_mm``); then
+     the probes' entry points (``rustfhe_tpu_torch.benches``:
+     step_breakdown_probe, limb_order_probe, matmul_probe) with their
+     defaults, each with the launch counts of its own run.
 
 Then one JSON line of kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -58,6 +70,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -71,14 +84,17 @@ import torch
 from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, tlwe, trlwe
 from rustfhe_tpu_torch.apps import nander
 from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
-from rustfhe_tpu_torch.engine import (build, cmux_k, limb_step, oracle, plain, probe_vectors,
-                                      rotate_all_k)
+from rustfhe_tpu_torch.benches import _timing, limb_order_probe, matmul_probe, step_breakdown_probe
+from rustfhe_tpu_torch.engine import (build, cmux_k, int8_gemm, limb_probe, limb_step, oracle,
+                                      plain, probe_vectors, rotate_all_k)
 from rustfhe_tpu_torch.keys import CloudKey
 from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
 LIMB_SOURCE = "rustfhe_tpu_torch/csrc/limb_step.cu"
+PROBE_SOURCE = "rustfhe_tpu_torch/csrc/limb_probe.cu"
+GEMM_SOURCE = "rustfhe_tpu_torch/csrc/int8_gemm.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
@@ -791,6 +807,135 @@ def phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# 9. The probes: P5, P6 (limb_probe), P7, P9 (int8_gemm)
+# --------------------------------------------------------------------- #
+PROBE_CHECK = (1, 13, 33, 8192)  # P6 and P5 against their plain versions
+GEMM_SHAPES = {"p7": (8192, 6144, 1024), "p9": (4096, 6144, 8192)}  # (M, K, N)
+
+
+def device_int8(gen, shape, dev):
+    return torch.randint(-128, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+
+
+def phase_probe_kernels(dev, rs, card):
+    """P6's three variants and P5's two orders against their plain versions
+    (and K6, K4), word for word, at DEFAULT_PARAMS on a limb table mapped
+    from a random JAX-layout qd; P7/P9 at every tile against the float64
+    product at the probe shapes, and a ragged shape refused.  Then the
+    times in turns: the step's breakdown and the GEMM's TOPS."""
+    p = DEFAULT_PARAMS
+    errs = {"p5": 0, "p6": 0, "p7": 0, "p9": 0}
+    qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4, 2 * p.N)).astype(np.int8))
+    tab = plain.limb_table_from_qd(qd).to(dev)
+    for b in PROBE_CHECK:
+        acc = words(rs, (b, 2, p.N), dev)
+        ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=b).astype(np.int32)).to(dev)
+        ai[: min(b, 4)] = torch.tensor([0, 1, p.N, 2 * p.N - 1], dtype=torch.int32)[: min(b, 4)]
+        for v, (rot, dots) in limb_probe.VARIANTS.items():
+            got = limb_probe.step_variant(acc, ai, tab, p, v)
+            errs["p6"] = max(errs["p6"], exact(f"P6 {v} B={b}", got, limb_probe.variant_step_plain(
+                acc, ai, tab, p, rot, dots)))
+            if v == "full":
+                exact(f"P6 full vs K6 B={b}", got, limb_step.cmux_step_split(acc, ai, tab, p))
+        k4 = limb_step.cmux_step_merged(acc, ai, tab, p)
+        want = limb_step.cmux_step_plain(acc, ai, tab, p)  # P5's plain version is K4's
+        for order in limb_probe.ORDERS:
+            got = limb_probe.step_order(acc, ai, tab, p, order)
+            errs["p5"] = max(errs["p5"], exact(f"P5 {order} B={b}", got, want))
+            exact(f"P5 {order} vs K4 B={b}", got, k4)
+    torch.cuda.synchronize()
+    log("probes", f"P6 (full, nodots, norot) and P5 (j-outer, limb-outer) bit-exact against "
+        f"their plain versions at B={', '.join(map(str, PROBE_CHECK))}; P6 full equals K6, "
+        "both P5 orders equal K4")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    gemm = {}
+    for key, (M, K, N) in GEMM_SHAPES.items():
+        d, w = device_int8(gen, (M, K), dev), device_int8(gen, (K, N), dev)
+        wt = int8_gemm.prepare_rhs(w)
+        want = int8_gemm.int8_matmul_plain(d, w)
+        for tile in int8_gemm.TILES:
+            errs[key] = max(errs[key], exact(f"{key.upper()} tile {tile}",
+                                             int8_gemm.int8_matmul(d, wt, tile), want))
+            try:
+                int8_gemm.int8_matmul(d[: M - 8], wt, tile)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{key.upper()} tile {tile}: a ragged M = {M - 8} ran")
+        gemm[key] = (d, w, wt)
+    torch.cuda.synchronize()
+    log("probes", "P7 (8192 x 6144 x 1024) and P9 (4096 x 6144 x 8192) bit-exact against the "
+        f"float64 product at every tile ({', '.join(int8_gemm.TILES)}); a ragged M raises")
+
+    # The step's breakdown at the probe's B=8192 (acc, ai of the last check).
+    step = {"plain": lambda: limb_step.cmux_step_plain(acc, ai, tab, p),
+            "K6": lambda: limb_step.cmux_step_split(acc, ai, tab, p),
+            "K4": lambda: limb_step.cmux_step_merged(acc, ai, tab, p),
+            **{f"P6 {v}": (lambda v=v: limb_probe.step_variant(acc, ai, tab, p, v))
+               for v in limb_probe.VARIANTS},
+            **{f"P5 {o}": (lambda o=o: limb_probe.step_order(acc, ai, tab, p, o))
+               for o in limb_probe.ORDERS}}
+    t = turns(step, 5)
+    log("probes", f"limb step at DEFAULT, B={acc.shape[0]}, on {card}, ms/step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        + f" | rotation (P6 full - norot) {t['P6 full'] - t['P6 norot']:.4f}, products (P6 full"
+        f" - nodots) {t['P6 full'] - t['P6 nodots']:.4f}, the rest (nodots) "
+        f"{t['P6 nodots']:.4f}; recombination per plane (P5 j-outer - limb-outer) "
+        f"{t['P5 j-outer'] - t['P5 limb-outer']:.4f}; K6 - P6 full {t['K6'] - t['P6 full']:.4f}, "
+        f"K4 - P5 limb-outer {t['K4'] - t['P5 limb-outer']:.4f}")
+    vplain = {v: cuda_ms(lambda rd=rd: limb_probe.variant_step_plain(acc, ai, tab, p, *rd), 2)
+              for v, rd in limb_probe.VARIANTS.items() if v != "full"}
+    log("probes", "plain P6 variants, ms: " + ", ".join(f"{k} {v:.4f}" for k, v in vplain.items()))
+
+    gt = {}
+    for key, (d, w, wt) in gemm.items():
+        fns = {"plain": lambda d=d, w=w: int8_gemm.int8_matmul_plain(d, w),
+               "torch._int_mm": lambda d=d, wt=wt: torch._int_mm(d, wt.t()),
+               **{tile: (lambda d=d, wt=wt, tile=tile: int8_gemm.int8_matmul(d, wt, tile))
+                  for tile in int8_gemm.TILES}}
+        gt[key] = turns(fns, 10)
+        M, K = d.shape
+        ops = 2 * M * K * w.shape[1]
+        log("probes", f"{key.upper()} {M} x {K} x {w.shape[1]} on {card}: "
+            + ", ".join(f"{k} {v:.4f} ms ({ops / v / 1e9:.1f} TOPS)" for k, v in gt[key].items())
+            + "; estimate against the published 1,979 dense int8 TOP/s: best tile "
+            f"{ops / min(gt[key][x] for x in int8_gemm.TILES) / 1e9 / 1979:.1%}, torch._int_mm "
+            f"{ops / gt[key]['torch._int_mm'] / 1e9 / 1979:.1%}")
+    return errs, t, gt
+
+
+def phase_probe_entry_points(card):
+    """The probes' entry points with their defaults, as a user runs them
+    (``python -m rustfhe_tpu_torch.benches.<name>``), each with the launch
+    counts of its own run."""
+    logp = functools.partial(log, "probes")
+    chained = _timing.STEPS * _timing.REPS + 1  # launches per timed line, the warm-up included
+    launches = {}
+    limb_probe.reset_counters()
+    int8_gemm.reset_counters()
+    step_breakdown_probe.run(out=logp)
+    launches["p6"] = limb_probe.step_variant.launches
+    launches["p7"] = int8_gemm.int8_matmul.launches
+    limb_probe.reset_counters()
+    int8_gemm.reset_counters()
+    limb_order_probe.run(out=logp)
+    launches["p5"] = limb_probe.step_order.launches
+    limb_probe.reset_counters()
+    int8_gemm.reset_counters()
+    matmul_probe.run(out=logp)
+    launches["p9"] = int8_gemm.int8_matmul.launches
+    tiles = len(int8_gemm.TILES)
+    want = {"p6": 3 * chained, "p7": tiles * chained, "p5": 4 * chained, "p9": tiles * chained}
+    if launches != want:
+        raise AssertionError(f"probe entry points launched {launches}, expected {want}")
+    log("probes", f"entry points at their defaults on {card}: launches {launches} "
+        f"({chained} per timed line)")
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -816,6 +961,8 @@ def main() -> int:
     cmux_k.load_library()
     rotate_all_k.load_library()
     limb_step.load_library()
+    limb_probe.load_library()
+    int8_gemm.load_library()
     log("build", f"{', '.join(lib.name for lib, _ in libs.values())} from "
         f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for lib, report in libs.values():
@@ -861,6 +1008,12 @@ def main() -> int:
     fast = phase_fast_path(dev, card)
     dflt = phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want)
 
+    # 9. the probes: P5, P6, P7, P9 against their plain versions and their
+    # times; then their entry points with the launch counts of each run
+    probe_errs, probe_t, gemm_t = phase_probe_kernels(dev, rs, card)
+    errs.update(probe_errs)
+    probes = phase_probe_entry_points(card)
+
     fast_t = limb_times["FAST"]
     kernels = [
         {"name": "cmux_step_k", "route": "cuda", "source": KERNEL_SOURCE,
@@ -884,7 +1037,20 @@ def main() -> int:
          "replaces": "rustfhe_tpu/engine/pallas_step.py:267", "launches": dflt["k6"],
          "max_abs_err": errs["k6"], "ms": fast_t["step"]["k6"],
          "plain_ms": fast_t["step"]["plain"]},
+        {"name": "limb_probe_order", "route": "cuda", "source": PROBE_SOURCE,
+         "replaces": "benches/limb_order_probe.py:85", "launches": probes["p5"],
+         "max_abs_err": errs["p5"], "ms": probe_t["P5 j-outer"], "plain_ms": probe_t["plain"]},
+        {"name": "limb_probe_variant", "route": "cuda", "source": PROBE_SOURCE,
+         "replaces": "benches/step_breakdown_probe.py:134", "launches": probes["p6"],
+         "max_abs_err": errs["p6"], "ms": probe_t["P6 full"], "plain_ms": probe_t["plain"]},
     ]
+    for key, where in (("p7", "benches/step_breakdown_probe.py:175"),
+                       ("p9", "benches/pallas_matmul_probe.py:56")):
+        kernels.append({"name": f"int8_gemm ({key.upper()})", "route": "cuda",
+                        "source": GEMM_SOURCE, "replaces": where, "launches": probes[key],
+                        "max_abs_err": errs[key],
+                        "ms": min(gemm_t[key][tile] for tile in int8_gemm.TILES),
+                        "plain_ms": gemm_t[key]["plain"]})
     log("done", f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

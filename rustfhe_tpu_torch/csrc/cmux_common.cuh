@@ -1,7 +1,7 @@
 // Device code shared by the blind-rotation kernels K1 (cmux_k.cu) and K3
 // (rotate_all_k.cu): the digit build of one CMux step and the uint32
 // multiply-add of digits against a doubled key plane.  The limb-form steps
-// K4 and K6 (limb_step.cu) take the digit build.
+// kernels (limb_common.cuh) take the digit build.
 //
 // Layouts, common to both kernels:
 //   * a key plane is the doubled TRGSW row polynomial T = [-q, q] (2N words,

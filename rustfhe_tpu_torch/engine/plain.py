@@ -11,7 +11,8 @@ settings apply to float32 only and do not touch these products.
   TRGSW table of ``prepare_trgsw``.
 * ``external_product_limbs``: the same product in limb form, the plain
   version of what the kernels of ``engine/limb_step.py`` compute, against
-  the doubled int8 limb table of ``prepare_trgsw_limbs``.
+  the doubled int8 limb table of ``prepare_trgsw_limbs``
+  (``limb_table_from_qd`` takes the JAX package's layout of that table).
 * ``poly_mul_torus_binary``: torus poly times binary poly (encryption,
   phase, keygen).
 * ``prepare_ksk`` / ``key_switch_digits``: the identity key switch as one
@@ -90,6 +91,25 @@ def prepare_trgsw_limbs(rows: torch.Tensor) -> torch.Tensor:
     neg = to_signed_limbs(-rows, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)
     pos = to_signed_limbs(rows, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)
     return torch.cat([neg, pos], dim=-1).contiguous()
+
+
+def limb_table_from_qd(qd: torch.Tensor) -> torch.Tensor:
+    """The JAX package's c-major limb table ``qd`` int8 ``(2, 2L*K, 2N)``
+    (``PallasEngine.prepare_trgsw``: row j*K + k of half c holds
+    ``[limbs(q)[k], limbs(-q)[k]]``) -> the port's table int8
+    ``(2L, 2, K, 2N)`` (``prepare_trgsw_limbs``), whose halves are swapped,
+    ``[limbs(-q)[k], limbs(q)[k]]``.
+
+    Both tables give out[x] = sum_i d[i] * qd[(x - i) mod 2N], read as
+    ``L[x - i + N]`` in the port: the map moves bytes and assumes nothing
+    of them, so it also carries random bytes (the JAX probes' ``qd``)."""
+    if qd.dtype != torch.int8 or qd.dim() != 3 or qd.shape[0] != 2 or qd.shape[1] % NUM_LIMBS:
+        raise ValueError(f"qd must be int8 (2, 2L*{NUM_LIMBS}, 2N), got {qd.dtype} "
+                         f"{tuple(qd.shape)}")
+    _, rows, tn = qd.shape
+    N = tn // 2
+    t = qd.reshape(2, rows // NUM_LIMBS, NUM_LIMBS, tn).movedim(0, 1)  # (2L, 2, K, 2N)
+    return torch.cat([t[..., N:], t[..., :N]], dim=-1).contiguous()
 
 
 def external_product_limbs(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

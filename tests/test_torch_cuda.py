@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K6 against their plain versions, on the card.
+"""The CUDA kernels K1-K6 and the probes P5, P6, P7/P9 against their
+plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 from rustfhe_tpu_torch import TFHE, _u32, engine, params
-from rustfhe_tpu_torch.engine import cmux_k, limb_step, oracle, plain, rotate_all_k
+from rustfhe_tpu_torch.engine import (cmux_k, int8_gemm, limb_probe, limb_step, oracle, plain,
+                                      rotate_all_k)
 
 
 @pytest.fixture
@@ -143,3 +145,50 @@ def test_limb_kernels_refuse_shapes_over_the_shared_memory_limit(cuda):
     digits = torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="opt-in limit"):
         limb_step.external_product(digits, table, p)
+
+
+@pytest.mark.parametrize("B", [1, 13])  # 13 samples: a ragged last tile
+@pytest.mark.parametrize("name", ["FAST_PARAMS", "DEFAULT_PARAMS"])
+def test_limb_probe_kernels_match_plain(cuda, name, B):
+    p = getattr(params, name)
+    rows, acc, ai, _ = _case(42, 13, p)
+    acc, ai = acc[:B], ai[:B]
+    table = plain.prepare_trgsw_limbs(_u32.from_numpy(rows))
+    t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+    c_acc, c_ai, c_tab = t_acc.to(cuda), t_ai.to(cuda), table.to(cuda)
+    for variant, (rotate, dots) in limb_probe.VARIANTS.items():  # P6
+        for tm in (128, 256):
+            want = limb_probe.variant_step_plain(t_acc, t_ai, table, p, rotate, dots, tm)
+            before = limb_probe.step_variant.launches
+            got = limb_probe.step_variant(c_acc, c_ai, c_tab, p, variant, tm)
+            assert limb_probe.step_variant.launches == before + 1
+            assert torch.equal(got.cpu(), want), (variant, tm)
+    want = limb_step.cmux_step_plain(t_acc, t_ai, table, p)
+    assert torch.equal(limb_probe.step_variant(c_acc, c_ai, c_tab, p, "full").cpu(), want)
+    for order in limb_probe.ORDERS:  # P5
+        before = limb_probe.step_order.launches
+        got = limb_probe.step_order(c_acc, c_ai, c_tab, p, order)
+        assert limb_probe.step_order.launches == before + 1
+        assert torch.equal(got.cpu(), want), order
+
+
+@pytest.mark.parametrize("tile", list(int8_gemm.TILES))
+def test_int8_gemm_kernel_matches_plain(cuda, tile):
+    bm, bn = int8_gemm.tile_shape(tile)
+    rs = np.random.RandomState(43)
+    for M, K, N in ((bm, 64, bn), (2 * bm, 6144, 3 * bn)):
+        d = rs.randint(-128, 128, size=(M, K)).astype(np.int8)
+        w = rs.randint(-128, 128, size=(K, N)).astype(np.int8)
+        d[0], w[:, 0] = -128, -128  # the largest products
+        t_d, t_w = torch.from_numpy(d), torch.from_numpy(w)
+        wt = int8_gemm.prepare_rhs(t_w.to(cuda))
+        before = int8_gemm.int8_matmul.launches
+        got = int8_gemm.int8_matmul(t_d.to(cuda), wt, tile)
+        assert int8_gemm.int8_matmul.launches == before + 1
+        assert torch.equal(got.cpu(), int8_gemm.int8_matmul_plain(t_d, t_w))
+        # ragged shapes raise, and launch nothing
+        for rd, rwt in ((t_d[: M - 1], wt), (t_d[:, : K - 32], wt[:, : K - 32].contiguous()),
+                        (t_d, wt[: N - 8])):
+            with pytest.raises(ValueError, match="does not divide tile"):
+                int8_gemm.int8_matmul(rd.contiguous().to(cuda), rwt, tile)
+        assert int8_gemm.int8_matmul.launches == before + 1
