@@ -60,10 +60,23 @@ Phases, one line each:
      versions (the step's breakdown, TOPS beside ``torch._int_mm``); then
      the probes' entry points (``rustfhe_tpu_torch.benches``:
      step_breakdown_probe, limb_order_probe, matmul_probe) with their
-     defaults, each with the launch counts of its own run.
+     defaults, each with the launch counts of its own run;
+ 10. the Karatsuba step probes (the JAX package's K1 at levels 2 in the
+     residue layout): every form of P4 (ablations), P8 (digit-side
+     variants), P1 (limb-outer) and P2 (split tile) against its plain
+     version, word for word, at B = 1, 13, 33, 8192 (a~ edges 0, 1, N,
+     2N-1, a table mapped from random JAX-layout bytes); the exact forms
+     on a table from random rows against K1 through the scan layout; P8's
+     two steps per call against two single steps; every form's time in
+     turns beside K1 and the plain step, and P4's attribution; then the
+     four entry points (k2_floor_probe, vpu_reduce_probe,
+     karatsuba2_probe, coissue_probe) with their defaults, each with the
+     launch counts of its own run.
 
-Then one JSON line of kernels, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+Then one JSON line of kernels (each with its time, its bound on the card
+and, where one PyTorch call computes the same function, that call's time),
+the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
 """
 
@@ -84,9 +97,12 @@ import torch
 from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, tlwe, trlwe
 from rustfhe_tpu_torch.apps import nander
 from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
-from rustfhe_tpu_torch.benches import _timing, limb_order_probe, matmul_probe, step_breakdown_probe
-from rustfhe_tpu_torch.engine import (build, cmux_k, int8_gemm, limb_probe, limb_step, oracle,
-                                      plain, probe_vectors, rotate_all_k)
+from rustfhe_tpu_torch.benches import (_timing, coissue_probe, k2_floor_probe, karatsuba2_probe,
+                                       limb_order_probe, matmul_probe, step_breakdown_probe,
+                                       vpu_reduce_probe)
+from rustfhe_tpu_torch.engine import (build, cmux_k, int8_gemm, karatsuba, karatsuba_probe,
+                                      limb_probe, limb_step, oracle, plain, probe_vectors,
+                                      rotate_all_k)
 from rustfhe_tpu_torch.keys import CloudKey
 from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS
 
@@ -95,10 +111,13 @@ K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
 LIMB_SOURCE = "rustfhe_tpu_torch/csrc/limb_step.cu"
 PROBE_SOURCE = "rustfhe_tpu_torch/csrc/limb_probe.cu"
 GEMM_SOURCE = "rustfhe_tpu_torch/csrc/int8_gemm.cu"
+KARATSUBA_SOURCE = "rustfhe_tpu_torch/csrc/karatsuba_probe.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
 IMAD_PER_CLK_SM = 64  # 32-bit integer multiply-add issue rate of sm_90 (published)
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak of an H100 SXM at 700 W (published)
+HBM_BYTES_PER_S = 3.35e12  # device-memory rate of an H100 SXM (published)
 TRUTH = {
     "nand": lambda x, y: 1 - (x & y),
     "and": lambda x, y: x & y,
@@ -161,6 +180,33 @@ def ab_ms(kernel, plain_fn, iters: int) -> tuple[float, float]:
 
 def words(rs, shape, dev):
     return _u32.from_numpy(rs.randint(0, 2**32, size=shape, dtype=np.uint64), dev)
+
+
+def step_ops(p, b: int, steps: int = 1) -> float:
+    """The operations of ``steps`` CMux steps (or external products) of b
+    samples, counted as the reference's int8 multiply-adds whatever
+    computes them: 2 x (2 halves x 4 limbs x 2L x N^2) per sample and step."""
+    return 2.0 * b * steps * 2 * 4 * 2 * p.l * p.N * p.N
+
+
+def karatsuba_ops(p, b: int) -> float:
+    """The operations of one two-level Karatsuba CMux step of b samples,
+    the int8 multiply-adds it needs: 2 x (2 halves x 4 limbs x 2L x 9
+    leaves x (N/4)^2) per sample, 0.5625 of ``step_ops``."""
+    return 2.0 * b * 2 * 4 * 2 * p.l * 9 * (p.N // 4) ** 2
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time on the card (ms) for ``ops`` int8 operations and
+    ``nbytes`` of device memory (each input read once, each output written
+    once), against the published peaks, and which of the two bounds it."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def step_bytes(p, b: int, key_bytes: int) -> int:
+    """A CMux step's bytes: the accumulator in and out, a~, the key table."""
+    return b * 2 * p.N * 4 * 2 + b * 4 + key_bytes
 
 
 def phase_kernels(p, dev, rs):
@@ -936,6 +982,100 @@ def phase_probe_entry_points(card):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# 10. The Karatsuba step probes: P4, P8, P1, P2 (karatsuba_probe)
+# --------------------------------------------------------------------- #
+KARATSUBA_REPLACES = {"P4": "benches/k2_floor_probe.py:164", "P8": "benches/vpu_reduce_probe.py:190",
+                      "P1": "benches/karatsuba2_probe.py:179", "P2": "benches/coissue_probe.py:114"}
+
+
+def phase_karatsuba_kernels(dev, rs, card):
+    """Every form of P4, P8, P1 and P2 against its plain version, word for
+    word, at B = 1, 13, 33, 8192 on a table mapped from random JAX-layout
+    bytes; the exact forms on a table from random rows against K1 through
+    the scan layout; P8's two steps per call against two single steps.
+    Then every form's time in turns at B=8192 beside K1 and the plain step."""
+    p = DEFAULT_PARAMS
+    errs = dict.fromkeys(KARATSUBA_REPLACES, 0)
+    qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4 * 9, p.N // 2)).astype(np.int8))
+    tab = karatsuba.table_from_qd(qd).to(dev)
+    rows = words(rs, (2 * p.l, 2, p.N), dev)
+    rtab, key = karatsuba.prepare_table(rows), plain.prepare_trgsw(rows)
+    calls = karatsuba_probe.calls()
+    for b in PROBE_CHECK:
+        std = words(rs, (b, 2, p.N), dev)
+        ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=b).astype(np.int32)).to(dev)
+        ai[: min(b, 4)] = torch.tensor([0, 1, p.N, 2 * p.N - 1], dtype=torch.int32)[: min(b, 4)]
+        flat = karatsuba.scan_enter(std)
+        for probe, label, fn, kw, form in calls:
+            errs[probe] = max(errs[probe], exact(f"{probe} {label} B={b}", fn(flat, ai, tab, p, **kw),
+                                                 karatsuba.step_plain(flat, ai, tab, p, form)))
+        k1 = cmux_k.cmux_step(std, ai, key, p)
+        for probe, label, fn, kw, form in calls:
+            if form.exact:
+                exact(f"{probe} {label} vs K1 B={b}", karatsuba.scan_exit(fn(flat, ai, rtab, p, **kw)),
+                      k1)
+        a2 = torch.stack([ai, ai.flip(0)], dim=1)
+        one = karatsuba_probe.step_var(flat, ai, tab, p)
+        exact(f"P8 unroll2 B={b}", karatsuba_probe.step_var(flat, a2, torch.stack([tab, rtab]), p,
+                                                          unroll=2),
+              karatsuba_probe.step_var(one, ai.flip(0).contiguous(), rtab, p))
+    torch.cuda.synchronize()
+    log("karatsuba", f"{len(calls)} forms (P4 {len(karatsuba_probe.ABLATIONS)}, P8 "
+        f"{len(karatsuba_probe.VAR_FORMS)}, P1 1, P2 2) bit-exact against their plain versions "
+        f"at B={', '.join(map(str, PROBE_CHECK))}; P4 full, every exact P8 form, P1 and both P2 "
+        "orders equal K1 through the scan layout; P8 unroll2 equals two single steps")
+
+    # Times at the probes' B=8192 (std, flat, ai of the last check), on the rows' table.
+    a2 = torch.stack([ai, ai], dim=1)
+    rtabs = torch.stack([rtab, rtab])
+    fns = {"plain": lambda: karatsuba.step_plain(flat, ai, rtab, p),
+           "K1": lambda: cmux_k.cmux_step(std, ai, key, p),
+           **{f"{probe} {label}": (lambda fn=fn, kw=kw: fn(flat, ai, rtab, p, **kw))
+              for probe, label, fn, kw, _ in calls},
+           "P8 unroll2 (2 steps)": lambda: karatsuba_probe.step_var(flat, a2, rtabs, p, unroll=2)}
+    t = turns(fns, 5)
+    log("karatsuba", f"Karatsuba step at DEFAULT, B={flat.shape[0]}, on {card}, ms/step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k != "P8 unroll2 (2 steps)")
+        + f", P8 unroll2 {t['P8 unroll2 (2 steps)'] / 2:.4f} (two launches)")
+    log("karatsuba", "P4 attribution (full - variant), ms: " + ", ".join(
+        f"{v} {t['P4 full'] - t[f'P4 {v}']:+.4f}" for v in karatsuba_probe.ABLATIONS if v != "full")
+        + f" | Karatsuba step / K1: {t['P4 full'] / t['K1']:.3f}")
+    return errs, t, flat.shape[0]
+
+
+def phase_karatsuba_entry_points(card):
+    """The four entry points with their defaults, as a user runs them
+    (``python -m rustfhe_tpu_torch.benches.<name>``), each with the launch
+    counts of its own run."""
+    logp = functools.partial(log, "karatsuba")
+    chained = _timing.STEPS * _timing.REPS + 1  # calls per timed line, the warm-up included
+    counters = {"P4": karatsuba_probe.step_ablate, "P8": karatsuba_probe.step_var,
+                "P1": karatsuba_probe.step_k2, "P2": karatsuba_probe.step_split,
+                "K1": cmux_k.cmux_step}
+    checks_p8 = len(vpu_reduce_probe.CHECKS) + 4  # the forms, then unroll2: 1 + 1 + 2 launches
+    runs = {  # entry point -> the launches of its run
+        "k2_floor_probe": (k2_floor_probe, {"P4": len(karatsuba_probe.ABLATIONS) * chained}),
+        "vpu_reduce_probe": (vpu_reduce_probe, {
+            "P8": checks_p8 + (len(vpu_reduce_probe.LINES) + 2 + 1) * chained, "K1": 1 + chained}),
+        "karatsuba2_probe": (karatsuba2_probe, {"P1": 1 + 3 * chained, "K1": 1 + chained}),
+        "coissue_probe": (coissue_probe, {"P2": 2 + 2 * chained, "P4": 1 + 2 * chained}),
+    }
+    launches = {}
+    for name, (mod, want) in runs.items():
+        karatsuba_probe.reset_counters()
+        cmux_k.reset_counters()
+        mod.run(out=logp)
+        got = {k: c.launches for k, c in counters.items() if c.launches}
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        launches[name] = got
+    log("karatsuba", f"entry points at their defaults on {card}: launches {launches} "
+        f"({chained} per timed line; unroll2 two per call)")
+    return {"P4": launches["k2_floor_probe"]["P4"], "P8": launches["vpu_reduce_probe"]["P8"],
+            "P1": launches["karatsuba2_probe"]["P1"], "P2": launches["coissue_probe"]["P2"]}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -963,6 +1103,7 @@ def main() -> int:
     limb_step.load_library()
     limb_probe.load_library()
     int8_gemm.load_library()
+    karatsuba_probe.load_library()
     log("build", f"{', '.join(lib.name for lib, _ in libs.values())} from "
         f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for lib, report in libs.values():
@@ -1014,43 +1155,68 @@ def main() -> int:
     errs.update(probe_errs)
     probes = phase_probe_entry_points(card)
 
+    # 10. the Karatsuba step probes: P4, P8, P1, P2 against their plain
+    # versions and K1, their times; then their entry points with the launch
+    # counts of each run
+    kara_errs, kara_t, kara_b = phase_karatsuba_kernels(dev, rs, card)
+    kara = phase_karatsuba_entry_points(card)
+
+    F = FAST_PARAMS
     fast_t = limb_times["FAST"]
-    kernels = [
-        {"name": "cmux_step_k", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "rustfhe_tpu/engine/pallas_k.py:295", "launches": launches["k1"],
-         "max_abs_err": errs["k1"], "ms": times["k1"][0], "plain_ms": times["k1"][1]},
-        {"name": "external_product_k", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "rustfhe_tpu/engine/pallas_k.py:506", "launches": launches["k2"],
-         "max_abs_err": errs["k2"], "ms": times["k2"][0], "plain_ms": times["k2"][1]},
-        {"name": "rotate_all_k", "route": "cuda", "source": K3_SOURCE,
-         "replaces": "rustfhe_tpu/engine/pallas_k.py:432", "launches": lat["k3"],
-         "max_abs_err": errs["k3"], "ms": k3_times[1][0], "plain_ms": k3_times[1][2]},
-        {"name": "limb_cmux_step_merged", "route": "cuda", "source": LIMB_SOURCE,
-         "replaces": "rustfhe_tpu/engine/pallas_step.py:363", "launches": fast["k4"],
-         "max_abs_err": errs["k4"], "ms": fast_t["step"]["k4"],
-         "plain_ms": fast_t["step"]["plain"]},
-        {"name": "limb_external_product", "route": "cuda", "source": LIMB_SOURCE,
-         "replaces": "rustfhe_tpu/engine/pallas_step.py:158", "launches": fast["k5"],
-         "max_abs_err": errs["k5"], "ms": fast_t["k5_probe"]["k5"],
-         "plain_ms": fast_t["k5_probe"]["plain"]},
-        {"name": "limb_cmux_step_split", "route": "cuda", "source": LIMB_SOURCE,
-         "replaces": "rustfhe_tpu/engine/pallas_step.py:267", "launches": dflt["k6"],
-         "max_abs_err": errs["k6"], "ms": fast_t["step"]["k6"],
-         "plain_ms": fast_t["step"]["plain"]},
-        {"name": "limb_probe_order", "route": "cuda", "source": PROBE_SOURCE,
-         "replaces": "benches/limb_order_probe.py:85", "launches": probes["p5"],
-         "max_abs_err": errs["p5"], "ms": probe_t["P5 j-outer"], "plain_ms": probe_t["plain"]},
-        {"name": "limb_probe_variant", "route": "cuda", "source": PROBE_SOURCE,
-         "replaces": "benches/step_breakdown_probe.py:134", "launches": probes["p6"],
-         "max_abs_err": errs["p6"], "ms": probe_t["P6 full"], "plain_ms": probe_t["plain"]},
+    two_l, f_two_l = 2 * p.l, 2 * F.l
+    key_bytes = two_l * 2 * 2 * p.N * 4  # K1's doubled int32 table
+    limb_bytes = two_l * 2 * 4 * 2 * p.N  # the int8 limb table at DEFAULT
+    f_limb_bytes = f_two_l * 2 * 4 * 2 * F.N
+    b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
+    rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
+        ("cmux_step_k", KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"],
+         errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
+        ("external_product_k", KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:506",
+         launches["k2"], errs["k2"], *times["k2"],
+         (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
+        ("rotate_all_k", K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"], errs["k3"],
+         k3_times[1][0], k3_times[1][2],
+         (step_ops(p, 1, p.n), 2 * 2 * p.N * 4 + p.n * 4 + p.n * key_bytes), None),
+        ("limb_cmux_step_merged", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",
+         fast["k4"], errs["k4"], fast_t["step"]["k4"], fast_t["step"]["plain"],
+         (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
+        ("limb_external_product", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:158",
+         fast["k5"], errs["k5"], fast_t["k5_probe"]["k5"], fast_t["k5_probe"]["plain"],
+         (step_ops(F, b_k5), b_k5 * f_two_l * F.N + f_limb_bytes + b_k5 * 2 * F.N * 4), None),
+        ("limb_cmux_step_split", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:267",
+         dflt["k6"], errs["k6"], fast_t["step"]["k6"], fast_t["step"]["plain"],
+         (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
+        ("limb_probe_order", PROBE_SOURCE, "benches/limb_order_probe.py:85", probes["p5"],
+         errs["p5"], probe_t["P5 j-outer"], probe_t["plain"],
+         (step_ops(p, PROBE_CHECK[-1]), step_bytes(p, PROBE_CHECK[-1], limb_bytes)), None),
+        ("limb_probe_variant", PROBE_SOURCE, "benches/step_breakdown_probe.py:134", probes["p6"],
+         errs["p6"], probe_t["P6 full"], probe_t["plain"],
+         (step_ops(p, PROBE_CHECK[-1]), step_bytes(p, PROBE_CHECK[-1], limb_bytes)), None),
     ]
     for key, where in (("p7", "benches/step_breakdown_probe.py:175"),
                        ("p9", "benches/pallas_matmul_probe.py:56")):
-        kernels.append({"name": f"int8_gemm ({key.upper()})", "route": "cuda",
-                        "source": GEMM_SOURCE, "replaces": where, "launches": probes[key],
-                        "max_abs_err": errs[key],
-                        "ms": min(gemm_t[key][tile] for tile in int8_gemm.TILES),
-                        "plain_ms": gemm_t[key]["plain"]})
+        M, K, N = GEMM_SHAPES[key]
+        rows.append((f"int8_gemm ({key.upper()})", GEMM_SOURCE, where, probes[key], errs[key],
+                     min(gemm_t[key][tile] for tile in int8_gemm.TILES), gemm_t[key]["plain"],
+                     (2.0 * M * K * N, M * K + K * N + 4 * M * N), gemm_t[key]["torch._int_mm"]))
+    kara_bytes = step_bytes(p, kara_b, int(np.prod(karatsuba.table_shape(p))))  # the leaf table
+    log("karatsuba", f"bound at B={kara_b}: {bound(karatsuba_ops(p, kara_b), kara_bytes)[0]:.4f} "
+        f"ms (the Karatsuba step's {karatsuba_ops(p, kara_b):.4e} int8 ops; the schoolbook "
+        f"count, {step_ops(p, kara_b):.4e} ops, would give "
+        f"{bound(step_ops(p, kara_b), kara_bytes)[0]:.4f} ms)")
+    for probe, name, label in (("P4", "karatsuba_step_ablate", "P4 full"),
+                               ("P8", "karatsuba_step_var", "P8 leaf_u32"),
+                               ("P1", "karatsuba_step_k2", "P1 step_k2"),
+                               ("P2", "karatsuba_step_split", "P2 serial")):
+        rows.append((name, KARATSUBA_SOURCE, KARATSUBA_REPLACES[probe], kara[probe],
+                     kara_errs[probe], kara_t[label], kara_t["plain"],
+                     (karatsuba_ops(p, kara_b), kara_bytes), None))
+    kernels = []
+    for name, source, where, n, err, ms, plain_ms, (ops, nbytes), lib_ms in rows:
+        bound_ms, bound_by = bound(ops, nbytes)
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": where,
+                        "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     log("done", f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,14 +23,16 @@ REPS = 3
 
 @dataclass
 class Case:
-    """One timed line: ``step`` maps x to the next x; ``ops`` counts the
-    operations of one step (2 per multiply-add)."""
+    """One timed line: ``step`` maps x to the next x, ``steps_per_call``
+    steps at a time; ``ops`` counts the operations of one step (2 per
+    multiply-add)."""
 
     name: str
     step: Callable
     x0: torch.Tensor
     ops: float
     unit: str = "TOPS-equiv"
+    steps_per_call: int = 1
 
 
 def require_cuda() -> torch.device:
@@ -56,7 +58,7 @@ def header(what: str, B: int, out=print) -> None:
 
 
 def chain(case: Case, steps: int = STEPS, reps: int = REPS, out=print) -> float:
-    """Seconds per step of ``case`` (after one warm-up step), printed with
+    """Seconds per step of ``case`` (after one warm-up call), printed with
     its rate."""
     torch.cuda.synchronize()
     case.step(case.x0)
@@ -69,7 +71,7 @@ def chain(case: Case, steps: int = STEPS, reps: int = REPS, out=print) -> float:
         x = case.step(x)
     end.record()
     end.synchronize()
-    dt = start.elapsed_time(end) / 1e3 / (steps * reps)
+    dt = start.elapsed_time(end) / 1e3 / (steps * reps * case.steps_per_call)
     out(f"{case.name:40s} {dt * 1e3:9.3f} ms/step  {case.ops / dt / 1e12:7.1f} {case.unit}")
     return dt
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import gates, tlwe, torus
+from ._device import resolve_device
 from .engine import resolve_engine, select_engine
 from .keys import CloudKey, SecretKey, cloud_key_latency, gen_keys
 from .params import DEFAULT_PARAMS, TFHEParams
@@ -20,7 +21,7 @@ from .params import DEFAULT_PARAMS, TFHEParams
 class TFHE:
     """Keyed TFHE evaluator on one device.
 
-    >>> ctx = TFHE.new(0, params, device="cuda")
+    >>> ctx = TFHE.new(0, params)  # on the CUDA card; device="cpu" for the CPU
     >>> c = ctx.encrypt(torch.tensor([0, 1, 1, 0]))
     >>> bits = ctx.decrypt(ctx.nand(c, c))
     """
@@ -36,12 +37,13 @@ class TFHE:
 
     @classmethod
     def new(cls, seed_or_generator, params: TFHEParams = DEFAULT_PARAMS,
-            device="cpu", latency_mode: bool = False,
+            device="cuda", latency_mode: bool = False,
             keyfile: str | None = None, engine_name=None) -> "TFHE":
-        """Keygen on ``device`` from an int seed or a ``torch.Generator``
-        that lives there.  The engine is admitted on the device first
-        (``engine.select_engine``: its external product, K2 or K5, against
-        the oracle), and a CUDA device that is not available raises.
+        """Keygen on ``device`` (the CUDA card unless the caller names the
+        CPU) from an int seed or a ``torch.Generator`` that lives there.
+        The engine is admitted on the device first (``engine.select_engine``:
+        its external product, K2 or K5, against the oracle), and a CUDA
+        device that is not available raises.
 
         ``engine_name``: ``None`` picks the engine by the JAX package's
         rule, as its ``TFHE.new(engine_name=None)`` does: ``"cmux_k"``
@@ -58,10 +60,7 @@ class TFHE:
         (``utils.serialization.cached_keys``): keygen runs once, later
         contexts load the keys.  A cached context reuses the same secret
         key across runs."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested, but "
-                               "torch.cuda.is_available() is False")
+        device = resolve_device(device)
         if isinstance(seed_or_generator, torch.Generator):
             gen = seed_or_generator
             if gen.device.type != device.type:

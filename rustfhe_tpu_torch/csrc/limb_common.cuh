@@ -1,5 +1,6 @@
 // Device and host code shared by the limb-form kernels: K4-K6
-// (limb_step.cu) and their measurement variants P5/P6 (limb_probe.cu).
+// (limb_step.cu), their measurement variants P5/P6 (limb_probe.cu) and,
+// with N the leaf size, the Karatsuba step (karatsuba_probe.cu).
 //
 // Layouts:
 //   * the step's limb table is (2L, 2, K, 2N) int8 in device memory
@@ -95,13 +96,16 @@ __device__ __forceinline__ void build_step_digits(int8_t* dig_s, const int32_t* 
   }
 }
 
-// part[s][t] += sum_j sum_i d_j[i][s] * L_j[k0 + t - i + N] for one (half,
-// limb): `tab` points at its 2L reversed planes.  With base = N - k0 - 8 +
-// 4g, output t and the digits 4g..4g+3 meet R[base + 7 - t .. base + 10 - t]:
-// bytes 7 - t .. 10 - t of the three words at base, base + 4, base + 8.
+// part[s][t] += sum_j sum_i d_j[i][s0 + s] * L_j[k0 + t - i + N] for one
+// (half, limb): `tab` points at its 2L reversed planes.  With base = N - k0 -
+// 8 + 4g, output t and the digits 4g..4g+3 meet R[base + 7 - t .. base + 10 -
+// t]: bytes 7 - t .. 10 - t of the three words at base, base + 4, base + 8.
+// SUB samples from s0: the whole tile (8, s0 = 0) or half of it (4, s0 = 0 or 4).
+template <int SUB = TB>
 __device__ __forceinline__ void limb_products(const uint32_t* tab, const uint32_t* dig,
                                               int two_l, int N, int k0,
-                                              int32_t (&part)[TB][KPT]) {
+                                              int32_t (&part)[SUB][KPT], int s0 = 0) {
+  static_assert(SUB == TB || SUB == TB / 2, "a tile or half a tile");
   const int pw = N / 2;
   const int groups = N / 4;
   const int w_first = (N - k0 - KPT) / 4;
@@ -122,12 +126,21 @@ __device__ __forceinline__ void limb_products(const uint32_t* tab, const uint32_
       key[2] = (int)__funnelshift_r(w1, w2, 8);
       key[1] = (int)__funnelshift_r(w1, w2, 16);
       key[0] = (int)__funnelshift_r(w1, w2, 24);
-      const uint4 da = *reinterpret_cast<const uint4*>(D + (size_t)g * TB);
-      const uint4 db = *reinterpret_cast<const uint4*>(D + (size_t)g * TB + 4);
-      const int d[TB] = {(int)da.x, (int)da.y, (int)da.z, (int)da.w,
-                         (int)db.x, (int)db.y, (int)db.z, (int)db.w};
+      int d[SUB];
+      const uint4 da = *reinterpret_cast<const uint4*>(D + (size_t)g * TB + s0);
+      d[0] = (int)da.x;
+      d[1] = (int)da.y;
+      d[2] = (int)da.z;
+      d[3] = (int)da.w;
+      if constexpr (SUB == TB) {
+        const uint4 db = *reinterpret_cast<const uint4*>(D + (size_t)g * TB + s0 + 4);
+        d[4] = (int)db.x;
+        d[5] = (int)db.y;
+        d[6] = (int)db.z;
+        d[7] = (int)db.w;
+      }
 #pragma unroll
-      for (int s = 0; s < TB; ++s)
+      for (int s = 0; s < SUB; ++s)
 #pragma unroll
         for (int t = 0; t < KPT; ++t) part[s][t] = __dp4a(d[s], key[t], part[s][t]);
       w0 = w1;

@@ -46,14 +46,14 @@ def prepare_trgsw(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _circulant(table: torch.Tensor) -> torch.Tensor:
-    """Doubled table ``(2L, 2, 2N)`` -> float64 ``(2L*N, 2*N)`` with
-    C[(j, i), (c, k)] = T[j, c, k - i + N]."""
-    two_l, _, tn = table.shape
+    """Doubled table ``(2L, H, 2N)`` (H output polynomials, 2 for the two
+    halves) -> float64 ``(2L*N, H*N)`` with C[(j, i), (c, k)] = T[j, c, k - i + N]."""
+    two_l, halves, tn = table.shape
     N = tn // 2
     ar = torch.arange(N, device=table.device)
     idx = ar[None, :] - ar[:, None] + N  # (i, k)
-    circ = table[:, :, idx]  # (2L, 2, i, k)
-    return circ.permute(0, 2, 1, 3).reshape(two_l * N, 2 * N).to(torch.float64)
+    circ = table[:, :, idx]  # (2L, H, i, k)
+    return circ.permute(0, 2, 1, 3).reshape(two_l * N, halves * N).to(torch.float64)
 
 
 def external_product(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

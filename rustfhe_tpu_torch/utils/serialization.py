@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import keys as _keys
+from .._device import resolve_device
 from .._u32 import from_numpy, to_numpy
 from ..keys import CloudKey, SecretKey
 from ..params import TFHEParams
@@ -61,7 +62,8 @@ def save_secret_key(path: str, sk: SecretKey, params: TFHEParams) -> None:
     os.chmod(real, 0o600)
 
 
-def load_secret_key(path: str, device="cpu") -> tuple[SecretKey, TFHEParams]:
+def load_secret_key(path: str, device="cuda") -> tuple[SecretKey, TFHEParams]:
+    device = resolve_device(device)
     with np.load(path) as z:
         params = _parse_header(z["header"])
         sk = SecretKey(lv0=from_numpy(z["lv0"], device), lv1=from_numpy(z["lv1"], device))
@@ -74,9 +76,10 @@ def save_cloud_key_raw(path: str, bk_raw, ksk_raw, params: TFHEParams) -> None:
                         bk=_words(bk_raw), ksk=_words(ksk_raw))
 
 
-def load_cloud_key(path: str, device="cpu", engine="cmux_k") -> tuple[CloudKey, TFHEParams]:
+def load_cloud_key(path: str, device="cuda", engine="cmux_k") -> tuple[CloudKey, TFHEParams]:
     """Load the raw evaluation keys and prepare them on ``device`` for
     ``engine`` (a name or an engine instance)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         params = _parse_header(z["header"])
         ck = _keys.prepare_cloud_key(from_numpy(z["bk"], device), from_numpy(z["ksk"], device),
@@ -84,7 +87,7 @@ def load_cloud_key(path: str, device="cpu", engine="cmux_k") -> tuple[CloudKey, 
     return ck, params
 
 
-def cached_keys(prefix: str, seed_or_generator, params: TFHEParams, device="cpu",
+def cached_keys(prefix: str, seed_or_generator, params: TFHEParams, device="cuda",
                 verbose: bool = False, engine="cmux_k") -> tuple[SecretKey, CloudKey]:
     """(SecretKey, CloudKey) with the raw key material cached on disk, the
     cloud key prepared for ``engine``.
@@ -95,6 +98,7 @@ def cached_keys(prefix: str, seed_or_generator, params: TFHEParams, device="cpu"
     prepare the key again.  A cache that holds other parameters, or that
     cannot be read, is regenerated, not misused.
     """
+    device = resolve_device(device)
     sk_path, ck_path = f"{prefix}.sk.npz", f"{prefix}.ck.npz"
     if os.path.exists(sk_path) and os.path.exists(ck_path):
         try:
@@ -131,7 +135,8 @@ def save_ciphertexts(path: str, cts, params: TFHEParams) -> None:
     np.savez_compressed(path, header=_params_header(params), cts=_words(cts))
 
 
-def load_ciphertexts(path: str, device="cpu") -> tuple[torch.Tensor, TFHEParams]:
+def load_ciphertexts(path: str, device="cuda") -> tuple[torch.Tensor, TFHEParams]:
+    device = resolve_device(device)
     with np.load(path) as z:
         params = _parse_header(z["header"])
         cts = from_numpy(z["cts"], device)

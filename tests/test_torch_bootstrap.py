@@ -107,8 +107,16 @@ def test_bootstrap_matches_jax_word_for_word_default_params():
     _parity("DEFAULT_PARAMS", 5)
 
 
+def test_context_defaults_to_the_card(monkeypatch):
+    # TFHE.new runs on the CUDA card unless the caller names the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        TFHE.new(0, params.TEST_PARAMS)
+    assert TFHE.new(0, params.TEST_PARAMS, device="cpu").device == torch.device("cpu")
+
+
 def test_port_keygen_gates_truth_tables():
-    ctx = TFHE.new(11, params.TEST_PARAMS)
+    ctx = TFHE.new(11, params.TEST_PARAMS, device="cpu")
     assert ctx.engine_name == "cmux_k"
     x = ctx.encrypt([0, 1, 0, 1])
     y = ctx.encrypt([0, 0, 1, 1])

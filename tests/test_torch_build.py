@@ -29,8 +29,8 @@ print("ptxas info    : Used 1 registers, compiled " + src)
 
 
 def test_sources_are_the_kernel_files():
-    assert [s.stem for s in build.sources()] == ["cmux_k", "int8_gemm", "limb_probe", "limb_step",
-                                                 "rotate_all_k"]
+    assert [s.stem for s in build.sources()] == ["cmux_k", "int8_gemm", "karatsuba_probe",
+                                                 "limb_probe", "limb_step", "rotate_all_k"]
     assert build.library_path("cmux_k").name.startswith("libcmux_k-")
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 and the probes P5, P6, P7/P9 against their
+"""The CUDA kernels K1-K6 and the probes P1, P2, P4-P9 against their
 plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from rustfhe_tpu_torch import TFHE, _u32, engine, params
-from rustfhe_tpu_torch.engine import (cmux_k, int8_gemm, limb_probe, limb_step, oracle, plain,
-                                      rotate_all_k)
+from rustfhe_tpu_torch.engine import (cmux_k, int8_gemm, karatsuba, karatsuba_probe, limb_probe,
+                                      limb_step, oracle, plain, rotate_all_k)
 
 
 @pytest.fixture
@@ -192,3 +192,50 @@ def test_int8_gemm_kernel_matches_plain(cuda, tile):
             with pytest.raises(ValueError, match="does not divide tile"):
                 int8_gemm.int8_matmul(rd.contiguous().to(cuda), rwt, tile)
         assert int8_gemm.int8_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("B", [13, 8192])  # 13 samples: a ragged last tile
+def test_karatsuba_kernels_match_plain_and_k1(cuda, B):
+    # Every form of P4, P8, P1 and P2 against its plain version (on the card),
+    # on a table mapped from random JAX-layout bytes; the exact forms on a
+    # table from rows against K1 through the scan layout.
+    p = params.DEFAULT_PARAMS
+    rows, acc, ai, _ = _case(44, B, p)
+    rs = np.random.RandomState(45)
+    qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4 * 9, p.N // 2)).astype(np.int8))
+    std, a = _u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda)
+    flat = karatsuba.scan_enter(std)
+    t_rows = _u32.from_numpy(rows, cuda)
+    k1 = cmux_k.cmux_step(std, a, plain.prepare_trgsw(t_rows), p)
+    for tab, exact_only in ((karatsuba.table_from_qd(qd).to(cuda), False),
+                            (karatsuba.prepare_table(t_rows), True)):
+        for probe, label, fn, kw, form in karatsuba_probe.calls():
+            if exact_only and not form.exact:
+                continue
+            before = fn.launches
+            got = fn(flat, a, tab, p, **kw)
+            assert fn.launches == before + 1
+            assert torch.equal(got, karatsuba.step_plain(flat, a, tab, p, form)), (probe, label)
+            if exact_only:
+                assert torch.equal(karatsuba.scan_exit(got), k1), (probe, label)
+    # two steps per call: two launches, equal to two single steps
+    a2 = torch.stack([a, a.flip(0)], dim=1)
+    tabs = torch.stack([tab, karatsuba.table_from_qd(qd).to(cuda)])
+    before = karatsuba_probe.step_var.launches
+    got = karatsuba_probe.step_var(flat, a2, tabs, p, unroll=2)
+    assert karatsuba_probe.step_var.launches == before + 2
+    one = karatsuba_probe.step_var(flat, a, tabs[0], p)
+    assert torch.equal(got, karatsuba_probe.step_var(one, a.flip(0).contiguous(), tabs[1], p))
+    # nodots at another tm
+    assert torch.equal(karatsuba_probe.step_ablate(flat, a, tab, p, "nodots", tm=64),
+                       karatsuba.step_plain(flat, a, tab, p, karatsuba_probe.ABLATIONS["nodots"],
+                                            tm=64))
+
+
+def test_karatsuba_kernel_refuses_what_it_does_not_carry(cuda):
+    p = params.PBS_PARAMS  # N=2048: past the kernel's leaf size and its shared memory
+    acc = torch.zeros((1, 2 * p.N), dtype=torch.int32, device=cuda)
+    ai = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    tab = torch.zeros(karatsuba.table_shape(p), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="N a multiple of 32 up to 1024"):
+        karatsuba_probe.step_k2(acc, ai, tab, p)

@@ -123,7 +123,7 @@ def test_inexact_limb_probe_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="limb engine's external product on cpu failed"):
         engine.select_engine(P_FAST, "cpu")
     with pytest.raises(RuntimeError, match="failed the oracle probe"):
-        TFHE.new(0, P_FAST)
+        TFHE.new(0, P_FAST, device="cpu")
     assert engine.select_engine(P_FAST, "cpu", "cmux_k") == "cmux_k"
 
 
@@ -219,21 +219,22 @@ def test_context_picks_limb_at_fast_shape():
 
 
 def test_context_limb_by_name_at_test_params():
-    ctx = TFHE.new(1, params.TEST_PARAMS, engine_name="limb")
+    ctx = TFHE.new(1, params.TEST_PARAMS, device="cpu", engine_name="limb")
     assert ctx.engine_name == "limb" and isinstance(ctx.ck.bk, LimbBK)
     _truth_tables(ctx)
-    split = TFHE.new(1, params.TEST_PARAMS, engine_name=LimbEngine(merge_c=False))
+    split = TFHE.new(1, params.TEST_PARAMS, device="cpu",
+                     engine_name=LimbEngine(merge_c=False))
     assert split.engine_name == "limb" and not split.ck.bk.merge_c
     # the same seed draws the same keys for either engine
     assert torch.equal(split.ck.bk.table, ctx.ck.bk.table)
-    k1 = TFHE.new(1, params.TEST_PARAMS)
+    k1 = TFHE.new(1, params.TEST_PARAMS, device="cpu")
     assert k1.engine_name == "cmux_k"
     assert torch.equal(plain.prepare_trgsw_limbs(k1.ck.bk[..., params.TEST_PARAMS.N:]),
                        ctx.ck.bk.table)
 
 
 def test_latency_mode_leaves_the_limb_key_unchanged():
-    ctx = TFHE.new(2, P_FAST, latency_mode=True)
+    ctx = TFHE.new(2, P_FAST, device="cpu", latency_mode=True)
     assert ctx.engine_name == "limb" and isinstance(ctx.ck.bk, LimbBK)
     assert keys.cloud_key_latency(ctx.ck) is ctx.ck
     x = ctx.encrypt([0, 1])
@@ -242,10 +243,11 @@ def test_latency_mode_leaves_the_limb_key_unchanged():
 
 def test_one_npz_serves_both_engines(tmp_path):
     prefix = str(tmp_path / "kc")
-    sk, ck = ser.cached_keys(prefix, 5, P_FAST)
-    sk_l, ck_l = ser.cached_keys(prefix, 6, P_FAST, engine="limb")
+    sk, ck = ser.cached_keys(prefix, 5, P_FAST, device="cpu")
+    sk_l, ck_l = ser.cached_keys(prefix, 6, P_FAST, device="cpu", engine="limb")
     assert torch.equal(sk.lv0, sk_l.lv0) and isinstance(ck_l.bk, LimbBK)
-    ck_s, p_loaded = ser.load_cloud_key(f"{prefix}.ck.npz", engine=LimbEngine(fuse_step=False))
+    ck_s, p_loaded = ser.load_cloud_key(f"{prefix}.ck.npz", device="cpu",
+                                        engine=LimbEngine(fuse_step=False))
     assert p_loaded == P_FAST and not ck_s.bk.fuse_step
     assert torch.equal(ck_s.bk.table, ck_l.bk.table)
     gen = torch.Generator().manual_seed(7)
@@ -254,5 +256,5 @@ def test_one_npz_serves_both_engines(tmp_path):
     outs = [gates.hom_bootstrap(c, pre, params=P_FAST) for c in (ck, ck_l, ck_s)]
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
     assert tlwe.decrypt_binary(outs[0], sk.lv0).tolist() == [1, 0, 0, 1, 0]
-    ctx = TFHE.new(8, P_FAST, keyfile=prefix)
+    ctx = TFHE.new(8, P_FAST, device="cpu", keyfile=prefix)
     assert ctx.engine_name == "limb" and torch.equal(ctx.ck.bk.table, ck_l.bk.table)

@@ -47,9 +47,9 @@ def test_jax_written_files_load_in_the_port(tmp_path):
     jct = jtlwe.encrypt_binary(jax.random.PRNGKey(9), jsk.lv0, bits, J_TEST)
     jser.save_ciphertexts(str(tmp_path / "ct.npz"), jct, J_TEST)
 
-    sk, p_sk = ser.load_secret_key(str(tmp_path / "sk.npz"))
+    sk, p_sk = ser.load_secret_key(str(tmp_path / "sk.npz"), device="cpu")
     ck, p_ck = ser.load_cloud_key(str(tmp_path / "ck.npz"), "cpu")
-    ct, p_ct = ser.load_ciphertexts(str(tmp_path / "ct.npz"))
+    ct, p_ct = ser.load_ciphertexts(str(tmp_path / "ct.npz"), device="cpu")
     assert p_sk == p_ck == p_ct == P
     want_sk, want_ck = keys.from_jax_keys(np.asarray(jsk.lv0), np.asarray(jsk.lv1), bk_raw,
                                           ksk_raw, P, "cpu")
@@ -90,40 +90,54 @@ def test_bad_files_rejected(tmp_path):
     path = str(tmp_path / "junk.npz")
     np.savez(path, header=np.frombuffer(b'{"magic": "nope"}', dtype=np.uint8))
     with pytest.raises(ValueError, match="not a rustfhe_tpu file"):
-        ser.load_secret_key(path)
+        ser.load_secret_key(path, device="cpu")
     np.savez(path, header=np.frombuffer(b'{"magic": "rustfhe_tpu", "version": 2}',
                                         dtype=np.uint8))
     with pytest.raises(ValueError, match="unsupported version"):
-        ser.load_ciphertexts(path)
+        ser.load_ciphertexts(path, device="cpu")
 
 
 def test_cached_keys_load_then_regenerate_on_param_mismatch(tmp_path, capsys):
     prefix = str(tmp_path / "kc")
-    sk1, ck1 = ser.cached_keys(prefix, 1, P)
+    sk1, ck1 = ser.cached_keys(prefix, 1, P, device="cpu")
     assert (tmp_path / "kc.sk.npz").exists() and (tmp_path / "kc.ck.npz").exists()
     # Another seed loads the cache, word for word.
-    sk2, ck2 = ser.cached_keys(prefix, 999, P, verbose=True)
+    sk2, ck2 = ser.cached_keys(prefix, 999, P, device="cpu", verbose=True)
     assert "loaded cached keys" in capsys.readouterr().out
     assert torch.equal(sk1.lv0, sk2.lv0) and torch.equal(sk1.lv1, sk2.lv1)
     assert torch.equal(ck1.bk, ck2.bk) and torch.equal(ck1.ksk, ck2.ksk)
     # Other parameters: the cache is regenerated for them, and JAX reads it.
-    sk3, ck3 = ser.cached_keys(prefix, 999, params.PBS_TEST_PARAMS, verbose=True)
+    sk3, ck3 = ser.cached_keys(prefix, 999, params.PBS_TEST_PARAMS, device="cpu", verbose=True)
     assert "different params" in capsys.readouterr().out
     assert sk3.lv0.shape == (params.PBS_TEST_PARAMS.n,)
     _, p_after = jser.load_secret_key(f"{prefix}.sk.npz")
     assert p_after == J_PBS_TEST
     # An unreadable cache is regenerated too.
     (tmp_path / "kc.ck.npz").write_bytes(b"not a zip file")
-    ser.cached_keys(prefix, 3, P, verbose=True)
+    ser.cached_keys(prefix, 3, P, device="cpu", verbose=True)
     assert "unreadable" in capsys.readouterr().out
-    assert ser.load_cloud_key(f"{prefix}.ck.npz")[1] == P
+    assert ser.load_cloud_key(f"{prefix}.ck.npz", device="cpu")[1] == P
 
 
 def test_context_keyfile_reuses_the_keys(tmp_path):
     prefix = str(tmp_path / "ctx")
-    a = TFHE.new(21, P, keyfile=prefix)
-    b = TFHE.new(22, P, keyfile=prefix, latency_mode=True)
+    a = TFHE.new(21, P, device="cpu", keyfile=prefix)
+    b = TFHE.new(22, P, device="cpu", keyfile=prefix, latency_mode=True)
     assert torch.equal(a.sk.lv0, b.sk.lv0)
     assert torch.equal(a.ck.bk, b.ck.bk.bk)
     x = a.encrypt([0, 1, 1, 0])
     assert b.decrypt(b.not_(x)).tolist() == [1, 0, 0, 1]
+
+
+def test_loaders_default_to_the_card(tmp_path, monkeypatch):
+    sk, ck = ser.cached_keys(str(tmp_path / "kc"), 4, P, device="cpu")
+    ser.save_ciphertexts(str(tmp_path / "ct.npz"), torch.zeros((2, P.n + 1), dtype=torch.int32), P)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load, path in ((ser.load_secret_key, "kc.sk.npz"), (ser.load_cloud_key, "kc.ck.npz"),
+                       (ser.load_ciphertexts, "ct.npz")):
+        with pytest.raises(RuntimeError, match="is_available"):
+            load(str(tmp_path / path))
+    with pytest.raises(RuntimeError, match="is_available"):
+        ser.cached_keys(str(tmp_path / "kc"), 4, P)
+    assert torch.equal(ser.load_secret_key(str(tmp_path / "kc.sk.npz"), device="cpu")[0].lv0,
+                       sk.lv0)
