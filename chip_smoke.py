@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's batched gate bootstrap, its interactive console, its
-limb engine and its measurement probes once on a CUDA card.
+limb engine, its generic engines and its measurement probes once on a
+CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -71,7 +72,24 @@ Phases, one line each:
      turns beside K1 and the plain step, and P4's attribution; then the
      four entry points (k2_floor_probe, vpu_reduce_probe,
      karatsuba2_probe, coissue_probe) with their defaults, each with the
-     launch counts of its own run.
+     launch counts of its own run (P3's two forms join the form checks and
+     times);
+ 11. P3 and P10: P3's two forms (the tree planes built per leaf, or
+     pipelined) against the production step and the "matmul" engine
+     through the scan layout, and their times in turns beside the upfront
+     form (A) and K1; P10 (the Nussbaumer primitives) against its plain
+     version and the host reference at S = 0, 1, 17, 63, and its time;
+     then the two entry points (coissue2_probe, nussbaumer_primitives_probe)
+     at their defaults, each with the launch counts of its own run;
+ 12. the generic-engine path at DEFAULT_PARAMS: ``TFHE.new(...,
+     engine_name="matmul")`` on phase 4's keys, phase 4's mixed batch equal
+     word for word to its K1 output, a timed NAND batch (B=4096) with one
+     launch of the int8 GEMM (P7/P9's kernel) per step and no K1, one pass
+     under ``torch.profiler`` (the idle share), the step's parts and its
+     GEMM beside ``torch._int_mm``; "matmul_bf16", "nuss" and
+     "fft64" admitted by the oracle probe on the card and held to
+     "matmul" on a random batch; a mixed batch at Bg = 2^9 (l=2, n=64) on
+     "matmul_bf16", every output decrypted.
 
 Then one JSON line of kernels (each with its time, its bound on the card
 and, where one PyTorch call computes the same function, that call's time),
@@ -94,17 +112,20 @@ import time
 import numpy as np
 import torch
 
-from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, tlwe, trlwe
+from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, poly, tlwe, trlwe
 from rustfhe_tpu_torch.apps import nander
 from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
-from rustfhe_tpu_torch.benches import (_timing, coissue_probe, k2_floor_probe, karatsuba2_probe,
-                                       limb_order_probe, matmul_probe, step_breakdown_probe,
+from rustfhe_tpu_torch.benches import (_timing, coissue2_probe, coissue_probe, k2_floor_probe,
+                                       karatsuba2_probe, limb_order_probe, matmul_probe,
+                                       nussbaumer_primitives_probe, step_breakdown_probe,
                                        vpu_reduce_probe)
-from rustfhe_tpu_torch.engine import (build, cmux_k, int8_gemm, karatsuba, karatsuba_probe,
-                                      limb_probe, limb_step, oracle, plain, probe_vectors,
-                                      rotate_all_k)
-from rustfhe_tpu_torch.keys import CloudKey
-from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS
+from rustfhe_tpu_torch.engine import (build, cmux_k, get_engine, int8_gemm, karatsuba,
+                                      karatsuba_probe, limb_probe, limb_step, matmul,
+                                      nuss_primitives, oracle, plain, probe_vectors, rotate_all_k,
+                                      select_engine)
+from rustfhe_tpu_torch.keys import CloudKey, GenericBK
+from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS, TFHEParams
+from rustfhe_tpu_torch.trgsw import decompose_trlwe
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
@@ -112,6 +133,7 @@ LIMB_SOURCE = "rustfhe_tpu_torch/csrc/limb_step.cu"
 PROBE_SOURCE = "rustfhe_tpu_torch/csrc/limb_probe.cu"
 GEMM_SOURCE = "rustfhe_tpu_torch/csrc/int8_gemm.cu"
 KARATSUBA_SOURCE = "rustfhe_tpu_torch/csrc/karatsuba_probe.cu"
+NUSS_SOURCE = "rustfhe_tpu_torch/csrc/nuss_primitives.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
@@ -986,7 +1008,8 @@ def phase_probe_entry_points(card):
 # 10. The Karatsuba step probes: P4, P8, P1, P2 (karatsuba_probe)
 # --------------------------------------------------------------------- #
 KARATSUBA_REPLACES = {"P4": "benches/k2_floor_probe.py:164", "P8": "benches/vpu_reduce_probe.py:190",
-                      "P1": "benches/karatsuba2_probe.py:179", "P2": "benches/coissue_probe.py:114"}
+                      "P1": "benches/karatsuba2_probe.py:179", "P2": "benches/coissue_probe.py:114",
+                      "P3": "benches/coissue2_probe.py:134"}
 
 
 def phase_karatsuba_kernels(dev, rs, card):
@@ -1022,9 +1045,10 @@ def phase_karatsuba_kernels(dev, rs, card):
               karatsuba_probe.step_var(one, ai.flip(0).contiguous(), rtab, p))
     torch.cuda.synchronize()
     log("karatsuba", f"{len(calls)} forms (P4 {len(karatsuba_probe.ABLATIONS)}, P8 "
-        f"{len(karatsuba_probe.VAR_FORMS)}, P1 1, P2 2) bit-exact against their plain versions "
-        f"at B={', '.join(map(str, PROBE_CHECK))}; P4 full, every exact P8 form, P1 and both P2 "
-        "orders equal K1 through the scan layout; P8 unroll2 equals two single steps")
+        f"{len(karatsuba_probe.VAR_FORMS)}, P1 1, P2 2, P3 2) bit-exact against their plain "
+        f"versions at B={', '.join(map(str, PROBE_CHECK))}; P4 full, every exact P8 form, P1, "
+        "both P2 orders and both P3 forms equal K1 through the scan layout; P8 unroll2 equals "
+        "two single steps")
 
     # Times at the probes' B=8192 (std, flat, ai of the last check), on the rows' table.
     a2 = torch.stack([ai, ai], dim=1)
@@ -1076,6 +1100,245 @@ def phase_karatsuba_entry_points(card):
             "P1": launches["karatsuba2_probe"]["P1"], "P2": launches["coissue_probe"]["P2"]}
 
 
+# --------------------------------------------------------------------- #
+# 11. P3 (karatsuba_probe.step_coissue) and P10 (nuss_primitives)
+# --------------------------------------------------------------------- #
+NUSS_ROLLS = (0, 1, 17, 63)
+
+
+def phase_coissue(dev, rs, card):
+    """P3's two forms on a table from random rows: equal to the production
+    step (P4 full) and to the "matmul" engine's acc + ExtProd(key,
+    Decompose(X^a~ * acc - acc)) through the scan layout (their plain
+    versions: phase 10); then A, B, C and K1 in turns at B=8192."""
+    p = DEFAULT_PARAMS
+    rows = words(rs, (2 * p.l, 2, p.N), dev)
+    tab, key = karatsuba.prepare_table(rows), plain.prepare_trgsw(rows)
+    std = words(rs, (PROBE_CHECK[-1], 2, p.N), dev)
+    ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=std.shape[0]).astype(np.int32)).to(dev)
+    ai[:4] = torch.tensor([0, 1, p.N, 2 * p.N - 1], dtype=torch.int32)
+    flat = karatsuba.scan_enter(std)
+    m = get_engine("matmul")
+    diff = poly.rotate(std, ai[:, None]) - std
+    want = std + m.external_product_digits(m.prepare_trgsw(rows, p), decompose_trlwe(diff, p), p)
+    full = karatsuba_probe.step_ablate(flat, ai, tab, p, "full")
+    err = 0
+    for pipelined in (False, True):
+        got = karatsuba_probe.step_coissue(flat, ai, tab, p, pipelined)
+        err = max(err, exact(f"P3 pipelined={pipelined} vs P4 full", got, full),
+                  exact(f"P3 pipelined={pipelined} vs matmul", karatsuba.scan_exit(got), want))
+    torch.cuda.synchronize()
+    t = turns({"K1": lambda: cmux_k.cmux_step(std, ai, key, p),
+               "A": lambda: karatsuba_probe.step_var(flat, ai, tab, p),
+               "B": lambda: karatsuba_probe.step_coissue(flat, ai, tab, p, False),
+               "C": lambda: karatsuba_probe.step_coissue(flat, ai, tab, p, True)}, 5)
+    log("coissue", f"P3 B (per-leaf build) and C (pipelined) equal P4 full and the matmul "
+        f"engine's step through the scan layout at B={std.shape[0]}; on {card}, ms/step in "
+        f"turns: A (upfront, P8 leaf_u32) {t['A']:.4f}, B {t['B']:.4f}, C {t['C']:.4f}, K1 "
+        f"{t['K1']:.4f}; B/A {t['B'] / t['A']:.4f}, C/A {t['C'] / t['A']:.4f}")
+    return err, t
+
+
+def phase_nuss_primitives(dev, card):
+    """P10 against its plain version and the host reference at every roll
+    of NUSS_ROLLS, on the probe's (128, 2048) tile; its time in turns."""
+    x0 = nussbaumer_primitives_probe.draw()
+    x = _u32.from_numpy(x0, dev)
+    err = 0
+    for s in NUSS_ROLLS:
+        got = nuss_primitives.nuss_primitives(x, s)
+        err = max(err, exact(f"P10 S={s} vs plain", got, nuss_primitives.nuss_primitives_plain(x, s)))
+        host = nussbaumer_primitives_probe.butterfly_host(
+            nussbaumer_primitives_probe.block_neg_roll_host(x0, s))
+        exact(f"P10 S={s} vs host", got, _u32.from_numpy(host))
+    fns = {"plain": lambda: nuss_primitives.nuss_primitives_plain(x, nuss_primitives.ROLL),
+           "kernel": lambda: nuss_primitives.nuss_primitives(x, nuss_primitives.ROLL)}
+    ev = turns(fns, 200)
+    # Back to back, a call's event time is the host's issue time (the
+    # wrapper's checks and ctypes): the device time comes from the profiler.
+    dev_ms = {k: profiled_ms(fn, 50) for k, fn in fns.items()}
+    log("nuss", f"P10 bit-exact against its plain version and the host reference at S="
+        f"{', '.join(map(str, NUSS_ROLLS))}; {tuple(x.shape)} on {card}, us per call: device "
+        f"time (profiler) kernel {dev_ms['kernel'] * 1e3:.2f}, plain {dev_ms['plain'] * 1e3:.2f}; "
+        f"CUDA events over back-to-back calls kernel {ev['kernel'] * 1e3:.2f}, plain "
+        f"{ev['plain'] * 1e3:.2f}")
+    return err, (dev_ms["kernel"], dev_ms["plain"]), x.numel() * 4 * 2
+
+
+def profiled_ms(fn, calls: int) -> float:
+    """Device time (ms) per call of ``fn``: the sum over every kernel the
+    profiler saw on the card in ``calls`` calls, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_times(prof).values())
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / calls
+
+
+def phase_coissue_entry_points(card):
+    """coissue2_probe and nussbaumer_primitives_probe at their defaults, as
+    a user runs them, each with the launch counts of its own run."""
+    chained = _timing.STEPS * _timing.REPS + 1
+    karatsuba_probe.reset_counters()
+    int8_gemm.reset_counters()
+    coissue2_probe.run(out=functools.partial(log, "coissue"))
+    got = {"P3": karatsuba_probe.step_coissue.launches, "P8": karatsuba_probe.step_var.launches,
+           "int8_gemm": int8_gemm.int8_matmul.launches}
+    want = {"P3": 2 + 2 * chained, "P8": chained, "int8_gemm": 1}
+    if got != want:
+        raise AssertionError(f"coissue2_probe launched {got}, expected {want}")
+    nuss_primitives.reset_counters()
+    nussbaumer_primitives_probe.run(out=functools.partial(log, "nuss"))
+    p10 = nuss_primitives.nuss_primitives.launches
+    if p10 != 1 + nussbaumer_primitives_probe.ITERS:
+        raise AssertionError(f"nussbaumer_primitives_probe launched P10 {p10} times")
+    log("coissue", f"entry points at their defaults on {card}: coissue2_probe {got}, "
+        f"nussbaumer_primitives_probe P10 {p10}")
+    return got["P3"], p10
+
+
+# --------------------------------------------------------------------- #
+# 12. The generic-engine path: "matmul", "matmul_bf16", "nuss", "fft64"
+# --------------------------------------------------------------------- #
+P_BG9 = TFHEParams(bgbit=9, l=2, n=64)  # Bg = 2^9: digits to 256, past int8
+
+
+def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_ms):
+    """DEFAULT_PARAMS through ``TFHE.new(..., engine_name="matmul")`` on
+    phase 4's seed (the same raw keys): phase 4's mixed batch word for word,
+    a timed NAND batch, one int8 GEMM launch per step and no K1."""
+    p = DEFAULT_PARAMS
+    cmux_k.reset_counters()
+    int8_gemm.reset_counters()
+    t0 = time.perf_counter()
+    ctx = TFHE.new(SEED, p, device=dev, engine_name="matmul")
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t0
+    probe = int8_gemm.int8_matmul.launches
+    if not isinstance(ctx.ck.bk, GenericBK) or probe != 1:
+        raise AssertionError(f"matmul context: key {type(ctx.ck.bk).__name__}, probe {probe}")
+    gemm = int8_gemm.int8_matmul
+    out = one_pass(lambda: ctx.bootstrap_raw(mixed_pre), p, gemm)
+    check_bits("matmul mixed batch", ctx.decrypt(out).cpu().numpy(), mixed_want)
+    exact("matmul mixed batch vs K1", out, mixed_out)
+    pat = np.tile(np.array([[0, 0], [1, 0], [0, 1], [1, 1]]), (BATCH // 4 + 1, 1))[:BATCH]
+    cx, cy = ctx.encrypt(pat[:, 0]), ctx.encrypt(pat[:, 1])
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        nand = one_pass(lambda: ctx.nand(cx, cy), p, gemm)
+        if i:
+            times.append(time.perf_counter() - t0)
+    check_bits("matmul NAND", ctx.decrypt(nand).cpu().numpy(), 1 - (pat[:, 0] & pat[:, 1]))
+    # One more pass under the profiler: the device's busy and idle share.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one_pass(lambda: ctx.nand(cx, cy), p, gemm)
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = device_times(prof)
+    busy = sum(dev_ms.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in the matmul pass")
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
+    log("profile", f"matmul NAND pass, B={BATCH}, on {card}: device busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall, idle share {1 - busy / wall:.4f}; top kernels: "
+        + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top))
+    passes = 5
+    launches = {"int8_gemm": gemm.launches, "k1": cmux_k.cmux_step.launches}
+    if launches != {"int8_gemm": probe + passes * p.n, "k1": 0}:
+        raise AssertionError(f"matmul path launches {launches}, expected int8_gemm = {probe} + "
+                             f"{passes} x {p.n} and no K1")
+    best = min(times)
+    log("matmul", f"DEFAULT_PARAMS, engine matmul, on {card}: keys in {t_keys:.2f} s; the mixed "
+        f"batch of {MIXED} decrypts correctly and equals phase 4's K1 output word for word; "
+        f"NAND B={BATCH}: {BATCH}/{BATCH} correct, {best * 1e3:.1f} ms per batch -> "
+        f"{BATCH / best:.1f} gates/s ({best / p.n * 1e3:.3f} ms/step; K1 {k1_ms:.4f} ms/step "
+        f"in phase 3); launches {launches} ({probe} probe + {passes} passes x {p.n})")
+
+    # The step's parts at B=4096 on the real key: the circulant, the GEMM
+    # (against torch._int_mm on the same operands), the external product, the step.
+    m = get_engine("matmul")
+    acc, a_steps = bootstrap.rotation_start(gates.precombine("nand", cx, cy, params=p),
+                                            trlwe.trivial(torch.full((p.N,), p.mu, dtype=torch.int32,
+                                                                     device=dev)), p)
+    table = ctx.ck.bk.table[0]
+    digits = decompose_trlwe(poly.rotate(acc, a_steps[0][:, None]) - acc, p)
+    wt = matmul.circulant(table)
+    d = digits.flip(-1).reshape(BATCH, -1).to(torch.int8)
+    exact("int8 GEMM vs torch._int_mm", int8_gemm.int8_matmul(d, wt), torch._int_mm(d, wt.t()))
+
+    def step():
+        diff = poly.rotate(acc, a_steps[0][:, None]) - acc
+        return acc + m.external_product_digits(table, decompose_trlwe(diff, p), p)
+
+    t = turns({"torch._int_mm": lambda: torch._int_mm(d, wt.t()),
+               "int8_gemm": lambda: int8_gemm.int8_matmul(d, wt),
+               "circulant": lambda: matmul.circulant(table),
+               "external product": lambda: m.external_product_digits(table, digits, p),
+               "step": step}, 10)
+    M, K = d.shape
+    ops = 2 * M * K * wt.shape[0]
+    log("matmul", f"step parts at B={BATCH} on {card}, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()) + f"; GEMM {M} x {K} x {wt.shape[0]}: int8_gemm "
+        f"{ops / t['int8_gemm'] / 1e9:.1f} TOPS, torch._int_mm "
+        f"{ops / t['torch._int_mm'] / 1e9:.1f}; step / K1 {t['step'] / k1_ms:.3f}")
+    return BATCH / best, t, launches
+
+
+def phase_generic_engines(dev, card):
+    """matmul_bf16, nuss and fft64 admitted by the oracle probe on the card
+    at DEFAULT_PARAMS, each external product equal to matmul's on a random
+    B=256 batch; then a mixed batch at Bg = 2^9 on matmul_bf16."""
+    p = DEFAULT_PARAMS
+    rs = np.random.RandomState(SEED + 12)
+    rows = words(rs, (2 * p.l, 2, p.N), dev)
+    digits = torch.from_numpy(rs.randint(-p.half_bg, p.half_bg, size=(256, 2 * p.l, p.N))
+                              .astype(np.int32)).to(dev)
+    m = get_engine("matmul")
+    want = m.external_product_digits(m.prepare_trgsw(rows, p), digits, p)
+    secs = {}
+    for name in ("matmul_bf16", "nuss", "fft64"):
+        t0 = time.perf_counter()
+        if select_engine(p, dev, name) != name:
+            raise AssertionError(f"{name} not admitted")
+        eng = get_engine(name)
+        exact(f"{name} vs matmul, B=256", eng.external_product_digits(eng.prepare_trgsw(rows, p),
+                                                                      digits, p), want)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    setting = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:  # matmul_bf16 must not depend on cuBLAS's bf16 reduction flag
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+            select_engine(p, dev, "matmul_bf16")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = setting
+    log("engines", f"DEFAULT_PARAMS on {card}: matmul_bf16, nuss and fft64 admitted by the oracle "
+        "probe on the card, each external product equal to matmul's on B=256 (probe and check, s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + "); matmul_bf16 exact with allow_bf16_reduced_precision_reduction on and off")
+
+    pb = P_BG9
+    t0 = time.perf_counter()
+    ctx = TFHE.new(SEED, pb, device=dev)
+    if ctx.engine_name != "matmul_bf16":
+        raise AssertionError(f"Bg = 2^9 picked {ctx.engine_name}")
+    _, pre, _, want_bits = mixed_batch(ctx, pb)
+    out = ctx.bootstrap_raw(pre)
+    check_bits("Bg=2^9 mixed batch", ctx.decrypt(out).cpu().numpy(), want_bits)
+    torch.cuda.synchronize()
+    log("engines", f"TFHEParams(bgbit=9, l=2, n={pb.n}) on {card}: engine matmul_bf16 by the rule; "
+        f"keys and a mixed batch of {MIXED} in {time.perf_counter() - t0:.2f} s, every output "
+        "decrypts correctly")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -1104,6 +1367,7 @@ def main() -> int:
     limb_probe.load_library()
     int8_gemm.load_library()
     karatsuba_probe.load_library()
+    nuss_primitives.load_library()
     log("build", f"{', '.join(lib.name for lib, _ in libs.values())} from "
         f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for lib, report in libs.values():
@@ -1161,6 +1425,19 @@ def main() -> int:
     kara_errs, kara_t, kara_b = phase_karatsuba_kernels(dev, rs, card)
     kara = phase_karatsuba_entry_points(card)
 
+    # 11. P3 and P10: against the production step, the matmul engine and
+    # the host reference, their times; then their entry points with the
+    # launch counts of each run
+    p3_err, p3_t = phase_coissue(dev, rs, card)
+    kara_errs["P3"] = max(kara_errs["P3"], p3_err)
+    p10_err, p10_t, p10_bytes = phase_nuss_primitives(dev, card)
+    kara["P3"], p10_launches = phase_coissue_entry_points(card)
+
+    # 12. the generic-engine path at DEFAULT_PARAMS, with the launch counts
+    # of its run only; then the other generic engines and Bg = 2^9
+    phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, times["k1"][0])
+    phase_generic_engines(dev, card)
+
     F = FAST_PARAMS
     fast_t = limb_times["FAST"]
     two_l, f_two_l = 2 * p.l, 2 * F.l
@@ -1204,13 +1481,17 @@ def main() -> int:
         f"ms (the Karatsuba step's {karatsuba_ops(p, kara_b):.4e} int8 ops; the schoolbook "
         f"count, {step_ops(p, kara_b):.4e} ops, would give "
         f"{bound(step_ops(p, kara_b), kara_bytes)[0]:.4f} ms)")
+    kara_t["P3 B"] = p3_t["B"]  # the per-leaf form, timed in turns beside A and K1
     for probe, name, label in (("P4", "karatsuba_step_ablate", "P4 full"),
                                ("P8", "karatsuba_step_var", "P8 leaf_u32"),
                                ("P1", "karatsuba_step_k2", "P1 step_k2"),
-                               ("P2", "karatsuba_step_split", "P2 serial")):
+                               ("P2", "karatsuba_step_split", "P2 serial"),
+                               ("P3", "karatsuba_step_coissue", "P3 B")):
         rows.append((name, KARATSUBA_SOURCE, KARATSUBA_REPLACES[probe], kara[probe],
                      kara_errs[probe], kara_t[label], kara_t["plain"],
                      (karatsuba_ops(p, kara_b), kara_bytes), None))
+    rows.append(("nuss_primitives", NUSS_SOURCE, "benches/nussbaumer_primitives_probe.py:57",
+                 p10_launches, p10_err, *p10_t, (0.0, p10_bytes), None))
     kernels = []
     for name, source, where, n, err, ms, plain_ms, (ops, nbytes), lib_ms in rows:
         bound_ms, bound_by = bound(ops, nbytes)

@@ -261,7 +261,8 @@ def console_device(device=None):
 
 
 def nander_console(params=None, device=None, stdin=None, stdout=None,
-                   latency_mode: bool = False, keyfile: str | None = None):
+                   latency_mode: bool = False, keyfile: str | None = None,
+                   engine_name=None):
     """Interactive console (main.rs:20-70): keygen, then parse/eval/decrypt.
 
     ``device``: see ``console_device``.  ``latency_mode`` marks the
@@ -271,7 +272,8 @@ def nander_console(params=None, device=None, stdin=None, stdout=None,
     ``keyfile``: on-disk raw-key cache prefix (--keyfile PATH on the CLI;
     ``utils.serialization.cached_keys``): keygen runs once and later
     consoles load the keys.  A cached console reuses the SAME secret key
-    across runs; point different trust domains at different key files."""
+    across runs; point different trust domains at different key files.
+    ``engine_name``: as ``TFHE.new``'s (``None``: the engine rule)."""
     from ..context import TFHE
     from ..params import DEFAULT_PARAMS
     from .replprog import FusedEvaluator
@@ -285,7 +287,7 @@ def nander_console(params=None, device=None, stdin=None, stdout=None,
     print("selecting engine + generating keys...", file=stdout, flush=True)
     t0 = time.perf_counter()
     ctx = TFHE.new(int(time.time()), params, dev, latency_mode=latency_mode,
-                   keyfile=keyfile)
+                   keyfile=keyfile, engine_name=engine_name)
     print(f"keys ready in {time.perf_counter() - t0:.1f}s "
           f"(engine {ctx.engine_name})", file=stdout, flush=True)
 
@@ -354,10 +356,11 @@ def nander_console(params=None, device=None, stdin=None, stdout=None,
         print(f"time: {dt:.0f} us", file=stdout, flush=True)
 
 
-def hom_nand_profile(params=None, device=None, iters: int = 100):
+def hom_nand_profile(params=None, device=None, iters: int = 100, engine_name=None):
     """Profile harness (reference ``nander`` 'profile' feature,
     lib.rs:174-198): one timed NAND, then ``iters`` NANDs, with the
-    amortized time per gate."""
+    amortized time per gate, on the engine ``engine_name`` (``None``: the
+    engine rule)."""
     import torch
 
     from ..context import TFHE
@@ -365,7 +368,7 @@ def hom_nand_profile(params=None, device=None, iters: int = 100):
 
     params = params or DEFAULT_PARAMS
     dev = console_device(device)
-    ctx = TFHE.new(0, params, dev)
+    ctx = TFHE.new(0, params, dev, engine_name=engine_name)
     c1 = ctx.encrypt(1)
     c0 = ctx.encrypt(0)
 

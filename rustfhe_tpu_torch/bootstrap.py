@@ -22,6 +22,11 @@ A limb key (``keys.LimbBK``) runs the limb engine, the JAX engine
 ``"pallas"`` (``rustfhe_tpu/bootstrap.py:101-117``): one launch of K4 per
 step, of K6 with ``merge_c`` False, or, with ``fuse_step`` False, the
 rotation, difference and decomposition in torch and one launch of K5.
+
+A generic key (``keys.GenericBK``) runs the JAX package's per-step branch
+(``rustfhe_tpu/bootstrap.py:108-116``): rotation, difference and
+decomposition in torch, then the engine's ``external_product_digits``
+("matmul": one launch of the int8 GEMM per step).
 """
 
 from __future__ import annotations
@@ -33,9 +38,9 @@ import torch
 from . import poly, trlwe
 from ._u32 import srl
 from .decomp import decompose_unsigned
-from .engine import cmux_k, limb_step, rotate_all_k
+from .engine import cmux_k, get_engine, limb_step, rotate_all_k
 from .engine.plain import key_switch_digits
-from .keys import CloudKey, LatencyBK, LimbBK
+from .keys import CloudKey, GenericBK, LatencyBK, LimbBK
 from .trgsw import decompose_trlwe
 from .params import TFHEParams
 
@@ -67,15 +72,27 @@ def _limb_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: LimbBK,
     return acc
 
 
-def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK,
+def _generic_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: GenericBK,
+                    params: TFHEParams) -> torch.Tensor:
+    eng = get_engine(bk.engine)
+    for i in range(params.n):
+        diff = poly.rotate(acc, a_steps[i][:, None]) - acc
+        acc = acc + eng.external_product_digits(bk.table[i], decompose_trlwe(diff, params), params)
+    return acc
+
+
+def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | GenericBK,
                  testvec: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """Rotate ``testvec (2, N)`` by the encrypted phase of lv0 TLWE ``ct
     (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N), or it as a
-    latency key, or a limb key.  Returns int32 (..., 2, N)."""
+    latency key, or a limb key, or a generic engine's key.  Returns int32
+    (..., 2, N)."""
     lead = ct.shape[:-1]
     acc, a_steps = rotation_start(ct.reshape(-1, params.n + 1), testvec, params)
     if isinstance(bk, LimbBK):
         return _limb_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
+    if isinstance(bk, GenericBK):
+        return _generic_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
     if isinstance(bk, LatencyBK):
         if acc.shape[0] <= rotate_all_k.MAX_BATCH:
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
@@ -93,7 +110,8 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK,
     return acc.reshape(lead + (2, params.N))
 
 
-def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK,
+def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor,
+                                 bk: torch.Tensor | LatencyBK | LimbBK | GenericBK,
                                  params: TFHEParams) -> torch.Tensor:
     """lv0 TLWE -> lv1 TLWE encrypting mu * sign."""
     mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=ct.device)

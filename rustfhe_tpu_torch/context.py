@@ -42,15 +42,22 @@ class TFHE:
         """Keygen on ``device`` (the CUDA card unless the caller names the
         CPU) from an int seed or a ``torch.Generator`` that lives there.
         The engine is admitted on the device first (``engine.select_engine``:
-        its external product, K2 or K5, against the oracle), and a CUDA
-        device that is not available raises.
+        its external product against the oracle), and a CUDA device that
+        is not available raises.
 
         ``engine_name``: ``None`` picks the engine by the JAX package's
-        rule, as its ``TFHE.new(engine_name=None)`` does: ``"cmux_k"``
-        (K1-K3) for Bg <= 2^7, ``"limb"`` (K4-K6) for Bg = 2^8, so
-        FAST_PARAMS runs the limb engine.  A name or an engine instance
-        (``engine.LimbEngine(merge_c=False)``) is honoured.  The keys and
-        every encryption draw the same random words for either engine.
+        accelerator rule (``engine.engine_for``), as its
+        ``TFHE.new(engine_name=None)`` does: ``"cmux_k"`` (K1-K3) where N
+        tiles by 512 or 256 and Bg <= 2^5 or 2^6, ``"limb"`` (K4-K6) where
+        N tiles by 128 and Bg <= 2^8 (FAST_PARAMS), else ``"matmul"`` (the
+        int8 GEMM; TEST_PARAMS, N=64) while Bg <= 2^8, then
+        ``"matmul_bf16"``.  The JAX package's own default is ``"matmul"``;
+        this one stays the rule, so DEFAULT_PARAMS runs K1.  A name
+        (``"matmul"``, ``"matmul_bf16"``, ``"fft64"``, ``"cmux_k"``,
+        ``"limb"``) or an engine instance (``engine.LimbEngine(merge_c=
+        False)``) is honoured; ``"nuss"`` passes the probe but has no cloud
+        key (``keys.prepare_cloud_key``).  The keys and every encryption
+        draw the same random words for any engine.
 
         ``latency_mode`` marks the bootstrapping key for the single-launch
         rotation K3 (``keys.cloud_key_latency``): small batches, as an

@@ -1,13 +1,14 @@
 // The two-level Karatsuba CMux step in the residue layout, with the
 // measurement variants of its probes, for Hopper (sm_90a).
 //
-// Replaces the four Pallas TPU probe kernels that time the JAX package's
+// Replaces the five Pallas TPU probe kernels that time the JAX package's
 // production K1 at levels 2 (rustfhe_tpu/engine/pallas_k.py:207
 // _kernel_step_k, engine "pallas_k2"):
 //   P4 benches/k2_floor_probe.py:164   make_step.step (body _kernel_ablate, :74)
 //   P8 benches/vpu_reduce_probe.py:190 step_var (body _kernel_var, :140)
 //   P1 benches/karatsuba2_probe.py:179 step_k2 (body kernel_k2, :110)
 //   P2 benches/coissue_probe.py:114    make_split.step (body kernel_split, :82)
+//   P3 benches/coissue2_probe.py:134   step_coissue (body _kernel_coissue, :52)
 //
 // Contract, bit for bit (engine/karatsuba.py step_plain, form by form):
 // acc and out are (B, 2N) words in the residue layout, segment (p, r) of
@@ -34,7 +35,8 @@
 // products (nodots: part = sum_j sum_mb q_tj[mb*tm] + L_tckj[n - mb*tm + ns],
 // the TPU probe's broadcast add against its panel row), the limbs (limb 0
 // only), the combine (residue i = leaf i), the tile (two sub-tiles of 4,
-// serial or grouped), or all of it (accio: acc + 1).
+// serial or grouped), where the tree planes are built (P3, below), or all
+// of it (accio: acc + 1).
 //
 // What bounds it.  Per sample and step 2 halves x 9 leaves x K=4 limbs x
 // 2L x ns^2 int8 products, 0.5625x the 2 x 4 x 2L x N^2 of the limb step
@@ -56,6 +58,24 @@
 //   * the combine takes the leaves of one sample at a time through shared
 //     memory: ns threads each give the four outputs at one position.
 // wgmma, TMA and a multi-step kernel are later work.
+//
+// P3's two forms move the tree sums from before the block barrier to the
+// leaf that uses them, as the TPU kernel moves build_leaf next to each
+// leaf's dots (the TPU kernel, too, computes the rotation and the digit
+// planes of every residue for the whole tile first).  The block builds the
+// four residues' digits only, into the areas of the leaves that are one
+// residue (0: r0, 1: r2, 3: r1, 4: r3); after the barrier, the group of
+// each sum leaf (2, 5, 6, 7, 8: a warp at DEFAULT) builds its own plane
+// from them, one __vadd4 per word, and passes only a __syncwarp before its
+// __dp4a stream:
+//   * leaf (P3 B, pipelined=False): the whole leaf's planes, then its products;
+//   * pipelined (P3 C, pipelined=True): the leaf's planes in two groups, the
+//     input halves p (planes p*l .. p*l + l - 1).  Group 0 is built first;
+//     group 1 is built in four chunks, one after each limb's products of
+//     group 0 (the TPU kernel builds leaf t+1 between leaf t's dot groups:
+//     here a warp's next work is its own next group), then group 1's
+//     products.  The two groups fill the leaf's one area, so both forms use
+//     the shared memory of the upfront form, 230,400 B at DEFAULT.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,16 +101,19 @@ constexpr int PLANES_32 = 0, PLANES_PACKED = 1, PLANES_NONE = 2;               /
 constexpr int NODOTS = 1 << 6, NORECOMB = 1 << 7, LIMB_OUTER = 1 << 8, NOCOMBINE = 1 << 9;
 constexpr int SPLIT_NONE = 0, SPLIT_SERIAL = 1, SPLIT_GROUPED = 2;             // bits 10-11
 constexpr int ACCIO = 1 << 12;
+constexpr int BUILD_UPFRONT = 0, BUILD_LEAF = 1, BUILD_PIPELINED = 2;          // bits 13-14
 
 __host__ __device__ constexpr int rot_of(int v) { return v & 3; }
 __host__ __device__ constexpr int ext_of(int v) { return (v >> 2) & 3; }
 __host__ __device__ constexpr int planes_of(int v) { return (v >> 4) & 3; }
 __host__ __device__ constexpr int split_of(int v) { return (v >> 10) & 3; }
-constexpr int form(int rot, int ext, int planes, int flags = 0, int split = SPLIT_NONE) {
-  return rot | ext << 2 | planes << 4 | flags | split << 10;
+__host__ __device__ constexpr int build_of(int v) { return (v >> 13) & 3; }
+constexpr int form(int rot, int ext, int planes, int flags = 0, int split = SPLIT_NONE,
+                   int build = BUILD_UPFRONT) {
+  return rot | ext << 2 | planes << 4 | flags | split << 10 | build << 13;
 }
 
-// The forms the entry points run: P4's ablations, P8's variants, P1, P2.
+// The forms the entry points run: P4's ablations, P8's variants, P1, P2, P3.
 constexpr int FULL = form(ROT_ROTATE, EXT_SAR, PLANES_32);  // also P8's "sar"
 constexpr int MUL = form(ROT_ROTATE, EXT_MUL, PLANES_32);
 #define RUSTFHE_KARATSUBA_FORMS(X)                                  \
@@ -109,7 +132,9 @@ constexpr int MUL = form(ROT_ROTATE, EXT_MUL, PLANES_32);
   X(form(ROT_SKIP, EXT_MUL, PLANES_32))                             \
   X(form(ROT_SKIP, EXT_SAR, PLANES_32))                             \
   X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_SERIAL))          \
-  X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_GROUPED))
+  X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_GROUPED))         \
+  X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_NONE, BUILD_LEAF)) \
+  X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_NONE, BUILD_PIPELINED))
 
 __host__ __device__ inline size_t leaf_table_bytes(int ns, int two_l) {
   return (size_t)T * NUM_LIMBS * two_l * 2 * ns;
@@ -169,7 +194,8 @@ __device__ __forceinline__ void tree9(const X (&d)[R], X (&q)[T], Add add) {
 
 // The digit trees of samples [s_lo, s_hi) of the tile: byte (j, m, s) of
 // leaf t's area (limb_common.cuh digit_byte at N := ns) holds tree plane t
-// of plane j = p*l + lv at position m.  Samples past B get zero digits.
+// of plane j = p*l + lv at position m; P3's forms write the residues only,
+// into the areas of leaves 0, 3, 1, 4.  Samples past B get zero digits.
 template <int V>
 __device__ __forceinline__ void build_digits(int8_t* dig_s, const int32_t* __restrict__ acc_in,
                                              const int32_t* __restrict__ a_tilde, int a_stride,
@@ -224,6 +250,13 @@ __device__ __forceinline__ void build_digits(int8_t* dig_s, const int32_t* __res
         int32_t d[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) d[r] = extract<V>(u[r], lv, bgbit);
+        const int byte = digit_byte(p * l + lv, m, s, ns);
+        if constexpr (build_of(V) != BUILD_UPFRONT) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)  // residue r alone is leaf 0, 3, 1, 4
+            dig_s[((r & 1) * 3 + (r >> 1)) * leaf + byte] = (int8_t)d[r];
+          continue;
+        }
         int32_t q[T];
         if constexpr (planes_of(V) == PLANES_NONE) {
 #pragma unroll
@@ -231,7 +264,6 @@ __device__ __forceinline__ void build_digits(int8_t* dig_s, const int32_t* __res
         } else {
           tree9(d, q, [](int32_t x, int32_t y) { return x + y; });
         }
-        const int byte = digit_byte(p * l + lv, m, s, ns);
 #pragma unroll
         for (int t = 0; t < T; ++t) dig_s[t * leaf + byte] = (int8_t)q[t];
       }
@@ -311,9 +343,42 @@ __device__ __forceinline__ void leaf_part(const uint32_t* tab_tk, const int8_t* 
   }
 }
 
+// P3: leaves 2, 5, 6, 7, 8 are sums of residues; the others hold one.
+__device__ __forceinline__ bool is_sum_leaf(int t) { return t == 2 || t >= 5; }
+
+// Words [w_lo, w_hi) of sum leaf t's digit area from the residue areas
+// (leaf 0: r0, 1: r2, 3: r1, 4: r3), by the `lanes` threads of its group:
+// __vadd4 adds the four int8 digits of a word at once (no byte overflows:
+// the sums of four digits lie in [-128, 124]).
+__device__ __forceinline__ void build_leaf_words(uint32_t* dig_w, int t, size_t leaf_words,
+                                                 size_t w_lo, size_t w_hi, int lane, int lanes) {
+  const uint32_t* r0 = dig_w;
+  const uint32_t* r2 = dig_w + leaf_words;
+  const uint32_t* r1 = dig_w + 3 * leaf_words;
+  const uint32_t* r3 = dig_w + 4 * leaf_words;
+  uint32_t* dst = dig_w + t * leaf_words;
+  for (size_t w = w_lo + lane; w < w_hi; w += lanes) {
+    uint32_t v;
+    switch (t) {
+      case 2: v = __vadd4(r0[w], r2[w]); break;
+      case 5: v = __vadd4(r1[w], r3[w]); break;
+      case 6: v = __vadd4(r0[w], r1[w]); break;
+      case 7: v = __vadd4(r2[w], r3[w]); break;
+      default: v = __vadd4(__vadd4(r0[w], r1[w]), __vadd4(r2[w], r3[w])); break;  // 8
+    }
+    dst[w] = v;
+  }
+}
+
+// The lanes of leaf t's group in its warp (a group of ns/KPT threads, a
+// power of two that divides 32: launch checks it).
+__device__ __forceinline__ unsigned group_mask(int t, int per_leaf) {
+  return per_leaf >= 32 ? 0xFFFFFFFFu : ((1u << per_leaf) - 1u) << ((t * per_leaf) & 31);
+}
+
 struct Tile {
   const uint32_t* tab_s;  // the half's leaf table, reversed planes
-  const int8_t* dig_s;    // the tile's digit trees
+  int8_t* dig_s;          // the tile's digit trees
   uint32_t* st;           // one sample's leaves
   const int32_t* acc_in;
   int32_t* out;
@@ -346,14 +411,59 @@ __device__ __forceinline__ void products_and_combine(const Tile& tl, int s0) {
     for (int s = 0; s < SUB; ++s)
 #pragma unroll
       for (int o = 0; o < KPT; ++o) leaf[s][o] = 0u;
-    for (int k = 0; k < LIMBS; ++k) {
-      int32_t part[SUB][KPT];
-      leaf_part<V, SUB>(tab_t + (size_t)k * two_l * (ns / 2), dig_t, two_l, ns, k0, s0, tl.tm,
-                        part);
+    constexpr int build = build_of(V);
+    if constexpr (build == BUILD_PIPELINED) {
+      static_assert(LIMBS == NUM_LIMBS && (V & NODOTS) == 0, "P3 C takes the full products");
+      // The products of planes [j0, j0 + planes) for limb k, added to the leaf.
+      const auto products = [&](int j0, int planes, int k) {
+        int32_t part[SUB][KPT];
 #pragma unroll
-      for (int s = 0; s < SUB; ++s)
+        for (int s = 0; s < SUB; ++s)
 #pragma unroll
-        for (int o = 0; o < KPT; ++o) leaf[s][o] += (uint32_t)part[s][o] << (LIMB_BITS * k);
+          for (int o = 0; o < KPT; ++o) part[s][o] = 0;
+        limb_products<SUB>(tab_t + ((size_t)k * two_l + j0) * (ns / 2),
+                           reinterpret_cast<const uint32_t*>(dig_t) + (size_t)j0 * ns * TB / 4,
+                           planes, ns, k0, part, s0);
+#pragma unroll
+        for (int s = 0; s < SUB; ++s)
+#pragma unroll
+          for (int o = 0; o < KPT; ++o) leaf[s][o] += (uint32_t)part[s][o] << (LIMB_BITS * k);
+      };
+      const int l = two_l / 2, lane = threadIdx.x - t * per_leaf;
+      const unsigned mask = group_mask(t, per_leaf);
+      const bool sum = is_sum_leaf(t);
+      uint32_t* dig_w = reinterpret_cast<uint32_t*>(tl.dig_s);
+      const size_t leaf_words = leaf_digit_bytes(ns, two_l) / 4, group = leaf_words / 2;
+      if (sum) {
+        build_leaf_words(dig_w, t, leaf_words, 0, group, lane, per_leaf);
+        __syncwarp(mask);
+      }
+      for (int k = 0; k < NUM_LIMBS; ++k) {
+        products(0, l, k);
+        if (sum)
+          build_leaf_words(dig_w, t, leaf_words, group + k * group / NUM_LIMBS,
+                           group + (k + 1) * group / NUM_LIMBS, lane, per_leaf);
+      }
+      if (sum) __syncwarp(mask);
+      for (int k = 0; k < NUM_LIMBS; ++k) products(l, l, k);
+    } else {
+      if constexpr (build == BUILD_LEAF) {
+        if (is_sum_leaf(t)) {
+          const size_t leaf_words = leaf_digit_bytes(ns, two_l) / 4;
+          build_leaf_words(reinterpret_cast<uint32_t*>(tl.dig_s), t, leaf_words, 0, leaf_words,
+                           threadIdx.x - t * per_leaf, per_leaf);
+          __syncwarp(group_mask(t, per_leaf));
+        }
+      }
+      for (int k = 0; k < LIMBS; ++k) {
+        int32_t part[SUB][KPT];
+        leaf_part<V, SUB>(tab_t + (size_t)k * two_l * (ns / 2), dig_t, two_l, ns, k0, s0, tl.tm,
+                          part);
+#pragma unroll
+        for (int s = 0; s < SUB; ++s)
+#pragma unroll
+          for (int o = 0; o < KPT; ++o) leaf[s][o] += (uint32_t)part[s][o] << (LIMB_BITS * k);
+      }
     }
 #pragma unroll
     for (int s = 0; s < SUB; ++s) {
@@ -438,7 +548,9 @@ int launch(const void* acc, const void* a_tilde, int a_stride, const void* table
            int B, int N, int l, int bgbit, unsigned int mask, int tm, void* stream) {
   static size_t granted[MAX_DEVICES];
   const int ns = N / R;
-  if (N % (R * KPT) != 0 || ns > MAX_NS || tm < 1 || ns % tm != 0 || a_stride < 1)
+  if (N % (R * KPT) != 0 || ns > MAX_NS || a_stride < 1) return (int)cudaErrorInvalidValue;
+  if ((V & NODOTS) != 0 && (tm < 1 || ns % tm != 0)) return (int)cudaErrorInvalidValue;
+  if (build_of(V) != BUILD_UPFRONT && 32 % (ns / KPT) != 0)  // a leaf's group within a warp
     return (int)cudaErrorInvalidValue;
   const size_t smem = karatsuba_smem_bytes(ns, 2 * l);
   const cudaError_t e = prepare((const void*)karatsuba_kernel<V>, B, ns, 2 * l, smem, granted);

@@ -1,9 +1,10 @@
-"""Polynomial engines: the exactness probe and the engine selector.
+"""Polynomial engines: the registry, the exactness probe and the engine
+selector.
 
-Counterpart of ``rustfhe_tpu/engine/__init__.py``.  The port has two
-engines, each a family of hand-written CUDA kernels with the plain torch
-version of every kernel beside it; a wrapper launches its kernel on a CUDA
-tensor and runs the plain version on a CPU tensor:
+Counterpart of ``rustfhe_tpu/engine/__init__.py``.  Two engines are
+families of hand-written CUDA kernels, with the plain torch version of
+every kernel beside it; a wrapper launches its kernel on a CUDA tensor and
+runs the plain version on a CPU tensor:
 
 * ``"cmux_k"`` (``CmuxKEngine``): K1-K3 (``cmux_k``, ``rotate_all_k``) on
   the int32 doubled key table, the counterpart of the JAX engines
@@ -11,12 +12,22 @@ tensor and runs the plain version on a CPU tensor:
 * ``"limb"`` (``LimbEngine``): K4-K6 (``limb_step``) on the int8 limb
   table, the counterpart of the JAX engine ``"pallas"``.
 
+Four are the JAX package's generic engines, with its methods
+(``prepare_trgsw``, ``external_product_digits``, ``poly_mul_torus_binary``):
+
+* ``"matmul"`` / ``"matmul_bf16"`` (``matmul.MatmulEngine``): one dense
+  product per step, on the port's int8 tensor-core GEMM (P7/P9's kernel)
+  or a bf16 GEMM with fp32 sums;
+* ``"nuss"`` (``transform.NussTransformEngine``): the transform-domain
+  product, for direct calls and the probe;
+* ``"fft64"`` (``fft64.FFT64Engine``): float64 FFT convolution.
+
 ``select_engine`` takes the engine that the JAX cascade's rule names for
 the parameters (``engine_for``), or the one asked for, and admits it on a
-device only after its external product (K2 or K5) reproduces the naive
-mod-2^32 oracle (``oracle``) on every adversarial probe pattern, on that
-device.  An inexact result or a failed launch raises; nothing cascades to
-another engine.
+device only after its external product reproduces the naive mod-2^32
+oracle (``oracle``) on every adversarial probe pattern, on that device.
+An inexact result or a failed launch raises; nothing cascades to another
+engine.
 """
 
 from __future__ import annotations
@@ -30,7 +41,10 @@ import torch
 from .._u32 import from_numpy
 from ..params import TFHEParams
 from . import cmux_k, limb_step, oracle
+from .fft64 import FFT64Engine
+from .matmul import MatmulEngine
 from .plain import prepare_trgsw, prepare_trgsw_limbs
+from .transform import NussTransformEngine
 
 
 @dataclass(frozen=True)
@@ -53,7 +67,12 @@ class LimbEngine:
     name: ClassVar[str] = "limb"
 
 
-_ENGINES = {e.name: e for e in (CmuxKEngine(), LimbEngine())}
+_ENGINES = {e.name: e for e in (CmuxKEngine(), LimbEngine(), MatmulEngine(),
+                                MatmulEngine(limb_bits=4, use_bf16=True),
+                                NussTransformEngine(), FFT64Engine())}
+# The engines with the JAX package's methods (``prepare_trgsw``,
+# ``external_product_digits``); all but "nuss" take ``keys.GenericBK`` keys.
+GENERIC = (MatmulEngine, FFT64Engine, NussTransformEngine)
 
 
 def get_engine(name: str = "cmux_k"):
@@ -69,18 +88,19 @@ def resolve_engine(engine):
 
 
 def engine_for(params: TFHEParams) -> str:
-    """The JAX cascade's rule (``select_fast_engine`` on an accelerator)
-    for the port's two families: the Karatsuba engines while half_bg * 2 <=
-    128 (their digit sums must fit int8), then ``"pallas"`` while half_bg
-    <= 128 (digits must fit int8)."""
-    if params.half_bg <= 64:
+    """The JAX cascade's rule (``select_fast_engine`` on an accelerator,
+    ``rustfhe_tpu/engine/__init__.py:221-244``): the Karatsuba engines
+    (``"cmux_k"``) where N is a multiple of 128 << levels, at most 2048,
+    and the digit tree sums fit int8 (half_bg << levels <= 128), levels 2
+    then 1; ``"pallas"`` (``"limb"``) where N is a multiple of 128, at most
+    2048, and the digits fit int8; otherwise ``"matmul"`` while its int8
+    digits are exact (half_bg <= 128), then ``"matmul_bf16"``."""
+    N, hb = params.N, params.half_bg
+    if N <= 2048 and any(N % (128 << lv) == 0 and hb << lv <= 128 for lv in (2, 1)):
         return "cmux_k"
-    if params.half_bg <= 128:
+    if N <= 2048 and N % 128 == 0 and hb <= 128:
         return "limb"
-    raise ValueError(
-        f"bgbit={params.bgbit}: digits of up to {params.half_bg} in magnitude do not fit "
-        "int8, which both of the port's engines need; the JAX package runs such "
-        "parameters on its 'matmul' engine, not ported yet (ROADMAP.md, Queue 1 item 19)")
+    return "matmul" if hb <= 128 else "matmul_bf16"
 
 
 def probe_vectors(params: TFHEParams):
@@ -127,12 +147,13 @@ def probe_vectors(params: TFHEParams):
 
 def engine_probe_result(external_product, params: TFHEParams, rows: torch.Tensor,
                         digits: torch.Tensor, want: torch.Tensor,
-                        prepare=prepare_trgsw) -> tuple[bool, str]:
-    """(ok, why): run ``external_product(digits_int8, prepare(rows), params)``
-    on the device of ``rows`` and compare with the oracle's ``want``.
-    Exceptions propagate: a kernel that fails to run is not an exactness
-    verdict, and is not hidden."""
-    got = external_product(digits.to(torch.int8).contiguous(), prepare(rows), params)
+                        prepare=prepare_trgsw, digit_dtype=torch.int8) -> tuple[bool, str]:
+    """(ok, why): run ``external_product(digits, prepare(rows), params)``
+    on the device of ``rows``, the digits as ``digit_dtype`` (int8 for the
+    kernels, int32 for the generic engines), and compare with the oracle's
+    ``want``.  Exceptions propagate: a kernel that fails to run is not an
+    exactness verdict, and is not hidden."""
+    got = external_product(digits.to(digit_dtype).contiguous(), prepare(rows), params)
     got = got.cpu()
     if got.shape != want.shape:
         return False, f"wrong output shape {tuple(got.shape)} (want {tuple(want.shape)})"
@@ -143,29 +164,40 @@ def engine_probe_result(external_product, params: TFHEParams, rows: torch.Tensor
     return True, "exact"
 
 
+def probe_ops(eng, params: TFHEParams):
+    """(external_product, prepare, digit dtype) of engine ``eng`` for
+    ``engine_probe_result``: K2 or K5 on their tables, or the generic
+    engine's own methods."""
+    if isinstance(eng, LimbEngine):
+        return limb_step.external_product, prepare_trgsw_limbs, torch.int8
+    if isinstance(eng, GENERIC):
+        return (lambda d, prep, p: eng.external_product_digits(prep, d, p),
+                lambda rows: eng.prepare_trgsw(rows, params), torch.int32)
+    return cmux_k.external_product, prepare_trgsw, torch.int8
+
+
 def select_engine(params: TFHEParams, device, engine_name=None) -> str:
     """The engine for ``params`` on ``device``: ``engine_name`` (a name or an
     engine instance) when given, else ``engine_for(params)``.  Admitted
-    after its external product, K2 or K5 (their plain versions on the
-    CPU), matches the oracle on ``probe_vectors`` there.  Returns the
-    engine's name; raises RuntimeError when the result is inexact."""
+    after its external product (K2, K5 or the generic engine's; the plain
+    versions on the CPU) matches the oracle on ``probe_vectors`` there.
+    Returns the engine's name; raises RuntimeError when the result is
+    inexact."""
     device = torch.device(device)
-    name = resolve_engine(engine_name).name if engine_name is not None else engine_for(params)
-    if name == "limb":
-        product, prepare = limb_step.external_product, prepare_trgsw_limbs
-    else:
-        product, prepare = cmux_k.external_product, prepare_trgsw
+    eng = resolve_engine(engine_name if engine_name is not None else engine_for(params))
+    product, prepare, dtype = probe_ops(eng, params)
     rows_np, digits_np = probe_vectors(params)
     rows = from_numpy(rows_np)
     digits = torch.from_numpy(digits_np)
     want = oracle.external_product(rows, digits)  # ground truth, on the host
     ok, why = engine_probe_result(product, params, rows.to(device), digits.to(device), want,
-                                  prepare)
+                                  prepare, dtype)
     if not ok:
-        raise RuntimeError(f"the {name} engine's external product on {device} failed the "
+        raise RuntimeError(f"the {eng.name} engine's external product on {device} failed the "
                            f"oracle probe: {why}")
-    return name
+    return eng.name
 
 
-__all__ = ["CmuxKEngine", "LimbEngine", "get_engine", "resolve_engine", "engine_for",
-           "probe_vectors", "engine_probe_result", "select_engine"]
+__all__ = ["CmuxKEngine", "LimbEngine", "MatmulEngine", "NussTransformEngine", "FFT64Engine",
+           "GENERIC", "get_engine", "resolve_engine", "engine_for",
+           "probe_vectors", "engine_probe_result", "probe_ops", "select_engine"]

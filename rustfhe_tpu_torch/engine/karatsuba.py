@@ -26,7 +26,8 @@ p1r3]``: segment (p, r) holds the coefficients i = 4m + r of half p
   variant of the probes that time it (``engine/karatsuba_probe.py``),
   in the leaf-first recombination order (``_karatsuba_accumulate``,
   pallas_k.py:172) or the limb-outer one
-  (``benches/vpu_reduce_probe.py:120``, ``benches/karatsuba2_probe.py:142``).
+  (``benches/vpu_reduce_probe.py:120``, ``benches/karatsuba2_probe.py:142``);
+  where the tree planes are built does not change the function.
 
 Torus words are int32 tensors with wrapping arithmetic (``_u32``).  The
 leaf products are float64 circulant products, exact: every sum is at most
@@ -227,6 +228,10 @@ class Step:
     combine  False: output residue i is leaf i
     split    "" (the block's tile at once), "serial" or "grouped": the
              tile as two sub-tiles (the same function)
+    build    where the tree planes are built (the same function):
+             "upfront" (all before the products), "leaf" (each leaf's
+             just before its products) or "pipelined" (a leaf's second
+             plane group between its first group's products)
     accio    out = acc + 1
     """
 
@@ -238,6 +243,7 @@ class Step:
     leaf_first: bool = True
     combine: bool = True
     split: str = ""
+    build: str = "upfront"
     accio: bool = False
 
     @property

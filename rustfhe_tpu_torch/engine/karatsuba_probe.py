@@ -1,7 +1,7 @@
 """The two-level Karatsuba CMux step and its measurement variants (P4, P8,
-P1, P2).
+P1, P2, P3).
 
-Counterpart of four Pallas probe kernels of the JAX package that time its
+Counterpart of five Pallas probe kernels of the JAX package that time its
 production K1 at levels 2 (``pallas_k.py:_kernel_step_k``, the engine
 ``"pallas_k2"``) in the residue layout:
 
@@ -13,7 +13,11 @@ production K1 at levels 2 (``pallas_k.py:_kernel_step_k``, the engine
 * P1 ``benches/karatsuba2_probe.py:179`` ``step_k2``: ``step_k2``, the
   limb-outer step with the multiply extract;
 * P2 ``benches/coissue_probe.py:114`` ``make_split.step``: ``step_split``,
-  the block's tile as two sub-tiles, serial or grouped.
+  the block's tile as two sub-tiles, serial or grouped;
+* P3 ``benches/coissue2_probe.py:134`` ``step_coissue``: ``step_coissue``,
+  each sum leaf's tree planes built by its own warp just before its
+  products (B), or its second plane group between the first group's
+  products (C, ``pipelined``).
 
 One kernel family, CUDA C++ for sm_90a in ``csrc/karatsuba_probe.cu``,
 built with nvcc on first use and called through ctypes; each form the
@@ -25,8 +29,8 @@ a~ int32 (B,) in [0, 2N), the leaf table int8 (2, T, K, 2L, 2ns)
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain version (``karatsuba.step_plain``), a CUDA tensor
 launches the kernel or raises.  ``step_ablate.launches``,
-``step_var.launches``, ``step_k2.launches`` and ``step_split.launches``
-count the kernel launches, and nothing else.
+``step_var.launches``, ``step_k2.launches``, ``step_split.launches`` and
+``step_coissue.launches`` count the kernel launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ ABLATIONS = {
 }
 EXTRACTS = ("mul", "shift", "sar")  # P8's digit extract forms
 SPLITS = ("serial", "grouped")  # P2's sub-tile orders
+BUILDS = ("leaf", "pipelined")  # P3's forms B and C (coissue2_probe.py:11-12)
 
 
 def var_form(leaf_combine: bool = True, planes: int = 32, extract: str = "mul",
@@ -77,13 +82,15 @@ VAR_FORMS = {
     "sar": dict(extract="sar"), "skip_rotate": dict(skip_rotate=True),
     "skip_rotate+sar": dict(skip_rotate=True, extract="sar"),
 }
-# The forms the kernel carries: those the four entry points run.
+COISSUE_FORMS = {b: Step(extract="mul", build=b) for b in BUILDS}  # P3, the mul extract
+# The forms the kernel carries: those the five entry points run.
 FORMS = frozenset(list(ABLATIONS.values()) + [var_form(**kw) for kw in VAR_FORMS.values()]
-                  + [K2_FORM] + [Step(extract="mul", split=s) for s in SPLITS])
+                  + [K2_FORM] + [Step(extract="mul", split=s) for s in SPLITS]
+                  + list(COISSUE_FORMS.values()))
 
 
 def calls() -> list:
-    """Every single-step call the four entry points make, as (probe, label,
+    """Every single-step call the five entry points make, as (probe, label,
     wrapper, keywords, form): ``wrapper(acc, a_tilde, table, params,
     **keywords)`` computes ``karatsuba.step_plain(..., form)``."""
     out = [("P4", v, step_ablate, dict(variant=v), f) for v, f in ABLATIONS.items()]
@@ -91,12 +98,15 @@ def calls() -> list:
     out.append(("P1", "step_k2", step_k2, {}, K2_FORM))
     out += [("P2", s, step_split, dict(grouped=bool(g)), Step(extract="mul", split=s))
             for g, s in enumerate(SPLITS)]
+    out += [("P3", b, step_coissue, dict(pipelined=bool(g)), COISSUE_FORMS[b])
+            for g, b in enumerate(BUILDS)]
     return out
 
 _BITS = (("rot", {"rotate": 0, "norot": 1, "skip": 2}, 0),
          ("extract", {"sar": 0, "mul": 1, "shift": 2, "top": 3}, 2),
          ("planes", {32: 0, 16: 1, 0: 2}, 4),
-         ("split", {"": 0, "serial": 1, "grouped": 2}, 10))
+         ("split", {"": 0, "serial": 1, "grouped": 2}, 10),
+         ("build", {"upfront": 0, "leaf": 1, "pipelined": 2}, 13))
 
 
 def form_code(v: Step) -> int:
@@ -250,8 +260,23 @@ def step_split(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def step_coissue(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
+                 params: TFHEParams, pipelined: bool = False) -> torch.Tensor:
+    """P3: the step (multiply extract, leaf-first) with each sum leaf's
+    tree planes built by its own warp after the block's residue digits:
+    the whole leaf before its products (B), or, ``pipelined`` (C), its
+    second plane group in chunks between the first group's products."""
+    _check_operands(acc, a_tilde, table, params)
+    v = COISSUE_FORMS[BUILDS[pipelined]]
+    if not _dispatch(acc.device):
+        return karatsuba.step_plain(acc, a_tilde, table, params, v)
+    out = _launch(v, acc, a_tilde, table, params)
+    step_coissue.launches += 1
+    return out
+
+
 def reset_counters() -> None:
-    for fn in (step_ablate, step_var, step_k2, step_split):
+    for fn in (step_ablate, step_var, step_k2, step_split, step_coissue):
         fn.launches = 0
 
 

@@ -1,6 +1,8 @@
-"""Plain torch versions of the engine's products.
+"""Plain torch versions of the kernels' products, and the key switch.
 
-Counterpart of ``rustfhe_tpu/engine/matmul.py``.  Every product here is a
+The float64 products the kernels are held to (the JAX package's dense
+engine, ``rustfhe_tpu/engine/matmul.py``, has its own counterpart in
+``engine/matmul.py``).  Every product here is a
 float64 matrix product of small integers against 32-bit key words, with
 every partial sum an integer below 2^53, so float64 carries it exactly in
 any summation order; the result is reduced mod 2^32 (``_u32.wrap``).  TF32

@@ -5,18 +5,20 @@ Counterpart of ``rustfhe_tpu/keys.py`` (standard and latency keys):
   * the raw evaluation keys, engine-independent: BK int32 (n, 2L, 2, N),
     n TRGSW encryptions of the lv0 bits under lv1, and KSK int32
     (N, iks_l, T, n+1), TLWE encryptions of (t+1) * s1_i / 2^(basebit*(l+1));
-  * the prepared cloud key, for one of the two engines (``engine``): BK
+  * the prepared cloud key, for the engine asked for (``engine``): BK
     as the int32 doubled tables K1 reads (``engine.plain.prepare_trgsw``,
     62 MB at DEFAULT_PARAMS), or as the int8 doubled limb tables K4-K6
     read, marked ``LimbBK`` (``engine.plain.prepare_trgsw_limbs``, the
-    same 62 MB), and the KSK as float64 slot rows
-    (``engine.plain.prepare_ksk``).
+    same 62 MB), or as a generic engine's own table (``"matmul"``,
+    ``"matmul_bf16"``, ``"fft64"``), marked ``GenericBK``; and the KSK as
+    float64 slot rows (``engine.plain.prepare_ksk``).  The ``"nuss"``
+    engine builds its tables host-side and is refused.
 
 The latency-mode key (``cloud_key_latency``, counterpart of
 ``cloud_key_panels``) marks the bootstrapping key as ``LatencyBK``, so that
 ``bootstrap.blind_rotate`` runs the whole rotation as one launch of K3.
-A limb key has no latency form: ``cloud_key_latency`` returns it as it is,
-as the JAX package does for engines without panel tables.
+A limb or generic key has no latency form: ``cloud_key_latency`` returns
+it as it is, as the JAX package does for engines without panel tables.
 
 ``from_jax_keys`` takes the numpy uint32 arrays of the JAX package's
 ``gen_secret_key`` / ``gen_cloud_key_raw``: raw keys are the whole
@@ -29,11 +31,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import tlwe, trgsw
 from ._u32 import from_numpy
-from .engine import LimbEngine, resolve_engine
+from .engine import GENERIC, LimbEngine, MatmulEngine, NussTransformEngine, resolve_engine
 from .engine.plain import prepare_ksk, prepare_trgsw, prepare_trgsw_limbs
 from .params import TFHEParams
 from .utils.rng import binary_array
@@ -72,11 +75,24 @@ class LimbBK:
     fuse_step: bool = True
 
 
+@dataclass(eq=False)
+class GenericBK:
+    """A bootstrapping key for a generic engine (``engine``: ``"matmul"``,
+    ``"matmul_bf16"`` or ``"fft64"``): its ``prepare_trgsw`` table of
+    every TRGSW (``table``, (n, ...)), which ``bootstrap.blind_rotate``
+    hands to the engine's external product on every step.  The engine
+    travels with the key, as ``LimbBK``'s options do."""
+
+    table: torch.Tensor
+    engine: str
+
+
 class CloudKey(NamedTuple):
     """bk: doubled TRGSW tables int32 (n, 2L, 2, 2N), or those tables as a
-    ``LatencyBK``, or a ``LimbBK``; ksk: float64 (T-1, N*iks_l, n+1)."""
+    ``LatencyBK``, or a ``LimbBK``, or a ``GenericBK``; ksk: float64 (T-1,
+    N*iks_l, n+1)."""
 
-    bk: torch.Tensor | LatencyBK | LimbBK
+    bk: torch.Tensor | LatencyBK | LimbBK | GenericBK
     ksk: torch.Tensor
 
 
@@ -116,8 +132,15 @@ def prepare_cloud_key(bk_raw: torch.Tensor, ksk_raw: torch.Tensor, params: TFHEP
     """The raw keys prepared for ``engine`` (a name or an engine instance,
     ``engine.resolve_engine``)."""
     eng = resolve_engine(engine)
+    if isinstance(eng, NussTransformEngine):
+        raise ValueError(
+            "the nuss engine builds its key tables host-side in numpy, seconds per TRGSW "
+            "(a 64 x 384 x 320 int8 panel stack at N=1024): it serves direct calls and the "
+            "oracle probe, not a cloud key, as in the JAX package")
     if isinstance(eng, LimbEngine):
         bk = LimbBK(prepare_trgsw_limbs(bk_raw), eng.merge_c, eng.fuse_step)
+    elif isinstance(eng, GENERIC):
+        bk = GenericBK(eng.prepare_trgsw(bk_raw, params), eng.name)
     else:
         bk = prepare_trgsw(bk_raw)
     return CloudKey(bk=bk, ksk=prepare_ksk(ksk_raw, params))
@@ -129,8 +152,8 @@ def cloud_key_latency(ck: CloudKey) -> CloudKey:
     tables, so no memory is added; the JAX package's panel-memory guard
     (``_guard_panel_hbm``) has nothing to guard here.  A limb key has no
     latency form and is returned unchanged, as JAX returns the keys of
-    engines without panel tables."""
-    if isinstance(ck.bk, (LatencyBK, LimbBK)):
+    engines without panel tables; so is a generic key."""
+    if isinstance(ck.bk, (LatencyBK, LimbBK, GenericBK)):
         return ck
     return CloudKey(bk=LatencyBK(ck.bk), ksk=ck.ksk)
 
@@ -144,10 +167,13 @@ def gen_keys(gen: torch.Generator, params: TFHEParams, device,
 
 
 def from_jax_keys(lv0, lv1, bk_raw, ksk_raw, params: TFHEParams, device,
-                  engine="cmux_k") -> tuple[SecretKey, CloudKey]:
+                  engine="cmux_k", bk_table=None) -> tuple[SecretKey, CloudKey]:
     """The JAX package's keys (numpy uint32 arrays: lv0 (n,), lv1 (N,),
     bk_raw (n, 2L, 2, N), ksk_raw (N, iks_l, T, n+1)) -> the port's keys
-    on ``device``, prepared for ``engine``."""
+    on ``device``, prepared for ``engine``.  ``bk_table``: for
+    ``"matmul"`` / ``"matmul_bf16"``, JAX's ``MatmulEngine.prepare_trgsw``
+    table of ``bk_raw`` as numpy int8, taken as the key's table (the port's
+    layout is JAX's), so both packages compute on one prepared key."""
     shapes = {
         "lv0": (params.n,),
         "lv1": (params.N,),
@@ -162,4 +188,13 @@ def from_jax_keys(lv0, lv1, bk_raw, ksk_raw, params: TFHEParams, device,
             raise ValueError(f"{name} has shape {tuple(arr.shape)}, expected {want}")
         t[name] = from_numpy(arr, device)
     sk = SecretKey(lv0=t["lv0"], lv1=t["lv1"])
-    return sk, prepare_cloud_key(t["bk_raw"], t["ksk_raw"], params, engine)
+    if bk_table is None:
+        return sk, prepare_cloud_key(t["bk_raw"], t["ksk_raw"], params, engine)
+    eng = resolve_engine(engine)
+    if not isinstance(eng, MatmulEngine):
+        raise ValueError(f"bk_table is a matmul engine's table; the key is for {eng.name!r}")
+    want = (params.n, 2 * params.l, 2, eng.num_limbs, 2 * params.N)
+    table = torch.from_numpy(np.array(bk_table))
+    if table.dtype != torch.int8 or tuple(table.shape) != want:
+        raise ValueError(f"bk_table must be int8 {want}, got {table.dtype} {tuple(table.shape)}")
+    return sk, CloudKey(GenericBK(table.to(device), eng.name), prepare_ksk(t["ksk_raw"], params))

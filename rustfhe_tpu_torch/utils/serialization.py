@@ -6,7 +6,7 @@ format, so that files cross between the two packages: a JSON header
 then raw uint32 arrays.  Keys are stored raw (``bk`` (n, 2L, 2, N), ``ksk``
 (N, iks_l, T, n+1), ``lv0``/``lv1``), not in a prepared form; preparation
 runs again on load, on the device and for the engine asked for, so one
-file serves both engines.
+file serves every engine.
 """
 
 from __future__ import annotations

@@ -253,7 +253,8 @@ def test_console_res_lines_match_jax():
     script = "\n".join(EXPRS + ["1 $ 0; 1 & 1; (1 & 0) ^ !0", "; ".join(WIDE), "1 & 2",
                                 "(1 & 0", "1; 0; 1"]) + "\n"
     out, jout = io.StringIO(), io.StringIO()
-    nander.nander_console(params.TEST_PARAMS, "cpu", io.StringIO(script), out, latency_mode=True)
+    nander.nander_console(params.TEST_PARAMS, "cpu", io.StringIO(script), out, latency_mode=True,
+                          engine_name="cmux_k")
     jnander.nander_console(params=J_TEST, engine_name="matmul", stdin=io.StringIO(script),
                            stdout=jout)
     got, want = _answers(out.getvalue()), _answers(jout.getvalue())
@@ -289,7 +290,7 @@ def test_python_dash_m_console():
 
 
 def test_profile_harness_and_cli_arguments(capsys):
-    nander.hom_nand_profile(params.TEST_PARAMS, "cpu", iters=2)
+    nander.hom_nand_profile(params.TEST_PARAMS, "cpu", iters=2, engine_name="cmux_k")
     out = capsys.readouterr().out
     assert "hom_nand:" in out and "2 nands:" in out and "us/gate" in out
     with pytest.raises(SystemExit, match="--keyfile needs a path"):

@@ -116,7 +116,7 @@ def test_context_defaults_to_the_card(monkeypatch):
 
 
 def test_port_keygen_gates_truth_tables():
-    ctx = TFHE.new(11, params.TEST_PARAMS, device="cpu")
+    ctx = TFHE.new(11, params.TEST_PARAMS, device="cpu", engine_name="cmux_k")
     assert ctx.engine_name == "cmux_k"
     x = ctx.encrypt([0, 1, 0, 1])
     y = ctx.encrypt([0, 0, 1, 1])

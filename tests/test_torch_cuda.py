@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K6 and the probes P1, P2, P4-P9 against their
-plain versions, on the card.
+"""The CUDA kernels K1-K6 and the probes P1-P10 against their plain
+versions, and the generic engines "matmul" and "matmul_bf16" against
+their CPU products, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -16,7 +17,7 @@ import torch
 
 from rustfhe_tpu_torch import TFHE, _u32, engine, params
 from rustfhe_tpu_torch.engine import (cmux_k, int8_gemm, karatsuba, karatsuba_probe, limb_probe,
-                                      limb_step, oracle, plain, rotate_all_k)
+                                      limb_step, nuss_primitives, oracle, plain, rotate_all_k)
 
 
 @pytest.fixture
@@ -65,8 +66,8 @@ def test_external_product_kernel_matches_plain_and_oracle(cuda, name):
 
 def test_selector_and_gates_on_card(cuda):
     p = params.TEST_PARAMS
-    assert engine.select_engine(p, cuda) == "cmux_k"
-    ctx = TFHE.new(5, p, device=cuda)
+    assert engine.select_engine(p, cuda, "cmux_k") == "cmux_k"
+    ctx = TFHE.new(5, p, device=cuda, engine_name="cmux_k")
     x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
     before = cmux_k.cmux_step.launches
     assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
@@ -93,7 +94,7 @@ def test_rotate_all_kernel_matches_plain(cuda, N, B):
 
 def test_latency_mode_gates_on_card(cuda):
     p = params.TEST_PARAMS
-    ctx = TFHE.new(6, p, device=cuda, latency_mode=True)
+    ctx = TFHE.new(6, p, device=cuda, latency_mode=True, engine_name="cmux_k")
     x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
     k1, k3 = cmux_k.cmux_step.launches, rotate_all_k.rotate_all.launches
     assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
@@ -239,3 +240,46 @@ def test_karatsuba_kernel_refuses_what_it_does_not_carry(cuda):
     tab = torch.zeros(karatsuba.table_shape(p), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="N a multiple of 32 up to 1024"):
         karatsuba_probe.step_k2(acc, ai, tab, p)
+
+
+@pytest.mark.parametrize("N", [64, 256, 512])
+def test_coissue_forms_at_small_leaves(cuda, N):
+    # P3's groups of ns/8 threads: 2, 8 and 16 lanes of a warp
+    p = params.DEFAULT_PARAMS.replace(N=N)
+    rows, acc, ai, _ = _case(46, 13, p)
+    flat = karatsuba.scan_enter(_u32.from_numpy(acc))
+    tab = karatsuba.prepare_table(_u32.from_numpy(rows))
+    want = karatsuba.step_plain(flat, torch.from_numpy(ai), tab, p)
+    for pipelined in (False, True):
+        got = karatsuba_probe.step_coissue(flat.to(cuda), torch.from_numpy(ai).to(cuda),
+                                           tab.to(cuda), p, pipelined)
+        assert torch.equal(got.cpu(), want), pipelined
+
+
+@pytest.mark.parametrize("s", [0, 1, 17, 63])
+def test_nuss_primitives_kernel_matches_plain(cuda, s):
+    rs = np.random.RandomState(47)
+    x = _u32.from_numpy(rs.randint(0, 2**32, size=(128, 2048), dtype=np.uint64))
+    before = nuss_primitives.nuss_primitives.launches
+    got = nuss_primitives.nuss_primitives(x.to(cuda), s)
+    assert nuss_primitives.nuss_primitives.launches == before + 1
+    assert torch.equal(got.cpu(), nuss_primitives.nuss_primitives_plain(x, s))
+
+
+@pytest.mark.parametrize("name,B", [("matmul", 13), ("matmul", 256), ("matmul_bf16", 13)])
+def test_matmul_engines_match_cpu_and_oracle(cuda, name, B):
+    p = params.DEFAULT_PARAMS
+    eng = engine.get_engine(name)
+    rows, _, _, _ = _case(48, B, p)
+    rs = np.random.RandomState(49)
+    digits = torch.from_numpy(rs.randint(-p.half_bg, p.half_bg, size=(B, 2 * p.l, p.N))
+                              .astype(np.int32))
+    t_rows = _u32.from_numpy(rows)
+    prep = eng.prepare_trgsw(t_rows, p)
+    want = eng.external_product_digits(prep, digits, p)
+    before = int8_gemm.int8_matmul.launches
+    got = eng.external_product_digits(prep.to(cuda), digits.to(cuda), p)
+    assert int8_gemm.int8_matmul.launches == before + (name == "matmul")
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, oracle.external_product(t_rows, digits))
+    assert engine.select_engine(p, cuda, name) == name

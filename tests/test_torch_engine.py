@@ -111,7 +111,8 @@ def test_key_switch_matches_jax(name):
 
 def test_select_engine_admits_plain_on_cpu():
     # On the CPU the engine's wrappers run its kernels' plain versions.
-    assert engine.select_engine(params.TEST_PARAMS, "cpu") == "cmux_k"
+    assert engine.select_engine(params.TEST_PARAMS, "cpu", "cmux_k") == "cmux_k"
+    assert engine.select_engine(params.TEST_PARAMS, "cpu") == "matmul"  # N=64: the JAX rule
 
 
 _K2 = cmux_k.external_product
@@ -134,4 +135,4 @@ def test_probe_result_reports_inexact(monkeypatch):
     assert not ok and "1/" in why
     monkeypatch.setattr(cmux_k, "external_product", _broken)
     with pytest.raises(RuntimeError, match="failed the oracle probe"):
-        engine.select_engine(p, "cpu")
+        engine.select_engine(p, "cpu", "cmux_k")

@@ -1,6 +1,6 @@
-"""The port's two engines against the JAX package: the selection rule, the
-bootstrap through the limb engine, and the context and keys that carry an
-engine.
+"""The port's engines against the JAX package: the selection rule (JAX's
+accelerator cascade), the bootstrap through the limb engine, and the
+context and keys that carry an engine.
 
 Shared keys: the JAX package's raw keys cross into the port through
 ``keys.from_jax_keys``, so both packages bootstrap the same pre-combined
@@ -78,30 +78,56 @@ def _jax_cascade(jp, monkeypatch):
 
 
 # The JAX engines each port engine stands for.
-FAMILY = {"pallas_k2": "cmux_k", "pallas_k": "cmux_k", "pallas": "limb"}
+FAMILY = {"pallas_k2": "cmux_k", "pallas_k": "cmux_k", "pallas": "limb", "matmul": "matmul",
+          "matmul_bf16": "matmul_bf16"}
 
 
 @pytest.mark.parametrize("name,want", [
     ("DEFAULT_PARAMS", "cmux_k"), ("N2048_PARAMS", "cmux_k"), ("PBS_PARAMS", "cmux_k"),
-    ("PBS_TEST_PARAMS", "cmux_k"), ("FAST_PARAMS", "limb"),
+    ("PBS_TEST_PARAMS", "cmux_k"), ("FAST_PARAMS", "limb"), ("TEST_PARAMS", "matmul"),
+    ("N4096", "matmul"),
 ])
 def test_engine_rule_matches_jax_cascade(name, want, monkeypatch):
-    assert FAMILY[_jax_cascade(getattr(jparams, name), monkeypatch)] == want
-    assert engine.engine_for(getattr(params, name)) == want
+    # TEST_PARAMS (N=64) and N=4096 are outside the Pallas kernels' tiling:
+    # JAX's cascade falls through to "matmul", and so does the port's rule.
+    if name == "N4096":
+        jp, p = jparams.DEFAULT_PARAMS.replace(N=4096), params.DEFAULT_PARAMS.replace(N=4096)
+    else:
+        jp, p = getattr(jparams, name), getattr(params, name)
+    assert FAMILY[_jax_cascade(jp, monkeypatch)] == want
+    assert engine.engine_for(p) == want
 
 
-def test_bgbit_9_raises_where_jax_falls_through_to_matmul(monkeypatch):
-    assert _jax_cascade(jparams.TFHEParams(bgbit=9, l=2), monkeypatch) == "matmul"
-    p = params.TFHEParams(bgbit=9, l=2)
-    with pytest.raises(ValueError, match="'matmul' engine"):
-        engine.engine_for(p)
-    with pytest.raises(ValueError, match="'matmul' engine"):
-        engine.select_engine(p, "cpu")
+def test_bgbit_9_picks_matmul_bf16_as_jax_does(monkeypatch):
+    # At bgbit=9 the digits reach 256 and wrap in "matmul"'s int8 cast: JAX's
+    # cascade, with its real oracle probe for the two matmul engines, falls to
+    # "matmul_bf16", and the port's rule names it; select_engine admits it.
+    monkeypatch.delenv("RUSTFHE_ENGINE", raising=False)
+    monkeypatch.setattr(jengine, "jnp", _OnAccelerator)
+    real = jengine.engine_exact_on_probe
+    verdicts = {}
+
+    def probe(eng, *args):
+        if eng.name.startswith("matmul"):
+            verdicts[eng.name] = real(eng, *args)
+            return verdicts[eng.name]
+        return True
+
+    monkeypatch.setattr(jengine, "engine_exact_on_probe", probe)
+    jp, p = jparams.TFHEParams(bgbit=9, l=2, N=256), params.TFHEParams(bgbit=9, l=2, N=256)
+    assert jengine.select_fast_engine(jp) == "matmul_bf16"
+    assert verdicts == {"matmul": False, "matmul_bf16": True}
+    assert engine.engine_for(p) == "matmul_bf16"
+    assert engine.engine_for(params.TFHEParams(bgbit=9, l=2)) == "matmul_bf16"
+    assert engine.select_engine(p, "cpu") == "matmul_bf16"
+    with pytest.raises(RuntimeError, match="matmul engine's external product on cpu failed"):
+        engine.select_engine(p, "cpu", "matmul")
 
 
 def test_selection_on_cpu_and_explicit_names():
     # N=64 is below the TPU kernels' tiling; the port's kernels take it.
-    assert engine.select_engine(params.TEST_PARAMS, "cpu") == "cmux_k"
+    assert engine.select_engine(params.TEST_PARAMS, "cpu") == "matmul"
+    assert engine.select_engine(params.TEST_PARAMS, "cpu", "cmux_k") == "cmux_k"
     assert engine.select_engine(P_FAST, "cpu") == "limb"
     assert engine.select_engine(P_FAST, "cpu", "cmux_k") == "cmux_k"
     assert engine.select_engine(params.TEST_PARAMS, "cpu", "limb") == "limb"
@@ -227,7 +253,7 @@ def test_context_limb_by_name_at_test_params():
     assert split.engine_name == "limb" and not split.ck.bk.merge_c
     # the same seed draws the same keys for either engine
     assert torch.equal(split.ck.bk.table, ctx.ck.bk.table)
-    k1 = TFHE.new(1, params.TEST_PARAMS, device="cpu")
+    k1 = TFHE.new(1, params.TEST_PARAMS, device="cpu", engine_name="cmux_k")
     assert k1.engine_name == "cmux_k"
     assert torch.equal(plain.prepare_trgsw_limbs(k1.ck.bk[..., params.TEST_PARAMS.N:]),
                        ctx.ck.bk.table)

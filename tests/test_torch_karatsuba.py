@@ -1,5 +1,5 @@
 """The port's Karatsuba step (``engine/karatsuba.py``), its probe wrappers
-P4, P8, P1, P2 (``engine/karatsuba_probe.py``) and their entry points
+P4, P8, P1, P2, P3 (``engine/karatsuba_probe.py``) and their entry points
 (``rustfhe_tpu_torch/benches``), against the JAX package.
 
 Everything here is word for word (tolerance zero).  The residue layout,
@@ -34,8 +34,8 @@ from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine, fused_cmux_step_k
 from rustfhe_tpu.engine.pallas_step import build_panels_doubling
 from rustfhe_tpu.params import DEFAULT_PARAMS as J_DEFAULT
 from rustfhe_tpu_torch import _u32, params, poly
-from rustfhe_tpu_torch.benches import (coissue_probe, k2_floor_probe, karatsuba2_probe,
-                                       vpu_reduce_probe)
+from rustfhe_tpu_torch.benches import (coissue2_probe, coissue_probe, k2_floor_probe,
+                                       karatsuba2_probe, vpu_reduce_probe)
 from rustfhe_tpu_torch.engine import cmux_k, plain
 from rustfhe_tpu_torch.engine import karatsuba as ka
 from rustfhe_tpu_torch.engine import karatsuba_probe as kp
@@ -177,8 +177,8 @@ def test_plain_step_equals_k1_through_the_scan_layout(N, l):
     want = cmux_k.cmux_step_plain(std, t_ai, plain.prepare_trgsw(t_rows), p)
     table = ka.prepare_table(t_rows)
     flat = ka.scan_enter(std)
-    forms = [f for f in kp.FORMS if f.exact]  # P4 full, P8's exact forms, P1, both P2 orders
-    assert len(forms) == 8
+    forms = [f for f in kp.FORMS if f.exact]  # P4 full, P8's exact forms, P1, P2's and P3's two
+    assert len(forms) == 10
     for form in forms:
         got = ka.step_plain(flat, t_ai, table, p, form)
         assert torch.equal(ka.scan_exit(got), want), form
@@ -280,9 +280,30 @@ def test_step_split_matches_coissue_probe(grouped, interpret, monkeypatch):
     _check_p2(monkeypatch, FAST["N"], FAST["l"], grouped)
 
 
+def _check_p3(monkeypatch, N, l, pipelined, tm=128, b=B):
+    mod, jp = _load_probe("coissue2_probe", monkeypatch, N, l)
+    _, acc, ai, qd = _inputs(15, N, l, b=b)
+    panels = build_panels_doubling(jnp.asarray(qd), N // 4, tm)
+    want = mod.step_coissue(jnp.asarray(acc), jnp.asarray(ai[:, 0]), panels, params=jp, tb=TB,
+                            tm=tm, pipelined=pipelined)
+    before = kp.step_coissue.launches
+    got = kp.step_coissue(*_t(acc, ai[:, 0], qd), _p(N, l), pipelined)
+    assert kp.step_coissue.launches == before  # the plain version launches nothing
+    assert np.array_equal(_u32.to_numpy(got), np.asarray(want))
+    # B and C compute P8's leaf-first multiply-extract step (its baseline A)
+    assert torch.equal(got, kp.step_var(*_t(acc, ai[:, 0], qd), _p(N, l)))
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_step_coissue_matches_coissue2_probe(pipelined, interpret, monkeypatch):
+    # N=256 (ns=64, the TPU panel depth cut to 64) and one tile: a few
+    # seconds in interpret mode
+    _check_p3(monkeypatch, 256, 1, pipelined, tm=64, b=TB)
+
+
 DEFAULT_CASES = ([("P4", v) for v in kp.ABLATIONS]
                  + [("P8", n) for n in list(kp.VAR_FORMS) + ["unroll2"]]
-                 + [("P1", None), ("P2", False), ("P2", True)])
+                 + [("P1", None), ("P2", False), ("P2", True), ("P3", False), ("P3", True)])
 
 
 @pytest.mark.slow
@@ -295,8 +316,10 @@ def test_probes_match_jax_at_default_params(probe, form, interpret, monkeypatch)
         _check_p8(monkeypatch, N, l, form)
     elif probe == "P1":
         _check_p1(monkeypatch, N, l)
-    else:
+    elif probe == "P2":
         _check_p2(monkeypatch, N, l, form)
+    else:
+        _check_p3(monkeypatch, N, l, form)
 
 
 def test_nodots_depends_on_tm_as_specified():
@@ -358,7 +381,7 @@ def test_wrapper_checks():
 
 def test_form_codes_are_distinct_and_exactness_is_labelled():
     codes = {kp.form_code(f) for f in kp.FORMS}
-    assert len(codes) == len(kp.FORMS) == 17
+    assert len(codes) == len(kp.FORMS) == 19
     assert kp.form_code(ka.Step()) == 0 and kp.form_code(kp.ABLATIONS["accio"]) == 1 << 12
     assert {n for n, f in kp.ABLATIONS.items() if f.exact} == {"full"}
     assert kp.var_form(extract="sar") == kp.ABLATIONS["full"]
@@ -379,7 +402,7 @@ def test_entry_points_parse_the_jax_scripts_arguments(monkeypatch):
     assert k2_floor_probe.parse(["64", "nodots", "full"]) == (64, ("full", "nodots"))
     with pytest.raises(SystemExit, match="unknown variant"):
         k2_floor_probe.parse(["64", "wide"])
-    for mod in (vpu_reduce_probe, karatsuba2_probe, coissue_probe):
+    for mod in (vpu_reduce_probe, karatsuba2_probe, coissue_probe, coissue2_probe):
         assert mod.parse([]) == 8192 and mod.parse(["256"]) == 256
     assert k2_floor_probe.MACS_FULL == 50331648 == vpu_reduce_probe.MACS_FULL
 
@@ -393,7 +416,7 @@ def test_k2_floor_probe_refuses_pbs(monkeypatch):
 def test_entry_points_refuse_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("PRESET", raising=False)
-    for mod in (k2_floor_probe, vpu_reduce_probe, karatsuba2_probe, coissue_probe):
+    for mod in (k2_floor_probe, vpu_reduce_probe, karatsuba2_probe, coissue_probe, coissue2_probe):
         with pytest.raises(SystemExit, match="need a CUDA device"):
             mod.main(["64"])
 
@@ -419,3 +442,6 @@ def test_entry_point_cases_run_their_plain_versions():
     assert [c.name for c in split][:3] == ["baseline (Karatsuba step)", "split-serial (2x4)",
                                           "split-grouped (2x4)"]
     assert all(torch.equal(c.step(c.x0), split[0].step(split[0].x0)) for c in split)
+    co = coissue2_probe.cases(16, cpu)
+    assert [c.name[:2] for c in co] == ["A:", "B:", "C:"]
+    assert all(torch.equal(c.step(c.x0), co[0].step(co[0].x0)) for c in co)

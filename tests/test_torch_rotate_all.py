@@ -157,7 +157,7 @@ def test_dispatch_rule_single_launch_then_k1_loop(monkeypatch):
 def test_latency_context_gates_truth_tables(monkeypatch):
     ra = _Spy(rotate_all_k.rotate_all)
     monkeypatch.setattr(rotate_all_k, "rotate_all", ra)
-    ctx = TFHE.new(17, params.TEST_PARAMS, device="cpu", latency_mode=True)
+    ctx = TFHE.new(17, params.TEST_PARAMS, device="cpu", latency_mode=True, engine_name="cmux_k")
     assert isinstance(ctx.ck.bk, keys.LatencyBK)
     x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
     assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]

@@ -121,8 +121,8 @@ def test_cached_keys_load_then_regenerate_on_param_mismatch(tmp_path, capsys):
 
 def test_context_keyfile_reuses_the_keys(tmp_path):
     prefix = str(tmp_path / "ctx")
-    a = TFHE.new(21, P, device="cpu", keyfile=prefix)
-    b = TFHE.new(22, P, device="cpu", keyfile=prefix, latency_mode=True)
+    a = TFHE.new(21, P, device="cpu", keyfile=prefix, engine_name="cmux_k")
+    b = TFHE.new(22, P, device="cpu", keyfile=prefix, latency_mode=True, engine_name="cmux_k")
     assert torch.equal(a.sk.lv0, b.sk.lv0)
     assert torch.equal(a.ck.bk, b.ck.bk.bk)
     x = a.encrypt([0, 1, 1, 0])
