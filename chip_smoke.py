@@ -14,7 +14,8 @@ FAST_PARAMS (l=2, Bg=2^8), with keys and inputs made from seed 0.
 Phases, one line each:
 
   1. environment: torch, CUDA, nvcc, the card;
-  2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use);
+  2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use;
+     ptxas's registers, spills and performance notes);
   3. kernels: K1 (CMux step) and K2 (external product) on the card against
      their plain torch versions, bit for bit, and K2 against the oracle, on
      edge inputs and at the main path's batches (1024 and 4096); each
@@ -53,12 +54,16 @@ Phases, one line each:
   9. the probes (the JAX package's ``benches/`` kernels the port carries):
      P6 (the limb step without its products or its rotation), P5 (K4's
      two recombination orders), P7 and P9 (the int8 GEMM on the tensor
-     cores) against their plain versions, word for word, on a limb table
-     mapped from a random JAX-layout ``qd`` (P6 at B = 1, 13, 33, 8192,
-     "full" also against K6; P5 also against K4; P7/P9 at each tile, at
-     the probe shapes 8192 x 6144 x 1024 and 4096 x 6144 x 8192, and a
-     ragged shape that must raise); their times in turns beside the plain
-     versions (the step's breakdown, TOPS beside ``torch._int_mm``); then
+     cores, wgmma on TMA-fed shared memory) against their plain versions,
+     word for word, on a limb table mapped from a random JAX-layout ``qd``
+     (P6 at B = 1, 13, 33, 8192, "full" also against K6; P5 also against
+     K4; P7/P9 at each tile, at the probe shapes 8192 x 6144 x 1024 and
+     4096 x 6144 x 8192, at the edges of the kernel's ring (K = DEPTH and
+     (STAGES + 1) x DEPTH, one tile, several, and more than the persistent
+     grid's blocks, rows and columns of -128), at K = 2^17 - DEPTH all
+     -128, and a ragged shape that must raise); their times in turns
+     beside the plain versions (the step's breakdown, TOPS beside
+     ``torch._int_mm``); then
      the probes' entry points (``rustfhe_tpu_torch.benches``:
      step_breakdown_probe, limb_order_probe, matmul_probe) with their
      defaults, each with the launch counts of its own run;
@@ -880,18 +885,46 @@ def phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want):
 # --------------------------------------------------------------------- #
 PROBE_CHECK = (1, 13, 33, 8192)  # P6 and P5 against their plain versions
 GEMM_SHAPES = {"p7": (8192, 6144, 1024), "p9": (4096, 6144, 8192)}  # (M, K, N)
+EDGE_K = (1 << 17) - int8_gemm.DEPTH  # every product -128 * -128: sums of 2^31 - 2^21
 
 
 def device_int8(gen, shape, dev):
     return torch.randint(-128, 128, shape, dtype=torch.int8, device=dev, generator=gen)
 
 
+def gemm_edges(dev, gen) -> int:
+    """The GEMM at every tile against the float64 product on the shapes at
+    the edges of its ring: K = DEPTH (one stage), K = (STAGES + 1) x DEPTH
+    (the ring wraps), M and N one tile and several, more tiles than the
+    persistent grid has blocks at K = (STAGES + 1) x DEPTH (a block's next
+    tile starts in the middle of a round of the ring), a row and a column of
+    -128 (the largest products), and K = 2^17 - DEPTH all -128 (the
+    exactness edge).  Returns the largest error (0, or it raised)."""
+    err = 0
+    depth, stages = int8_gemm.DEPTH, int8_gemm.STAGES
+    for tile in int8_gemm.TILES:
+        bm, bn = int8_gemm.tile_shape(tile)
+        wraps = (stages + 1) * depth
+        for M, K, N in ((bm, depth, bn), (bm, wraps, bn), (3 * bm, wraps, 2 * bn),
+                        (2 * bm, 6144, 3 * bn), (2048, wraps, 4096)):
+            d, w = device_int8(gen, (M, K), dev), device_int8(gen, (K, N), dev)
+            d[M // 2], w[:, N // 2] = -128, -128
+            err = max(err, exact(f"GEMM {tile} {M} x {K} x {N}", int8_gemm.int8_matmul(
+                d, int8_gemm.prepare_rhs(w), tile), int8_gemm.int8_matmul_plain(d, w)))
+        d = torch.full((bm, EDGE_K), -128, dtype=torch.int8, device=dev)
+        wt = torch.full((bn, EDGE_K), -128, dtype=torch.int8, device=dev)
+        err = max(err, exact(f"GEMM {tile} at K = {EDGE_K}", int8_gemm.int8_matmul(d, wt, tile),
+                             torch.full((bm, bn), EDGE_K * 16384, dtype=torch.int32)))
+    return err
+
+
 def phase_probe_kernels(dev, rs, card):
     """P6's three variants and P5's two orders against their plain versions
     (and K6, K4), word for word, at DEFAULT_PARAMS on a limb table mapped
     from a random JAX-layout qd; P7/P9 at every tile against the float64
-    product at the probe shapes, and a ragged shape refused.  Then the
-    times in turns: the step's breakdown and the GEMM's TOPS."""
+    product at the probe shapes and the ring's edges, and a ragged shape
+    refused.  Then the times in turns: the step's breakdown and the GEMM's
+    TOPS at each tile."""
     p = DEFAULT_PARAMS
     errs = {"p5": 0, "p6": 0, "p7": 0, "p9": 0}
     qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4, 2 * p.N)).astype(np.int8))
@@ -934,9 +967,15 @@ def phase_probe_kernels(dev, rs, card):
             else:
                 raise AssertionError(f"{key.upper()} tile {tile}: a ragged M = {M - 8} ran")
         gemm[key] = (d, w, wt)
+    edge = gemm_edges(dev, gen)
+    errs["p7"], errs["p9"] = max(errs["p7"], edge), max(errs["p9"], edge)
     torch.cuda.synchronize()
     log("probes", "P7 (8192 x 6144 x 1024) and P9 (4096 x 6144 x 8192) bit-exact against the "
-        f"float64 product at every tile ({', '.join(int8_gemm.TILES)}); a ragged M raises")
+        f"float64 product at every tile ({', '.join(int8_gemm.TILES)}); a ragged M raises; "
+        f"bit-exact at the ring's edges (K = {int8_gemm.DEPTH}, "
+        f"{(int8_gemm.STAGES + 1) * int8_gemm.DEPTH}, one tile, several, more than the grid's "
+        f"blocks, -128 rows and columns), and at K = {EDGE_K}, all -128, every sum "
+        f"{EDGE_K * 16384}")
 
     # The step's breakdown at the probe's B=8192 (acc, ai of the last check).
     step = {"plain": lambda: limb_step.cmux_step_plain(acc, ai, tab, p),
@@ -960,18 +999,20 @@ def phase_probe_kernels(dev, rs, card):
 
     gt = {}
     for key, (d, w, wt) in gemm.items():
+        M, K = d.shape
         fns = {"plain": lambda d=d, w=w: int8_gemm.int8_matmul_plain(d, w),
                "torch._int_mm": lambda d=d, wt=wt: torch._int_mm(d, wt.t()),
                **{tile: (lambda d=d, wt=wt, tile=tile: int8_gemm.int8_matmul(d, wt, tile))
                   for tile in int8_gemm.TILES}}
         gt[key] = turns(fns, 10)
-        M, K = d.shape
-        ops = 2 * M * K * w.shape[1]
-        log("probes", f"{key.upper()} {M} x {K} x {w.shape[1]} on {card}: "
+        N = w.shape[1]
+        ops = 2 * M * K * N
+        best = min(gt[key][x] for x in int8_gemm.TILES)
+        log("probes", f"{key.upper()} {M} x {K} x {N} on {card}: "
             + ", ".join(f"{k} {v:.4f} ms ({ops / v / 1e9:.1f} TOPS)" for k, v in gt[key].items())
             + "; estimate against the published 1,979 dense int8 TOP/s: best tile "
-            f"{ops / min(gt[key][x] for x in int8_gemm.TILES) / 1e9 / 1979:.1%}, torch._int_mm "
-            f"{ops / gt[key]['torch._int_mm'] / 1e9 / 1979:.1%}")
+            f"{ops / best / 1e9 / 1979:.1%} (bound {bound(ops, M * K + K * N + 4 * M * N)[0]:.4f} "
+            f"ms), torch._int_mm {ops / gt[key]['torch._int_mm'] / 1e9 / 1979:.1%}")
     return errs, t, gt
 
 
@@ -1272,7 +1313,8 @@ def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_ms):
     digits = decompose_trlwe(poly.rotate(acc, a_steps[0][:, None]) - acc, p)
     wt = matmul.circulant(table)
     d = digits.flip(-1).reshape(BATCH, -1).to(torch.int8)
-    exact("int8 GEMM vs torch._int_mm", int8_gemm.int8_matmul(d, wt), torch._int_mm(d, wt.t()))
+    exact("int8 GEMM vs torch._int_mm", int8_gemm.int8_matmul(d, wt),
+          torch._int_mm(d, wt.t()))
 
     def step():
         diff = poly.rotate(acc, a_steps[0][:, None]) - acc
@@ -1287,7 +1329,7 @@ def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_ms):
     ops = 2 * M * K * wt.shape[0]
     log("matmul", f"step parts at B={BATCH} on {card}, ms: " + ", ".join(
         f"{k} {v:.4f}" for k, v in t.items()) + f"; GEMM {M} x {K} x {wt.shape[0]}: int8_gemm "
-        f"{ops / t['int8_gemm'] / 1e9:.1f} TOPS, torch._int_mm "
+        f"(tile {int8_gemm.TILE}) {ops / t['int8_gemm'] / 1e9:.1f} TOPS, torch._int_mm "
         f"{ops / t['torch._int_mm'] / 1e9:.1f}; step / K1 {t['step'] / k1_ms:.3f}")
     return BATCH / best, t, launches
 
@@ -1372,7 +1414,7 @@ def main() -> int:
         f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for lib, report in libs.values():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "C75")):
                 log("build", "ptxas: " + line.strip())
 
     # 3. kernels against their plain versions

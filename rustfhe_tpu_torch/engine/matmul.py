@@ -19,11 +19,11 @@ circulant operand is built from the table per step, and the digits
 The limbs recombine with wrapping shifts, exact mod 2^32.
 
 * ``"matmul"``: on the card the product runs on the port's own int8
-  tensor-core GEMM (``int8_gemm.int8_matmul``, the kernel of P7/P9, tile
-  128x128), its batch rows padded to the tile; on the CPU that wrapper
-  runs its plain version.  Digits are cast to int8 as the JAX engine casts
-  them, so at half_bg > 128 they wrap and the engine fails the oracle
-  probe, as JAX's does.
+  tensor-core GEMM (``int8_gemm.int8_matmul``, the kernel of P7/P9, at its
+  default tile ``int8_gemm.TILE``), its batch rows padded to the tile; on
+  the CPU that wrapper runs its plain version.  Digits are cast to int8 as
+  the JAX engine casts them, so at half_bg > 128 they wrap and the engine
+  fails the oracle probe, as JAX's does.
 * ``"matmul_bf16"``: K = 8 limbs of 4 bits; on the card a bf16 GEMM with
   fp32 output (``torch.mm(..., out_dtype=torch.float32)``: cuBLAS with an
   fp32 compute type, so no reduction runs in bf16 whatever
@@ -51,8 +51,6 @@ from ..params import TFHEParams
 from ..poly import to_signed_limbs
 from . import int8_gemm
 from .cmux_k import _dispatch
-
-TILE = "128x128"
 
 
 def recombine(parts: torch.Tensor, limb_bits: int) -> torch.Tensor:
@@ -135,13 +133,13 @@ class MatmulEngine:
         d = d.to(torch.int8)
         M, D = d.shape
         C = wt.shape[0]
-        bm, bn = int8_gemm.tile_shape(TILE)
+        bm, bn = int8_gemm.tile_shape(int8_gemm.TILE)
         pad_m, pad_d, pad_c = -M % bm, -D % int8_gemm.DEPTH, -C % bn
         if pad_m or pad_d:
             d = F.pad(d, (0, pad_d, 0, pad_m))
         if pad_d or pad_c:
             wt = F.pad(wt, (0, pad_d, 0, pad_c))
-        out = int8_gemm.int8_matmul(d.contiguous(), wt.contiguous(), TILE)
+        out = int8_gemm.int8_matmul(d.contiguous(), wt.contiguous())
         return out[:M, :C] if pad_m or pad_c else out
 
     def external_product_digits(self, prepared: torch.Tensor, digits: torch.Tensor,

@@ -175,24 +175,42 @@ def test_limb_probe_kernels_match_plain(cuda, name, B):
 
 @pytest.mark.parametrize("tile", list(int8_gemm.TILES))
 def test_int8_gemm_kernel_matches_plain(cuda, tile):
+    # the ring's edges: K = DEPTH (one stage), K = (STAGES + 1) x DEPTH (the
+    # ring wraps), M and N one tile and several, and more tiles than the
+    # persistent grid has blocks at K = (STAGES + 1) x DEPTH, so that a block's
+    # next tile starts in the middle of a round of the ring
     bm, bn = int8_gemm.tile_shape(tile)
+    depth, wraps = int8_gemm.DEPTH, (int8_gemm.STAGES + 1) * int8_gemm.DEPTH
     rs = np.random.RandomState(43)
-    for M, K, N in ((bm, 64, bn), (2 * bm, 6144, 3 * bn)):
+    for M, K, N in ((bm, depth, bn), (bm, wraps, bn), (3 * bm, wraps, 2 * bn),
+                    (2 * bm, 6144, 3 * bn), (2048, wraps, 4096)):
         d = rs.randint(-128, 128, size=(M, K)).astype(np.int8)
         w = rs.randint(-128, 128, size=(K, N)).astype(np.int8)
         d[0], w[:, 0] = -128, -128  # the largest products
         t_d, t_w = torch.from_numpy(d), torch.from_numpy(w)
         wt = int8_gemm.prepare_rhs(t_w.to(cuda))
+        want = int8_gemm.int8_matmul_plain(t_d, t_w)
         before = int8_gemm.int8_matmul.launches
         got = int8_gemm.int8_matmul(t_d.to(cuda), wt, tile)
+        assert torch.equal(got.cpu(), want), (M, K, N)
         assert int8_gemm.int8_matmul.launches == before + 1
-        assert torch.equal(got.cpu(), int8_gemm.int8_matmul_plain(t_d, t_w))
         # ragged shapes raise, and launch nothing
         for rd, rwt in ((t_d[: M - 1], wt), (t_d[:, : K - 32], wt[:, : K - 32].contiguous()),
                         (t_d, wt[: N - 8])):
             with pytest.raises(ValueError, match="does not divide tile"):
                 int8_gemm.int8_matmul(rd.contiguous().to(cuda), rwt, tile)
         assert int8_gemm.int8_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("tile", list(int8_gemm.TILES))
+def test_int8_gemm_kernel_at_the_exactness_edge(cuda, tile):
+    # every product -128 * -128 at K = 2^17 - DEPTH: sums of 2^31 - 2^21
+    bm, bn = int8_gemm.tile_shape(tile)
+    K = (1 << 17) - int8_gemm.DEPTH
+    d = torch.full((bm, K), -128, dtype=torch.int8, device=cuda)
+    wt = torch.full((bn, K), -128, dtype=torch.int8, device=cuda)
+    got = int8_gemm.int8_matmul(d, wt, tile)
+    assert bool((got == K * 16384).all())
 
 
 @pytest.mark.parametrize("B", [13, 8192])  # 13 samples: a ragged last tile

@@ -107,8 +107,8 @@ def test_circulant_layout_and_padding():
                                 np.arange(N), indexing="ij")
     want = table.numpy()[j, c, k, (n - (N - 1 - m)) % (2 * N)].reshape(wt.shape)
     assert np.array_equal(wt.numpy(), want)
-    # 2L*N = 64 is one GEMM slice; 3 rows pad to the 128-row tile and the pad
-    # does not reach the output
+    # 2L*N = 64 pads to one 128-byte GEMM slice, 3 rows to the 128-row tile,
+    # and the pad does not reach the output
     d = torch.from_numpy(rs.randint(-32, 32, size=(3, 2, N)).astype(np.int32))
     before = int8_gemm.int8_matmul.launches
     got = eng.external_product_digits(table, d, p)

@@ -239,8 +239,9 @@ def test_int8_matmul_matches_make_pallas(interpret):
 
 
 def test_int8_matmul_at_the_exactness_edge():
-    # every product -128 * -128 at K = 2^17 - 64: 2^31 - 2^20, the largest sum
-    K = (1 << 17) - 64
+    # every product -128 * -128 at K = 2^17 - DEPTH (128): 2^31 - 2^21, the
+    # largest sum at a depth the kernel takes
+    K = (1 << 17) - int8_gemm.DEPTH
     d = torch.full((64, K), -128, dtype=torch.int8)
     wt = torch.full((64, K), -128, dtype=torch.int8)
     got = int8_gemm.int8_matmul(d, wt, "64x64")
