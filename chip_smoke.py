@@ -15,28 +15,37 @@ Phases, one line each:
 
   1. environment: torch, CUDA, nvcc, the card;
   2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use;
-     ptxas's registers, spills and performance notes);
-  3. kernels: K1 (CMux step) and K2 (external product) on the card against
-     their plain torch versions, bit for bit, and K2 against the oracle, on
-     edge inputs and at the main path's batches (1024 and 4096); each
-     kernel's time beside its plain version's;
+     ptxas's registers, spills and performance notes; K1/K2's kernels may
+     not spill);
+  3. kernels: K1 (CMux step: key panel, digits and the int8 wgmma product
+     with the limb recombination in its epilogue) and K2 (external
+     product: panel and product) on the card against their plain torch
+     versions, bit for bit, and K2 against the oracle, on edge inputs and
+     at the main path's batches (1024 and 4096); K1's three kernels alone
+     against their plain versions; times in turns: K1, its pieces, the
+     plain step, and ``torch._int_mm`` at the step's product shape, K1's
+     share of its bound; K2 beside its plain version;
   4. main path: ``TFHE.new`` (keygen on the card, K2 probe), one mixed
      bootstrap batch with the NAND/AND/OR/XOR truth tables, NOT and both
      MUX first-pass lanes over all 8 combinations, then the MUX second
      pass; every output decrypted and checked;
   5. timed NAND batch of 4096 gates: decrypt-checked, gates/s, then one
-     pass layer by layer under ``torch.profiler`` (each kernel's share of
-     device time, the device's idle share, peak device memory, and the SM
-     clock sampled by nvidia-smi during the pass);
+     pass layer by layer under ``torch.profiler`` (K1's three kernels and
+     their share of device time, the device's idle share, peak device
+     memory, and the SM clock sampled by nvidia-smi during the pass);
   6. K1 on the real bootstrapping key: the first steps of both main-path
      batches' blind rotations, kernel against plain version, bit for bit;
   7. latency path: K3 (the single-launch blind rotation) against its plain
      version and the K1 loop over all n steps, bit for bit, on random keys
      at B = 1, 8, 32, 33; K3's time per rotation beside the K1 loop's and
-     the plain version's; then the nander console in latency mode
+     the plain version's, and their medians over 7 rounds at B = 4, 8, 16,
+     32 (the crossover that sets ``rotate_all_k.MAX_BATCH``); then the
+     nander console in latency mode
      (``nander_console(..., latency_mode=True)``) on a fixed script, every
      ``res:`` checked against ``PlainLogic``, with exactly one K3 launch
-     per blind rotation and no K1 launch; then K3 on the real latency key
+     per blind rotation at a batch up to ``rotate_all_k.MAX_BATCH`` (the
+     root gates, B=1) and one K1 loop per rotation above it (the 32-lane
+     levels); then K3 on the real latency key
      from the real first accumulators, and the console's single-NAND
      program layer by layer under ``torch.profiler``;
   8. the limb engine (the JAX engine "pallas"): K4 (merged CMux step), K6
@@ -91,7 +100,8 @@ Phases, one line each:
      word for word to its K1 output, a timed NAND batch (B=4096) with one
      launch of the int8 GEMM (P7/P9's kernel) per step and no K1, one pass
      under ``torch.profiler`` (the idle share), the step's parts and its
-     GEMM beside ``torch._int_mm``; "matmul_bf16", "nuss" and
+     GEMM beside ``torch._int_mm`` and beside K1's step on the same raw
+     key (equal word for word); "matmul_bf16", "nuss" and
      "fft64" admitted by the oracle probe on the card and held to
      "matmul" on a random batch; a mixed batch at Bg = 2^9 (l=2, n=64) on
      "matmul_bf16", every output decrypted.
@@ -133,6 +143,7 @@ from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS, TFHEParams
 from rustfhe_tpu_torch.trgsw import decompose_trlwe
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
+K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel")  # a step's launches
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
 LIMB_SOURCE = "rustfhe_tpu_torch/csrc/limb_step.cu"
 PROBE_SOURCE = "rustfhe_tpu_torch/csrc/limb_probe.cu"
@@ -142,7 +153,6 @@ NUSS_SOURCE = "rustfhe_tpu_torch/csrc/nuss_primitives.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
-IMAD_PER_CLK_SM = 64  # 32-bit integer multiply-add issue rate of sm_90 (published)
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak of an H100 SXM at 700 W (published)
 HBM_BYTES_PER_S = 3.35e12  # device-memory rate of an H100 SXM (published)
 TRUTH = {
@@ -211,16 +221,19 @@ def words(rs, shape, dev):
 
 def step_ops(p, b: int, steps: int = 1) -> float:
     """The operations of ``steps`` CMux steps (or external products) of b
-    samples, counted as the reference's int8 multiply-adds whatever
-    computes them: 2 x (2 halves x 4 limbs x 2L x N^2) per sample and step."""
+    samples, whatever computes them: the least int8 count the repo shows
+    for the step, the two-level Karatsuba product's 2 x (2 halves x 4 limbs
+    x 2L x 9 leaves x (N/4)^2) per sample and step, 0.5625 of
+    ``schoolbook_ops``.  Every CMux step's and external product's bound
+    counts these."""
+    return 2.0 * b * steps * 2 * 4 * 2 * p.l * 9 * (p.N // 4) ** 2
+
+
+def schoolbook_ops(p, b: int, steps: int = 1) -> float:
+    """The int8 multiply-adds (x2) of the schoolbook product, 2 x (2 halves
+    x 4 limbs x 2L x N^2) per sample and step: what K1's GEMM executes,
+    used for its own rate, never for a bound."""
     return 2.0 * b * steps * 2 * 4 * 2 * p.l * p.N * p.N
-
-
-def karatsuba_ops(p, b: int) -> float:
-    """The operations of one two-level Karatsuba CMux step of b samples,
-    the int8 multiply-adds it needs: 2 x (2 halves x 4 limbs x 2L x 9
-    leaves x (N/4)^2) per sample, 0.5625 of ``step_ops``."""
-    return 2.0 * b * 2 * 4 * 2 * p.l * 9 * (p.N // 4) ** 2
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -280,17 +293,74 @@ def phase_kernels(p, dev, rs):
     log("kernels", f"K1 and K2 bit-exact against their plain versions on {dev} "
         f"(edge inputs, B=256, B={MIXED}, B={BATCH}); K2 equals the oracle on the probe vectors")
 
-    # Times at the main path's shapes: K1 at the timed batch, K2 at the probe.
-    k1_ms, k1_plain = ab_ms(lambda: cmux_k.cmux_step(accb, aib, key, p),
-                            lambda: cmux_k.cmux_step_plain(accb, aib, key, p), 10)
+    # K1's three kernels alone at B=BATCH, each against its plain version.
+    panel = cmux_k.key_panel(key, p)
+    exact("K1 key panel", panel, cmux_k.key_panel_plain(key, p))
+    digits = cmux_k.step_digits(accb, aib, p)
+    exact("K1 digits", digits, cmux_k.step_digits_plain(accb, aib, p))
+    exact("K1 product", cmux_k.panel_product(digits, panel, accb, p),
+          cmux_k.panel_product_plain(digits, panel, accb, p))
+    torch.cuda.synchronize()
+    log("kernels", f"K1's pieces at B={BATCH} bit-exact against their plain versions: key panel "
+        f"{tuple(panel.shape)} int8, digits {tuple(digits.shape)} int8, product with the "
+        "recombination and the add")
+
+    # Times in turns at the main path's shapes: K1, its pieces, the plain
+    # step, and torch._int_mm at the step's product shape (its yardstick);
+    # K2 at the probe's batch and at B=BATCH.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    mm_d = torch.randint(-128, 128, (BATCH, two_l * N), dtype=torch.int8, device=dev, generator=gen)
+    mm_wt = torch.randint(-128, 128, (2 * 4 * N, two_l * N), dtype=torch.int8, device=dev,
+                          generator=gen)
+    t = turns({"plain": lambda: cmux_k.cmux_step_plain(accb, aib, key, p),
+               "K1": lambda: cmux_k.cmux_step(accb, aib, key, p),
+               "panel": lambda: cmux_k.key_panel(key, p),
+               "digits": lambda: cmux_k.step_digits(accb, aib, p),
+               "product": lambda: cmux_k.panel_product(digits, panel, accb, p),
+               "torch._int_mm": lambda: torch._int_mm(mm_d, mm_wt.t())}, 10)
     k2_ms, k2_plain = ab_ms(lambda: cmux_k.external_product(pd, pkey, p),
                             lambda: cmux_k.external_product_plain(pd, pkey), 20)
     k2b_ms, k2b_plain = ab_ms(lambda: cmux_k.external_product(db, key, p),
                               lambda: cmux_k.external_product_plain(db, key), 10)
-    log("kernels", f"K1 cmux_step B={BATCH}: {k1_ms:.4f} ms, plain {k1_plain:.4f} ms | "
-        f"K2 external_product B={pd.shape[0]} (probe): {k2_ms:.4f} ms, plain {k2_plain:.4f} ms | "
-        f"K2 B={BATCH}: {k2b_ms:.4f} ms, plain {k2b_plain:.4f} ms")
-    return errs, {"k1": (k1_ms, k1_plain), "k2": (k2_ms, k2_plain)}
+    # Back to back, a short launch's event time is its wrapper's issue time:
+    # the pieces' device times come from the profiler.
+    dev_t = {k: profiled_ms(t_fn, 20) for k, t_fn in (
+        ("K1", lambda: cmux_k.cmux_step(accb, aib, key, p)),
+        ("panel", lambda: cmux_k.key_panel(key, p)),
+        ("digits", lambda: cmux_k.step_digits(accb, aib, p)),
+        ("product", lambda: cmux_k.panel_product(digits, panel, accb, p)))}
+    k1_bound = bound(step_ops(p, BATCH), step_bytes(p, BATCH, two_l * 2 * 2 * N * 4))[0]
+    ops = schoolbook_ops(p, BATCH)  # the product's GEMM: BATCH x 2L N x 2 x 4 N
+    log("kernels", "K1 pieces, device time (profiler), ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev_t.items()))
+    log("kernels", f"K1 cmux_step B={BATCH}: {t['K1']:.4f} ms ({t['panel']:.4f} panel + "
+        f"{t['digits']:.4f} digits + {t['product']:.4f} product, alone, CUDA events), "
+        f"{k1_bound / t['K1']:.1%} of its {k1_bound:.4f} ms bound (the step's least int8 ops, "
+        "the Karatsuba count, at the published peak: an estimate); "
+        f"plain {t['plain']:.4f} ms; product {ops / t['product'] / 1e9:.1f} TOPS (the GEMM's "
+        "schoolbook ops, alone, CUDA events), torch._int_mm "
+        f"at the step's product shape {BATCH} x {two_l * N} x {2 * 4 * N} {t['torch._int_mm']:.4f} "
+        f"ms ({ops / t['torch._int_mm'] / 1e9:.1f} TOPS) | K2 external_product B={pd.shape[0]} "
+        f"(probe): {k2_ms:.4f} ms, plain {k2_plain:.4f} ms | K2 B={BATCH}: {k2b_ms:.4f} ms, "
+        f"plain {k2b_plain:.4f} ms")
+    return errs, {"k1": (t["K1"], t["plain"]), "k2": (k2_ms, k2_plain)}
+
+
+def ptxas_kernels(report: str) -> dict[str, tuple[int, int]]:
+    """{K1/K2 kernel: (registers, spill bytes)} from ptxas's -v report of
+    csrc/cmux_k.cu (empty when the library came from the build cache)."""
+    out, name, spill = {}, None, 0
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = next((k for k in K1_KERNELS if k in m.group(1)), m.group(1))
+            if name == "cmux_product_kernel":
+                name += "<true>" if "ILb1E" in m.group(1) else "<false>"
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = (int(m.group(1)), spill)
+    return out
 
 
 def check_bits(name: str, got: np.ndarray, want: np.ndarray) -> None:
@@ -454,22 +524,23 @@ def phase_nand(ctx, p, card):
                  f"({len(mhz)} nvidia-smi samples)" if mhz else "SM clock not measured")
     if busy > 0:
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:3]
-        k1 = sum(v for k, v in dev_ms.items() if "cmux_step_kernel" in k)
+        k1 = {name: sum(v for k, v in dev_ms.items() if name in k) for name in K1_KERNELS}
+        k1_all = sum(k1.values())
         log("profile", f"B={BATCH} on {card}: device busy {busy:.1f} ms of {wall:.1f} ms "
-            f"wall, idle share {1 - busy / wall:.4f}; cmux_step_kernel {k1:.1f} ms "
-            f"({k1 / busy:.2%} of device time); top kernels: "
-            + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+            f"wall, idle share {1 - busy / wall:.4f}; K1 {k1_all:.1f} ms ({k1_all / busy:.2%} "
+            "of device time; per step " + ", ".join(f"{k} {v / p.n * 1e3:.1f} us"
+                                                    for k, v in k1.items())
+            + "); top kernels: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
             + f"; peak device memory {peak / 2**30:.3f} GiB; {clock_txt}")
     else:
         log("profile", f"B={BATCH} on {card}: the profiler saw no device time (device "
             f"breakdown not measured); peak device memory {peak / 2**30:.3f} GiB; {clock_txt}")
-    if mhz:
-        sms = torch.cuda.get_device_properties(cx.device).multi_processor_count
-        rate = BATCH * 2 * p.N * 2 * p.l * p.N / (t_rot / p.n * 1e-3)
-        peak_rate = IMAD_PER_CLK_SM * sms * np.mean(mhz) * 1e6
-        log("profile", f"K1 issues {rate / 1e12:.2f} T IMAD/s; estimate against "
-            f"{IMAD_PER_CLK_SM} IMAD/clk/SM (published) x {sms} SMs x the mean sampled "
-            f"clock: {rate / peak_rate:.1%} of that peak")
+    per_s = 1e3 * p.n / t_rot  # steps per second of wall time
+    rate, gemm_rate = step_ops(p, BATCH) * per_s, schoolbook_ops(p, BATCH) * per_s
+    log("profile", f"the blind rotation runs {rate / 1e12:.1f} T int8 op/s counted as the step's "
+        f"least int8 operations (the Karatsuba count, over its wall time per step): "
+        f"{rate / INT8_OPS_PER_S:.1%} of the published 1,979 dense int8 TOP/s (an estimate); "
+        f"the GEMM's schoolbook operations run at {gemm_rate / 1e12:.1f} T op/s")
     return cx, cy, 4  # bootstrap passes run here
 
 
@@ -496,8 +567,12 @@ def phase_real_key(ctx, p, batches):
 # 7. The latency path: K3 and the nander console in latency mode
 # --------------------------------------------------------------------- #
 LATENCY_CHECK = (1, 8, 32, 33)            # K3 against plain and K1 loop, bit for bit
-LATENCY_TIMES = (1, 8, 32, 128, 256, 512)  # K3 and K1 loop per rotation
+LATENCY_TIMES = (1, 2, 4, 8, 16, 32, 128, 256, 512)  # K3 and K1 loop per rotation
 PLAIN_TIMES = (1, 8, 32, 128)             # and the plain version
+# K3 against the K1 loop, CROSSOVER_REPS runs at each batch: the medians
+# set rotate_all_k.MAX_BATCH (the K1 loop's time is the host's, and varies).
+CROSSOVER = (4, 8, 16, 32)
+CROSSOVER_REPS = 7
 # The console script: the 13 expressions of the JAX package's REPL tests,
 # one pipelined line of 32 single gates, and one parse error.
 EXPRS = [
@@ -551,22 +626,49 @@ def phase_latency_kernels(p, dev, rs, card):
         times[b] = (k3, k1, pl)
         log("latency", f"B={b} on {card}: K3 {k3:.3f} ms per rotation, K1 loop {k1:.3f} ms, "
             + (f"plain {pl:.3f} ms" if pl is not None else "plain not timed at this batch"))
+    crossover_sweep(p, dev, bk, card)
     return err, times
 
 
+def crossover_sweep(p, dev, bk, card) -> None:
+    """K3 and the K1 loop per rotation in turns at each batch of CROSSOVER,
+    CROSSOVER_REPS rounds over the batches; the median of each, and the
+    largest batch up to which K3's median wins at every batch."""
+    rs = np.random.RandomState(SEED + 7)
+    runs = {b: [] for b in CROSSOVER}
+    for _ in range(CROSSOVER_REPS):
+        for b in CROSSOVER:
+            acc, a = rotation_case(rs, p, b, dev)
+            runs[b].append(ab_ms(lambda: rotate_all_k.rotate_all(acc, a, bk, p),
+                                 lambda: k1_loop(acc, a, bk, p), 2))
+    med = {b: np.median(np.array(r), axis=0) for b, r in runs.items()}
+    wins = [b for b in CROSSOVER if med[b][0] < med[b][1]]
+    upto = next((b for b in CROSSOVER if b not in wins), None)
+    last = max((b for b in wins if upto is None or b < upto), default=None)
+    log("latency", f"crossover on {card}, {CROSSOVER_REPS} rounds, ms per rotation, median "
+        "(min-max): " + "; ".join(
+            f"B={b} K3 {med[b][0]:.3f} ({min(k for k, _ in r):.3f}-{max(k for k, _ in r):.3f}), "
+            f"K1 loop {med[b][1]:.3f} ({min(x for _, x in r):.3f}-{max(x for _, x in r):.3f})"
+            for b, r in runs.items())
+        + f"; K3's median wins up to B={last}; rotate_all_k.MAX_BATCH = {rotate_all_k.MAX_BATCH}")
+
+
+CONSOLE_WIDTH = 32  # the fused evaluator's lanes per level on the card
+
+
 def expected_rotations(script):
-    """Blind rotations the console runs for the script: one per level of
-    each fused plan (width 32, 128 wires: the console's capacities on the
-    card), none for a constant."""
-    fused = FusedEvaluator(None, width=32, max_wires=128)  # planning only
-    total = 0
+    """Blind rotations the console runs for the script, by batch: each
+    fused plan's levels run CONSOLE_WIDTH lanes, a single expression's root
+    gate one; a constant runs none.  Returns (rotations at B=1, at B=32)."""
+    fused = FusedEvaluator(None, width=CONSOLE_WIDTH, max_wires=128)  # planning only
+    one, wide = 0, 0
     for line in script:
         if ";" in line:
             asts = [nander.parse_logic_expr(e) for e in line.split(";")]
             plan = fused._plan_many(asts)
             if plan is None:
                 raise AssertionError("the pipelined line does not fit the fused evaluator")
-            total += 0 if plan[0] == "const" else len(plan[2])
+            wide += 0 if plan[0] == "const" else len(plan[2])
             continue
         try:
             plan = fused._plan(nander.parse_logic_expr(line))
@@ -574,16 +676,21 @@ def expected_rotations(script):
             continue
         if plan is None:
             raise AssertionError(f"{line!r} does not fit the fused evaluator")
-        total += 0 if plan[0] == "const" else len(plan[3]) + 1
-    return total
+        if plan[0] != "const":
+            one, wide = one + 1, wide + len(plan[3])
+    return one, wide
 
 
 def phase_console(p, dev, card):
     """The nander console in latency mode on the fixed script: every res:
-    line against PlainLogic, one K3 launch per blind rotation, no K1."""
+    line against PlainLogic; one K3 launch per blind rotation at a batch up
+    to ``rotate_all_k.MAX_BATCH``, the K1 loop (n launches) per rotation
+    above it."""
     plain_logic = nander.PlainLogic()
     script = EXPRS + ["; ".join(PIPELINED), PARSE_ERROR]
-    want_rot = expected_rotations(script)
+    rot = dict(zip((1, CONSOLE_WIDTH), expected_rotations(script)))
+    want_k3 = sum(r for b, r in rot.items() if b <= rotate_all_k.MAX_BATCH)
+    want_k1 = p.n * sum(r for b, r in rot.items() if b > rotate_all_k.MAX_BATCH)
     out = io.StringIO()
     cmux_k.reset_counters()
     rotate_all_k.rotate_all.launches = 0
@@ -594,9 +701,10 @@ def phase_console(p, dev, card):
     wall = time.perf_counter() - t0
     launches = {"k3": rotate_all_k.rotate_all.launches, "k1": cmux_k.cmux_step.launches,
                 "k2": cmux_k.external_product.launches}
-    if launches["k3"] != want_rot or launches["k1"] != 0:
-        raise AssertionError(f"console launches {launches}, expected K3 = {want_rot} "
-                             "(one per blind rotation) and no K1")
+    if launches["k3"] != want_k3 or launches["k1"] != want_k1:
+        raise AssertionError(f"console launches {launches}, expected K3 = {want_k3} and K1 = "
+                             f"{want_k1} (rotations by batch {rot}, K3 up to B = "
+                             f"{rotate_all_k.MAX_BATCH})")
 
     lines = out.getvalue().splitlines()
     res = [ln for ln in lines if ln.startswith("res: ")]
@@ -619,8 +727,10 @@ def phase_console(p, dev, card):
     per_expr = float(re.search(r"(\d+) us/expr", tms[-1]).group(1))
     log("console", f"nander console, latency mode, on {card}: {len(res)} res: lines correct "
         f"({len(EXPRS)} expressions, {len(PIPELINED)} pipelined, 1 parse error); "
-        f"K3 {launches['k3']} launches = {want_rot} blind rotations, K1 0, K2 "
-        f"{launches['k2']} (engine probe); single NAND {', '.join(f'{x:.0f}' for x in nand_us)} us "
+        f"blind rotations by batch {rot}: K3 {launches['k3']} launches (B <= "
+        f"{rotate_all_k.MAX_BATCH}), K1 {launches['k1']} ({launches['k1'] // p.n} loops of "
+        f"{p.n}), K2 {launches['k2']} (engine probe); single NAND "
+        f"{', '.join(f'{x:.0f}' for x in nand_us)} us "
         f"per expression; pipelined {per_expr:.0f} us/expr ({len(PIPELINED)} in "
         f"{us[-1] / 1e3:.1f} ms); script {wall:.1f} s with keygen")
     return launches
@@ -1249,10 +1359,12 @@ def phase_coissue_entry_points(card):
 P_BG9 = TFHEParams(bgbit=9, l=2, n=64)  # Bg = 2^9: digits to 256, past int8
 
 
-def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_ms):
+def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_key):
     """DEFAULT_PARAMS through ``TFHE.new(..., engine_name="matmul")`` on
     phase 4's seed (the same raw keys): phase 4's mixed batch word for word,
-    a timed NAND batch, one int8 GEMM launch per step and no K1."""
+    a timed NAND batch, one int8 GEMM launch per step and no K1.  Then the
+    step's parts beside K1's step on the same key (``k1_key``, phase 4's
+    prepared first step)."""
     p = DEFAULT_PARAMS
     cmux_k.reset_counters()
     int8_gemm.reset_counters()
@@ -1300,8 +1412,8 @@ def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_ms):
     log("matmul", f"DEFAULT_PARAMS, engine matmul, on {card}: keys in {t_keys:.2f} s; the mixed "
         f"batch of {MIXED} decrypts correctly and equals phase 4's K1 output word for word; "
         f"NAND B={BATCH}: {BATCH}/{BATCH} correct, {best * 1e3:.1f} ms per batch -> "
-        f"{BATCH / best:.1f} gates/s ({best / p.n * 1e3:.3f} ms/step; K1 {k1_ms:.4f} ms/step "
-        f"in phase 3); launches {launches} ({probe} probe + {passes} passes x {p.n})")
+        f"{BATCH / best:.1f} gates/s ({best / p.n * 1e3:.3f} ms/step); launches {launches} "
+        f"({probe} probe + {passes} passes x {p.n})")
 
     # The step's parts at B=4096 on the real key: the circulant, the GEMM
     # (against torch._int_mm on the same operands), the external product, the step.
@@ -1320,17 +1432,22 @@ def phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_ms):
         diff = poly.rotate(acc, a_steps[0][:, None]) - acc
         return acc + m.external_product_digits(table, decompose_trlwe(diff, p), p)
 
+    def k1_step():
+        return cmux_k.cmux_step(acc, a_steps[0], k1_key, p)
+
+    exact("K1 step vs the matmul step on the same raw key", k1_step(), step())
     t = turns({"torch._int_mm": lambda: torch._int_mm(d, wt.t()),
                "int8_gemm": lambda: int8_gemm.int8_matmul(d, wt),
                "circulant": lambda: matmul.circulant(table),
                "external product": lambda: m.external_product_digits(table, digits, p),
-               "step": step}, 10)
+               "step": step, "K1 step": k1_step}, 10)
     M, K = d.shape
     ops = 2 * M * K * wt.shape[0]
     log("matmul", f"step parts at B={BATCH} on {card}, ms: " + ", ".join(
         f"{k} {v:.4f}" for k, v in t.items()) + f"; GEMM {M} x {K} x {wt.shape[0]}: int8_gemm "
         f"(tile {int8_gemm.TILE}) {ops / t['int8_gemm'] / 1e9:.1f} TOPS, torch._int_mm "
-        f"{ops / t['torch._int_mm'] / 1e9:.1f}; step / K1 {t['step'] / k1_ms:.3f}")
+        f"{ops / t['torch._int_mm'] / 1e9:.1f}; K1's step equals the matmul step word for word, "
+        f"matmul step / K1 step {t['step'] / t['K1 step']:.3f}")
     return BATCH / best, t, launches
 
 
@@ -1416,6 +1533,12 @@ def main() -> int:
         for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "C75")):
                 log("build", "ptxas: " + line.strip())
+    k1_regs = ptxas_kernels(libs["cmux_k"][1])
+    if k1_regs:  # built in this run (a cached library has no report)
+        log("build", "K1/K2 kernels (registers, spill bytes): " + ", ".join(
+            f"{k} {r}, {sp}" for k, (r, sp) in k1_regs.items()))
+        if any(sp for _, sp in k1_regs.values()) or "C75" in libs["cmux_k"][1]:
+            raise AssertionError("a K1/K2 kernel spills or ptxas serialised its wgmmas")
 
     # 3. kernels against their plain versions
     rs = np.random.RandomState(SEED)
@@ -1436,6 +1559,7 @@ def main() -> int:
     # 6. K1 on the real key, after the main path's counts were read
     nand_pre = gates.precombine("nand", cx, cy, params=p)
     errs["k1"] = max(errs["k1"], phase_real_key(ctx, p, (mixed_pre, nand_pre)))
+    k1_key = ctx.ck.bk[0].clone()  # phase 12 times K1's step beside the matmul step
     del ctx, cx, cy, nand_pre
 
     # 7. the latency path: K3 checks and times, then the console with the
@@ -1477,7 +1601,7 @@ def main() -> int:
 
     # 12. the generic-engine path at DEFAULT_PARAMS, with the launch counts
     # of its run only; then the other generic engines and Bg = 2^9
-    phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, times["k1"][0])
+    phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_key)
     phase_generic_engines(dev, card)
 
     F = FAST_PARAMS
@@ -1488,9 +1612,11 @@ def main() -> int:
     f_limb_bytes = f_two_l * 2 * 4 * 2 * F.N
     b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
-        ("cmux_step_k", KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"],
+        ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true>",
+         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"],
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
-        ("external_product_k", KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:506",
+        ("external_product_k: key_panel_kernel + cmux_product_kernel<false>", KERNEL_SOURCE,
+         "rustfhe_tpu/engine/pallas_k.py:506",
          launches["k2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
         ("rotate_all_k", K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"], errs["k3"],
@@ -1519,10 +1645,10 @@ def main() -> int:
                      min(gemm_t[key][tile] for tile in int8_gemm.TILES), gemm_t[key]["plain"],
                      (2.0 * M * K * N, M * K + K * N + 4 * M * N), gemm_t[key]["torch._int_mm"]))
     kara_bytes = step_bytes(p, kara_b, int(np.prod(karatsuba.table_shape(p))))  # the leaf table
-    log("karatsuba", f"bound at B={kara_b}: {bound(karatsuba_ops(p, kara_b), kara_bytes)[0]:.4f} "
-        f"ms (the Karatsuba step's {karatsuba_ops(p, kara_b):.4e} int8 ops; the schoolbook "
-        f"count, {step_ops(p, kara_b):.4e} ops, would give "
-        f"{bound(step_ops(p, kara_b), kara_bytes)[0]:.4f} ms)")
+    log("karatsuba", f"bound at B={kara_b}: {bound(step_ops(p, kara_b), kara_bytes)[0]:.4f} "
+        f"ms (the Karatsuba step's {step_ops(p, kara_b):.4e} int8 ops; the schoolbook "
+        f"count, {schoolbook_ops(p, kara_b):.4e} ops, would give "
+        f"{bound(schoolbook_ops(p, kara_b), kara_bytes)[0]:.4f} ms)")
     kara_t["P3 B"] = p3_t["B"]  # the per-leaf form, timed in turns beside A and K1
     for probe, name, label in (("P4", "karatsuba_step_ablate", "P4 full"),
                                ("P8", "karatsuba_step_var", "P8 leaf_u32"),
@@ -1531,7 +1657,7 @@ def main() -> int:
                                ("P3", "karatsuba_step_coissue", "P3 B")):
         rows.append((name, KARATSUBA_SOURCE, KARATSUBA_REPLACES[probe], kara[probe],
                      kara_errs[probe], kara_t[label], kara_t["plain"],
-                     (karatsuba_ops(p, kara_b), kara_bytes), None))
+                     (step_ops(p, kara_b), kara_bytes), None))
     rows.append(("nuss_primitives", NUSS_SOURCE, "benches/nussbaumer_primitives_probe.py:57",
                  p10_launches, p10_err, *p10_t, (0.0, p10_bytes), None))
     kernels = []

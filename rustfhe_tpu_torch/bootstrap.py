@@ -15,8 +15,11 @@ b~ and a~ negative for words >= 2^31.
 A latency-mode key (``keys.LatencyBK``) at a flattened batch of at most
 ``rotate_all_k.MAX_BATCH`` runs the whole rotation as one launch of K3
 (``engine.rotate_all_k.rotate_all``), the JAX package's latency branch
-(``rustfhe_tpu/bootstrap.py:66-75``).  A larger batch warns once per key
-and takes the K1 loop, as the JAX engine's ``rotate_all_steps`` does.
+(``rustfhe_tpu/bootstrap.py:66-75``).  A larger batch takes the K1 loop,
+as the JAX engine's ``rotate_all_steps`` does, without its warning: the
+JAX panel key costs 12.6 GiB that a large batch wastes, the port's
+latency key costs nothing, and above the cap the K1 loop is the faster
+path (the console's 32-lane levels take it).
 
 A limb key (``keys.LimbBK``) runs the limb engine, the JAX engine
 ``"pallas"`` (``rustfhe_tpu/bootstrap.py:101-117``): one launch of K4 per
@@ -30,8 +33,6 @@ decomposition in torch, then the engine's ``external_product_digits``
 """
 
 from __future__ import annotations
-
-import warnings
 
 import torch
 
@@ -97,13 +98,6 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | Gener
         if acc.shape[0] <= rotate_all_k.MAX_BATCH:
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
             return acc.reshape(lead + (2, params.N))
-        if not bk.warned:
-            bk.warned = True
-            warnings.warn(
-                f"latency-mode key used for a flattened batch of {acc.shape[0]} > "
-                f"{rotate_all_k.MAX_BATCH}: the single-launch rotation K3 is slower "
-                "than the per-step kernel K1 there, and this call takes the K1 loop; "
-                "use the standard key for large batches", stacklevel=2)
         bk = bk.bk
     for i in range(params.n):
         acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], params)

@@ -1,9 +1,9 @@
-// Device code shared by the blind-rotation kernels K1 (cmux_k.cu) and K3
-// (rotate_all_k.cu): the digit build of one CMux step and the uint32
-// multiply-add of digits against a doubled key plane.  The limb-form steps
-// kernels (limb_common.cuh) take the digit build.
+// Device code shared by the blind-rotation kernels: the digit build of one
+// CMux step (K1's digit kernel in cmux_k.cu, K3 in rotate_all_k.cu, and the
+// limb-form steps of limb_common.cuh) and K3's uint32 multiply-add of
+// digits against a doubled key plane.
 //
-// Layouts, common to both kernels:
+// Layouts of the multiply-add:
 //   * a key plane is the doubled TRGSW row polynomial T = [-q, q] (2N words,
 //     engine/plain.py prepare_trgsw), or a window of it, stored in shared
 //     memory with one pad word after every eight (pad_idx) so that lanes

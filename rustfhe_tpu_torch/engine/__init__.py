@@ -8,7 +8,9 @@ runs the plain version on a CPU tensor:
 
 * ``"cmux_k"`` (``CmuxKEngine``): K1-K3 (``cmux_k``, ``rotate_all_k``) on
   the int32 doubled key table, the counterpart of the JAX engines
-  ``pallas_k2`` and ``pallas_k``;
+  ``pallas_k2`` and ``pallas_k``: the step K1 as one int8 tensor-core
+  (``wgmma``) GEMM on key panels built per step, K3 the whole rotation in
+  one launch;
 * ``"limb"`` (``LimbEngine``): K4-K6 (``limb_step``) on the int8 limb
   table, the counterpart of the JAX engine ``"pallas"``.
 

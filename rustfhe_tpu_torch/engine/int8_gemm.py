@@ -17,8 +17,10 @@ tiles of ``TILES``: a producer warpgroup whose one thread keeps a ring of
 K (128-byte swizzle, a full and an empty mbarrier per stage), and one or
 two consumer warpgroups that run ``wgmma`` (m64nBNk32, s8 x s8 -> s32) on
 the stages through shared-memory descriptors, one stage's products
-overlapping the next one's copies.  It is built with nvcc into a library
-with a plain C interface on first use and called through ctypes.
+overlapping the next one's copies.  Those building blocks live in
+``csrc/hopper_common.cuh``, shared with the CMux step's product (K1, K2 in
+``csrc/cmux_k.cu``).  It is built with nvcc into a library with a plain C
+interface on first use and called through ctypes.
 
 The wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or

@@ -25,11 +25,12 @@ from ..params import TFHEParams
 from . import build, cmux_k
 
 # ``bootstrap.blind_rotate`` takes K3 for a latency key when the flattened
-# batch is at most this, and the K1 loop above it (with one warning).  The
-# crossover measured on an NVIDIA H100 80GB HBM3 at 700 W, DEFAULT_PARAMS:
-# K3 282 ms against the K1 loop's 351 ms per rotation at B=256, 545 against
-# 352 at B=512 (PERF.md, latency section).
-MAX_BATCH = 256
+# batch is at most this, and the K1 loop above it.  The crossover measured
+# on an NVIDIA H100 80GB HBM3 at 700 W, DEFAULT_PARAMS, with K1 on the
+# tensor cores (chip_smoke.py phase 7, medians of 7 rounds, PERF.md): K3
+# 32.5-32.7 ms against the K1 loop's 36.8-50.4 ms per rotation at B=16,
+# 52.4-52.7 against 37.1-51.4 at B=32, in each of four runs.
+MAX_BATCH = 16
 
 
 @functools.lru_cache(maxsize=1)

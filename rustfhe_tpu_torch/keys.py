@@ -7,7 +7,8 @@ Counterpart of ``rustfhe_tpu/keys.py`` (standard and latency keys):
     (N, iks_l, T, n+1), TLWE encryptions of (t+1) * s1_i / 2^(basebit*(l+1));
   * the prepared cloud key, for the engine asked for (``engine``): BK
     as the int32 doubled tables K1 reads (``engine.plain.prepare_trgsw``,
-    62 MB at DEFAULT_PARAMS), or as the int8 doubled limb tables K4-K6
+    62 MB at DEFAULT_PARAMS; K1 cuts each step's table into int8 limb
+    panels on the card as it runs), or as the int8 doubled limb tables K4-K6
     read, marked ``LimbBK`` (``engine.plain.prepare_trgsw_limbs``, the
     same 62 MB), or as a generic engine's own table (``"matmul"``,
     ``"matmul_bf16"``, ``"fft64"``), marked ``GenericBK``; and the KSK as
@@ -55,11 +56,10 @@ class LatencyBK:
     tables (``bk``, int32 (n, 2L, 2, 2N)), which ``bootstrap.blind_rotate``
     hands to the single-launch rotation K3 at small batches.  The mark
     travels with the key itself, as the JAX package's panel form does, so
-    code that passes ``ck.bk`` alone keeps it.  ``warned`` records that the
-    above-cap warning was given for this key."""
+    code that passes ``ck.bk`` alone keeps it.  It holds no memory beyond
+    the standard key's, so a batch above the cap simply takes the K1 loop."""
 
     bk: torch.Tensor
-    warned: bool = False
 
 
 @dataclass(eq=False)

@@ -98,6 +98,110 @@ def test_wrappers_check_their_operands():
 
 
 # --------------------------------------------------------------------- #
+# The step's pieces: key panels, digits and the panel product, as the
+# kernels compute them, composed against the references.
+# --------------------------------------------------------------------- #
+PIECE_PARAMS = {"TEST_PARAMS": (params.TEST_PARAMS, JParams(n=16, N=64)),  # N=64: padded
+                "DEFAULT_PARAMS": (params.DEFAULT_PARAMS, JParams()),
+                "FAST_PARAMS": (params.FAST_PARAMS, JParams(bgbit=8, l=2)),
+                "PBS_PARAMS": (params.PBS_PARAMS, None)}  # N=2048, l=4
+
+
+def _edge_case(seed, B, p):
+    """_case with rows of the limb edges 0x80808080 and 0xFFFFFFFF (a whole
+    row polynomial each) and the a~ edges 0, 1, N, 2N-1."""
+    rows, acc, ai, digits = _case(seed, B, p)
+    rows[0, 0], rows[1, 1] = 0x80808080, 0xFFFFFFFF
+    return rows, acc, ai, digits
+
+
+def _pieces_step(rows, acc, ai, p):
+    key = plain.prepare_trgsw(_u32.from_numpy(rows))
+    t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+    digits = cmux_k.step_digits_plain(t_acc, t_ai, p)
+    got = cmux_k.panel_product_plain(digits, cmux_k.key_panel_plain(key, p), t_acc, p)
+    return got, key, t_acc, t_ai
+
+
+@pytest.mark.parametrize("name", list(PIECE_PARAMS))
+def test_step_pieces_compose_to_the_step(name):
+    # plain panel + plain digits through the kernel's product = the plain step
+    # and (but at N=2048, l=4, whose JAX circulant alone takes 256 MiB) the
+    # JAX MatmulEngine composition, word for word
+    p, jp = PIECE_PARAMS[name]
+    rows, acc, ai, _ = _edge_case(50, 5, p)
+    got, key, t_acc, t_ai = _pieces_step(rows, acc, ai, p)
+    assert torch.equal(got, cmux_k.cmux_step_plain(t_acc, t_ai, key, p))
+    if jp is not None:
+        assert np.array_equal(_u32.to_numpy(got), _jax_step(rows, acc, ai, jp))
+
+
+@pytest.mark.parametrize("name", list(PIECE_PARAMS))
+def test_panel_product_is_the_external_product(name):
+    # K2's function: the caller's digits (any int8) padded to whole slices
+    p, jp = PIECE_PARAMS[name]
+    rows, _, _, _ = _edge_case(51, 3, p)
+    digits = np.random.RandomState(52).randint(-128, 128, size=(3, 2 * p.l, p.N)).astype(np.int8)
+    digits[0, 0, :2] = [-128, 127]
+    key = plain.prepare_trgsw(_u32.from_numpy(rows))
+    d8 = torch.from_numpy(digits)
+    padded = torch.nn.functional.pad(d8, (0, cmux_k.geometry(p.N)[0] - p.N))
+    got = cmux_k.panel_product_plain(padded, cmux_k.key_panel_plain(key, p), None, p)
+    assert torch.equal(got, cmux_k.external_product_plain(d8, key))
+    if jp is not None:
+        m = get_engine("matmul")
+        want = m.external_product_digits(m.prepare_trgsw(jnp.asarray(rows), jp),
+                                         jnp.asarray(digits.astype(np.int32)), jp)
+        assert np.array_equal(_u32.to_numpy(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
+def test_key_panel_holds_jax_limbs_in_sliding_rows(name):
+    # panel[j, c, t, x - x0, r] = limb t of T[x - r] = JAX's limb table
+    # [limbs(q), limbs(-q)] at (x - r + N) mod 2N; zeros past r = N and x = 2N
+    p, jp = PIECE_PARAMS[name]
+    rows, _, _, _ = _edge_case(53, 1, p)
+    N = p.N
+    npad, x0, nrows = cmux_k.geometry(N)
+    panel = cmux_k.key_panel_plain(plain.prepare_trgsw(_u32.from_numpy(rows)), p).numpy()
+    assert panel.shape == (2 * p.l, 2, 4, nrows, 128)
+    table = np.asarray(get_engine("matmul").prepare_trgsw(jnp.asarray(rows), jp))
+    x = np.arange(nrows)[:, None] + x0
+    r = np.arange(128)[None, :]
+    live = (r < N) & (x < 2 * N)
+    want = table[..., (x - r + N) % (2 * N)]
+    assert np.array_equal(panel, np.where(live, want, 0))
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS", "FAST_PARAMS"])
+def test_step_digits_match_jax_decomposition(name):
+    p, jp = PIECE_PARAMS[name]
+    _, acc, ai, _ = _edge_case(54, 6, p)
+    got = cmux_k.step_digits_plain(_u32.from_numpy(acc), torch.from_numpy(ai), p).numpy()
+    rot = jpoly.rotate_binary(jnp.asarray(acc), jnp.asarray(ai)[:, None])
+    want = np.asarray(jtrgsw.decompose_trlwe((rot - jnp.asarray(acc)).astype(U32), jp))
+    assert got.shape == (6, 2 * p.l, cmux_k.geometry(p.N)[0])
+    assert np.array_equal(got[..., : p.N], want.astype(np.int8))
+    assert not got[..., p.N:].any()
+
+
+def test_geometry_and_shapes():
+    # (npad, x0, rows): N=1024: 1,920 rows of 128 B, 48 panels = 11.25 MiB
+    assert cmux_k.geometry(1024) == (1024, 128, 1920)
+    assert cmux_k.geometry(64) == (128, 64, 64)
+    assert cmux_k.geometry(8) == (128, 8, 64)
+    assert cmux_k.geometry(2048) == (2048, 128, 3968)
+    assert int(np.prod(cmux_k.panel_shape(params.DEFAULT_PARAMS))) == 11.25 * 2**20
+    for N in (8, 64, 1024, 2048):
+        cmux_k.check_shape(N, 8)
+    for N in (4, 4096, 96):
+        with pytest.raises(ValueError, match="power of two"):
+            cmux_k.check_shape(N, 6)
+    with pytest.raises(ValueError, match="exact int32 range"):
+        cmux_k.check_shape(2048, 64)  # 64 * 2048 * 2^14 = 2^31
+
+
+# --------------------------------------------------------------------- #
 # Without a card, a CUDA request raises; it never runs on the CPU instead.
 # --------------------------------------------------------------------- #
 def test_cuda_request_without_gpu_raises():
@@ -112,6 +216,8 @@ def test_cuda_request_without_gpu_raises():
     key = torch.empty((2 * p.l, 2, 2 * p.N), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel or plain version"):
         cmux_k.cmux_step(meta, torch.empty((2,), dtype=torch.int32, device="meta"), key, p)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        cmux_k.key_panel(key, p)
 
 
 # --------------------------------------------------------------------- #

@@ -11,6 +11,8 @@ JAX-side conftest left out:
 Inputs come from numpy seeds; comparisons are exact (words mod 2^32).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -33,15 +35,33 @@ def _case(seed, B, p):
     acc = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
     acc[0, 0, :5] = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
     ai = rs.randint(0, 2 * p.N, size=(B,)).astype(np.int32)
-    ai[:4] = [0, 1, p.N, 2 * p.N - 1]
+    ai[:4] = [0, 1, p.N, 2 * p.N - 1][:B]
     digits = rs.randint(-128, 128, size=(B, 2 * p.l, p.N)).astype(np.int8)
     return rows, acc, ai, digits
 
 
-@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
-def test_cmux_step_kernel_matches_plain(cuda, name):
-    p = getattr(params, name)
-    rows, acc, ai, _ = _case(37, 13, p)  # 13 samples: a ragged last tile
+# K1 and K2 at every shape class: N=64 (one padded 128-byte slice, KT = 6 not
+# a multiple of the ring's 4 stages), DEFAULT, FAST (l=2, Bg=2^8), N=2048
+# at l=3 and l=4 (PBS_PARAMS, past the old kernel's shared memory).
+CMUX_PARAMS = {"TEST_PARAMS": params.TEST_PARAMS, "DEFAULT_PARAMS": params.DEFAULT_PARAMS,
+               "FAST_PARAMS": params.FAST_PARAMS, "N2048_PARAMS": params.N2048_PARAMS,
+               "PBS_PARAMS": params.PBS_PARAMS}
+
+
+def _more_tiles_than_blocks(cuda) -> int:
+    """A batch whose product at TEST_PARAMS (2 tiles per 128 samples) has
+    more tiles than the persistent grid has blocks (one per SM), so that a
+    block's next tile starts mid-round in the ring (KT = 6)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return 128 * (sms // 2 + 2)
+
+
+@pytest.mark.parametrize("B", [1, 13, 129])  # one sample; a ragged tile; two tiles
+@pytest.mark.parametrize("name", list(CMUX_PARAMS))
+def test_cmux_step_kernel_matches_plain(cuda, name, B):
+    p = CMUX_PARAMS[name]
+    rows, acc, ai, _ = _case(37, B, p)
+    rows[0, 0, :2] = [0x80808080, 0xFFFFFFFF]
     key = plain.prepare_trgsw(_u32.from_numpy(rows))
     want = cmux_k.cmux_step(_u32.from_numpy(acc), torch.from_numpy(ai), key, p)
     before = cmux_k.cmux_step.launches
@@ -51,17 +71,102 @@ def test_cmux_step_kernel_matches_plain(cuda, name):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
-def test_external_product_kernel_matches_plain_and_oracle(cuda, name):
-    p = getattr(params, name)
-    rows, _, _, digits = _case(38, 13, p)
+@pytest.mark.parametrize("B", [1, 13, 129])
+@pytest.mark.parametrize("name", list(CMUX_PARAMS))
+def test_external_product_kernel_matches_plain_and_oracle(cuda, name, B):
+    p = CMUX_PARAMS[name]
+    rows, _, _, digits = _case(38, B, p)
+    digits[0, 0, :2] = [-128, 127]
     t_rows = _u32.from_numpy(rows)
     key = plain.prepare_trgsw(t_rows)
     d8 = torch.from_numpy(digits)
     want = cmux_k.external_product(d8, key, p)
     got = cmux_k.external_product(d8.to(cuda), key.to(cuda), p)
     assert torch.equal(got.cpu(), want)
-    assert torch.equal(want, oracle.external_product(t_rows, d8))
+    # the probe vectors against the oracle, as the engine's admission runs them
+    rows_np, digits_np = engine.probe_vectors(p)
+    pd = torch.from_numpy(digits_np)
+    got = cmux_k.external_product(pd.to(torch.int8).to(cuda),
+                                  plain.prepare_trgsw(_u32.from_numpy(rows_np, cuda)), p)
+    assert torch.equal(got.cpu(), oracle.external_product(_u32.from_numpy(rows_np), pd))
+
+
+def test_cmux_kernels_with_more_tiles_than_blocks(cuda):
+    p = params.TEST_PARAMS
+    B = _more_tiles_than_blocks(cuda)
+    rows, acc, ai, digits = _case(39, B, p)
+    key = plain.prepare_trgsw(_u32.from_numpy(rows))
+    want = cmux_k.cmux_step(_u32.from_numpy(acc), torch.from_numpy(ai), key, p)
+    got = cmux_k.cmux_step(_u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda),
+                           key.to(cuda), p)
+    assert torch.equal(got.cpu(), want)
+    d8 = torch.from_numpy(digits)
+    got = cmux_k.external_product(d8.to(cuda), key.to(cuda), p)
+    assert torch.equal(got.cpu(), cmux_k.external_product(d8, key, p))
+
+
+def test_cmux_step_threads_keep_their_own_buffers(cuda):
+    # two threads stepping at the same batch on the default stream, side by
+    # side: each uses its own digit and panel buffers, so neither step reads
+    # the other's digits or panels
+    p, B, steps = params.DEFAULT_PARAMS, 256, 16
+    inputs, want = [], []
+    for seed in (41, 42):
+        rows, acc, ai, _ = _case(seed, B, p)
+        case = (_u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda),
+                plain.prepare_trgsw(_u32.from_numpy(rows, cuda)))
+        a = case[0]
+        for _ in range(steps):
+            a = cmux_k.cmux_step_plain(a, case[1], case[2], p)
+        inputs.append(case)
+        want.append(a.cpu())
+    got, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def run(t):
+        try:
+            a, ai, key = inputs[t]
+            start.wait()
+            for _ in range(steps):
+                a = cmux_k.cmux_step(a, ai, key, p)
+            got[t] = a.cpu()
+        except Exception as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for t in range(2):
+        assert torch.equal(got[t], want[t])
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
+def test_cmux_step_pieces_match_plain(cuda, name):
+    # the panel, digit and product kernels alone, each against its plain version
+    p = CMUX_PARAMS[name]
+    rows, acc, ai, _ = _case(40, 13, p)
+    key = plain.prepare_trgsw(_u32.from_numpy(rows))
+    t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+    panel = cmux_k.key_panel(key.to(cuda), p)
+    assert torch.equal(panel.cpu(), cmux_k.key_panel_plain(key, p))
+    digits = cmux_k.step_digits(t_acc.to(cuda), t_ai.to(cuda), p)
+    assert torch.equal(digits.cpu(), cmux_k.step_digits_plain(t_acc, t_ai, p))
+    got = cmux_k.panel_product(digits, panel, t_acc.to(cuda), p)
+    assert torch.equal(got.cpu(), cmux_k.panel_product_plain(digits.cpu(), panel.cpu(), t_acc, p))
+
+
+def test_cmux_kernels_refuse_what_they_do_not_take(cuda):
+    for N in (4, 4096):
+        p = params.TEST_PARAMS.replace(N=N)
+        acc = torch.zeros((1, 2, N), dtype=torch.int32, device=cuda)
+        key = torch.zeros((2 * p.l, 2, 2 * N), dtype=torch.int32, device=cuda)
+        before = cmux_k.cmux_step.launches
+        with pytest.raises(ValueError, match="power of two"):
+            cmux_k.cmux_step(acc, torch.zeros((1,), dtype=torch.int32, device=cuda), key, p)
+        assert cmux_k.cmux_step.launches == before
 
 
 def test_selector_and_gates_on_card(cuda):
