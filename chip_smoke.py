@@ -15,8 +15,8 @@ Phases, one line each:
 
   1. environment: torch, CUDA, nvcc, the card;
   2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use;
-     ptxas's registers, spills and performance notes; K1/K2's kernels may
-     not spill);
+     ptxas's registers, spills and performance notes; K1/K2's and K4/K6's
+     kernels may not spill);
   3. kernels: K1 (CMux step: key panel, digits and the int8 wgmma product
      with the limb recombination in its epilogue) and K2 (external
      product: panel and product) on the card against their plain torch
@@ -49,11 +49,17 @@ Phases, one line each:
      from the real first accumulators, and the console's single-NAND
      program layer by layer under ``torch.profiler``;
   8. the limb engine (the JAX engine "pallas"): K4 (merged CMux step), K6
-     (c-split step) and K5 (external product) against their plain
-     versions, bit for bit (K5 also against the oracle), at FAST_PARAMS
-     (l=2, Bg=2^8) and DEFAULT_PARAMS, on the probe vectors and random
-     tiles at B = 1, 13, 33, 1024, 4096, and their times beside the plain
-     version and K1/K2; then the FAST_PARAMS path: ``TFHE.new`` picks the
+     (c-split step), both K1's int8 wgmma GEMM on panels cut from the limb
+     table (K4's tile holds both output halves), and K5 (external product)
+     against their plain versions, bit for bit (K5 also against the
+     oracle), at FAST_PARAMS (l=2, Bg=2^8) and DEFAULT_PARAMS, on the probe
+     vectors and random tiles at B = 1, 13, 33, 1024, 4096, K4/K6's three
+     kernels alone (limb panel, digits, the product in K4's and K6's tiles)
+     at B=4096; their times in turns beside the plain version and K1/K2,
+     the three kernels' device time (profiler), the product's rate and the
+     share of the bound; K4 and K6 at PBS_PARAMS (N=2048, l=4) against the
+     plain step and K1, K5 refused there, and their times beside K1; then
+     the FAST_PARAMS path: ``TFHE.new`` picks the
      limb engine, the mixed batch, the MUX second pass and three NAND
      batches run K4 on every step and nothing else, and every lv0 output
      equals that of a K1 context on the same keys (the preset is unsound
@@ -61,8 +67,9 @@ Phases, one line each:
      DEFAULT_PARAMS through K4, K6 and K5 per step on phase 4's mixed
      batch, every output decrypted and equal to phase 4's;
   9. the probes (the JAX package's ``benches/`` kernels the port carries):
-     P6 (the limb step without its products or its rotation), P5 (K4's
-     two recombination orders), P7 and P9 (the int8 GEMM on the tensor
+     P6 (the limb step without its products or its rotation), P5 (the
+     merged step's two recombination orders), both in their __dp4a forms
+     and held to the wgmma K6 and K4, P7 and P9 (the int8 GEMM on the tensor
      cores, wgmma on TMA-fed shared memory) against their plain versions,
      word for word, on a limb table mapped from a random JAX-layout ``qd``
      (P6 at B = 1, 13, 33, 8192, "full" also against K6; P5 also against
@@ -139,11 +146,15 @@ from rustfhe_tpu_torch.engine import (build, cmux_k, get_engine, int8_gemm, kara
                                       nuss_primitives, oracle, plain, probe_vectors, rotate_all_k,
                                       select_engine)
 from rustfhe_tpu_torch.keys import CloudKey, GenericBK
-from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS, TFHEParams
+from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS, PBS_PARAMS, TFHEParams
 from rustfhe_tpu_torch.trgsw import decompose_trlwe
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel")  # a step's launches
+# K4/K6's launches (the digit and product kernels are K1's, csrc/cmux_step.cuh) and K5's kernel
+LIMB_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel", "limb_kernel")
+STEP_PIECES = {"panel": "panel_kernel", "digits": "step_digits_kernel",
+               "product": "cmux_product_kernel"}  # a K1/K4/K6 step's kernels, by name
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
 LIMB_SOURCE = "rustfhe_tpu_torch/csrc/limb_step.cu"
 PROBE_SOURCE = "rustfhe_tpu_torch/csrc/limb_probe.cu"
@@ -347,15 +358,16 @@ def phase_kernels(p, dev, rs):
     return errs, {"k1": (t["K1"], t["plain"]), "k2": (k2_ms, k2_plain)}
 
 
-def ptxas_kernels(report: str) -> dict[str, tuple[int, int]]:
-    """{K1/K2 kernel: (registers, spill bytes)} from ptxas's -v report of
-    csrc/cmux_k.cu (empty when the library came from the build cache)."""
+def ptxas_kernels(report: str, names) -> dict[str, tuple[int, int]]:
+    """{kernel: (registers, spill bytes)} from ptxas's -v report of one
+    library, the kernels named by ``names`` with the product's template
+    arguments (empty when the library came from the build cache)."""
     out, name, spill = {}, None, 0
     for line in report.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            name = next((k for k in K1_KERNELS if k in m.group(1)), m.group(1))
-            if name == "cmux_product_kernel":
-                name += "<true>" if "ILb1E" in m.group(1) else "<false>"
+            name = next((k for k in names if k in m.group(1)), m.group(1))
+            if t := re.search(r"ILb([01])ELi(\d)E", m.group(1)):
+                name += f"<{'true' if t.group(1) == '1' else 'false'}, {t.group(2)}>"
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = int(m.group(1)) + int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
@@ -458,13 +470,16 @@ def stop_sampling(proc) -> list[float]:
     return [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
 
 
-def device_times(prof) -> dict[str, float]:
-    """Self device time (ms) of each kernel the profiler saw on the card."""
+def device_times(prof, counts: dict | None = None) -> dict[str, float]:
+    """Self device time (ms) of each kernel the profiler saw on the card;
+    into ``counts``, when given, how many launches of each it saw."""
     cuda = torch.autograd.DeviceType.CUDA
     times = {}
     for e in prof.key_averages():
         if e.device_type == cuda:
             times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     return times
 
 
@@ -816,11 +831,43 @@ LIMB_CHECK = (1, 13, 33, MIXED, BATCH)  # random tiles, kernel against plain
 FAST_DECRYPT_BOUND = 0.02
 
 
-def phase_limb_kernels(dev, rs, card):
+def step_piece_ms(fn, calls: int) -> dict[str, float]:
+    """Device time (ms) of each of a CMux step's three kernels
+    (``STEP_PIECES``: panel, digits, product; one launch each a step) under
+    the profiler: the mean over the launches the profiler saw, which in
+    some sessions are not all of them."""
+    def pieces(per_kernel):
+        return {piece: sum(v for k, v in per_kernel.items() if key in k)
+                for piece, key in STEP_PIECES.items()}
+
+    times, counts = profiled_times(fn, calls, lambda t, n: min(pieces(n).values()) > 0)
+    seen = pieces(counts)
+    return {piece: t / seen[piece] for piece, t in pieces(times).items()}
+
+
+def limb_pieces(p, acc, ai, tab, key, tag) -> None:
+    """K4/K6's pieces alone on the card, each against its plain version
+    (also on the card): the limb panel (and K1's key panel of the same
+    key), the digits, and the product in K4's merged tile and K6's."""
+    panel = limb_step.limb_panel(tab, p)
+    exact(f"limb panel {tag}", panel, limb_step.limb_panel_plain(tab, p))
+    exact(f"limb panel vs K1's key panel {tag}", panel, cmux_k.key_panel(key, p))
+    digits = cmux_k.step_digits(acc, ai, p)
+    exact(f"digits {tag}", digits, cmux_k.step_digits_plain(acc, ai, p))
+    exact(f"K4 merged product {tag}", limb_step.merged_product(digits, panel, acc, p),
+          limb_step.merged_product_plain(digits, panel, acc, p))
+    exact(f"K6 (K1's) product {tag}", cmux_k.panel_product(digits, panel, acc, p),
+          cmux_k.panel_product_plain(digits, panel, acc, p))
+
+
+def phase_limb_kernels(dev, rs, card, regs):
     """K4, K6 and K5 against their plain versions, bit for bit (K5 also
     against the oracle), at FAST_PARAMS and DEFAULT_PARAMS: the probe
-    vectors and random tiles at B = 1, 13, 33, 1024, 4096.  Then their
-    times beside the plain version and K1 (K2 for K5) at the same shape."""
+    vectors and random tiles at B = 1, 13, 33, 1024, 4096, and K4/K6's
+    three kernels alone at B=4096; K4 and K6 at PBS_PARAMS (K5 refused
+    there).  Then their times beside the plain version and K1 (K2 for K5)
+    at the same shape, the three kernels' device time, the product's rate
+    and the share of the bound."""
     errs = {"k4": 0, "k5": 0, "k6": 0}
     times = {}
     for tag, p in (("FAST", FAST_PARAMS), ("DEFAULT", DEFAULT_PARAMS)):
@@ -856,10 +903,12 @@ def phase_limb_kernels(dev, rs, card):
             errs["k5"] = max(errs["k5"], exact(f"K5 {tag} B={b}",
                                                limb_step.external_product(d, tab, p),
                                                limb_step.external_product_plain(d, tab)))
+        limb_pieces(p, acc, ai, tab, key, f"{tag} B={BATCH}")
         torch.cuda.synchronize()
         log("limb", f"{tag}: K4, K6 and K5 bit-exact against their plain versions on {dev} "
             f"(probe vectors, B={', '.join(map(str, LIMB_CHECK))}); K5 equals the oracle on "
-            "the probe vectors")
+            f"the probe vectors; at B={BATCH} the limb panel equals its plain version and K1's "
+            "key panel, the digits and both products (K4's merged tile, K6's) their plain versions")
 
         # Times at the path's shapes: the steps at B=4096, K5 there and at the probe's B=4.
         t = turns({"plain": lambda: limb_step.cmux_step_plain(acc, ai, tab, p),
@@ -873,12 +922,70 @@ def phase_limb_kernels(dev, rs, card):
         t5p = turns({"plain": lambda: limb_step.external_product_plain(pd, ptab),
                      "k2": lambda: cmux_k.external_product(pd, pkey, p),
                      "k5": lambda: limb_step.external_product(pd, ptab, p)}, 20)
-        times[tag] = {"step": t, "k5": t5, "k5_probe": t5p}
-        log("limb", f"{tag} on {card}, B={BATCH}, ms per step: K4 {t['k4']:.4f}, "
-            f"K6 {t['k6']:.4f}, K1 {t['k1']:.4f}, plain {t['plain']:.4f} | K5 "
-            f"{t5['k5']:.4f}, K2 {t5['k2']:.4f}, plain {t5['plain']:.4f} | at B=4 (probe): "
-            f"K5 {t5p['k5']:.4f}, K2 {t5p['k2']:.4f}, plain {t5p['plain']:.4f}")
+        pieces = {k: step_piece_ms(fn, 10) for k, fn in (
+            ("k4", lambda: limb_step.cmux_step_merged(acc, ai, tab, p)),
+            ("k6", lambda: limb_step.cmux_step_split(acc, ai, tab, p)),
+            ("k1", lambda: cmux_k.cmux_step(acc, ai, key, p)))}
+        times[tag] = {"step": t, "k5": t5, "k5_probe": t5p, "pieces": pieces}
+        bnd = bound(step_ops(p, BATCH), step_bytes(p, BATCH, two_l * 2 * 4 * 2 * N))[0]
+        ops = schoolbook_ops(p, BATCH)
+        log("limb", f"{tag} on {card}, B={BATCH}, ms per step in turns (CUDA events): K4 "
+            f"{t['k4']:.4f}, K6 {t['k6']:.4f}, K1 {t['k1']:.4f}, plain {t['plain']:.4f}; share of "
+            f"the {bnd:.4f} ms bound (the step's least int8 ops): K4 {bnd / t['k4']:.1%}, K6 "
+            f"{bnd / t['k6']:.1%}, K1 {bnd / t['k1']:.1%} | K5 {t5['k5']:.4f}, K2 {t5['k2']:.4f}, "
+            f"plain {t5['plain']:.4f} | at B=4 (probe): K5 {t5p['k5']:.4f}, K2 {t5p['k2']:.4f}, "
+            f"plain {t5p['plain']:.4f}")
+        log("limb", f"{tag} on {card}, B={BATCH}, device time per step (profiler), ms: "
+            + "; ".join(f"{k.upper()} panel {v['panel']:.4f}, digits {v['digits']:.4f}, product "
+                        f"{v['product']:.4f} ({ops / v['product'] / 1e9:.1f} TOPS, the GEMM's "
+                        "schoolbook ops)" for k, v in pieces.items()))
+    if regs:
+        log("limb", "K4/K6/K5 kernels from this run's build (registers, spill bytes): " + ", ".join(
+            f"{k} {r}, {sp}" for k, (r, sp) in regs.items()))
+    times["PBS"] = phase_limb_pbs(dev, rs, card, errs)
     return errs, times
+
+
+LIMB_PBS_CHECK = (1, 13, 129, MIXED)
+
+
+def phase_limb_pbs(dev, rs, card, errs) -> dict:
+    """K4 and K6 at PBS_PARAMS (N=2048, l=4), which their __dp4a forms
+    refused for shared memory: bit-exact against the plain step (on the
+    card) and K1 at B = 1, 13, 129, 1024, K5 refused; K4, K6 and K1 in
+    turns at B=4096."""
+    p = PBS_PARAMS
+    rows = words(rs, (2 * p.l, 2, p.N), dev)
+    tab, key = plain.prepare_trgsw_limbs(rows), plain.prepare_trgsw(rows)
+    for b in LIMB_PBS_CHECK:
+        acc = words(rs, (b, 2, p.N), dev)
+        ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=b).astype(np.int32)).to(dev)
+        want = limb_step.cmux_step_plain(acc, ai, tab, p)
+        exact(f"K1 PBS B={b}", cmux_k.cmux_step(acc, ai, key, p), want)
+        errs["k4"] = max(errs["k4"], exact(f"K4 PBS B={b}",
+                                           limb_step.cmux_step_merged(acc, ai, tab, p), want))
+        errs["k6"] = max(errs["k6"], exact(f"K6 PBS B={b}",
+                                           limb_step.cmux_step_split(acc, ai, tab, p), want))
+    try:
+        limb_step.external_product(torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8, device=dev),
+                                   tab, p)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("K5 ran at PBS_PARAMS, past its shared memory")
+    acc = words(rs, (BATCH, 2, p.N), dev)
+    ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=BATCH).astype(np.int32)).to(dev)
+    t = turns({"k1": lambda: cmux_k.cmux_step(acc, ai, key, p),
+               "k4": lambda: limb_step.cmux_step_merged(acc, ai, tab, p),
+               "k6": lambda: limb_step.cmux_step_split(acc, ai, tab, p)}, 5)
+    torch.cuda.synchronize()
+    bnd = bound(step_ops(p, BATCH), step_bytes(p, BATCH, 2 * p.l * 2 * 4 * 2 * p.N))[0]
+    log("limb", f"PBS_PARAMS (N={p.N}, l={p.l}, Bg=2^{p.bgbit}): K4 and K6 bit-exact against the "
+        f"plain step and K1 at B={', '.join(map(str, LIMB_PBS_CHECK))}; K5 refused ({refused}); "
+        f"on {card}, B={BATCH}, ms per step in turns: K4 {t['k4']:.4f}, K6 {t['k6']:.4f}, K1 "
+        f"{t['k1']:.4f}; share of the {bnd:.4f} ms bound: K4 {bnd / t['k4']:.1%}, K6 "
+        f"{bnd / t['k6']:.1%}")
+    return t
 
 
 def fast_passes(ctx, p, kernel, pre, nand_in):
@@ -1056,9 +1163,10 @@ def phase_probe_kernels(dev, rs, card):
             errs["p5"] = max(errs["p5"], exact(f"P5 {order} B={b}", got, want))
             exact(f"P5 {order} vs K4 B={b}", got, k4)
     torch.cuda.synchronize()
-    log("probes", f"P6 (full, nodots, norot) and P5 (j-outer, limb-outer) bit-exact against "
-        f"their plain versions at B={', '.join(map(str, PROBE_CHECK))}; P6 full equals K6, "
-        "both P5 orders equal K4")
+    log("probes", f"P6 (full, nodots, norot) and P5 (j-outer, limb-outer), the __dp4a forms of "
+        f"the limb step, bit-exact against their plain versions at "
+        f"B={', '.join(map(str, PROBE_CHECK))}; P6 full equals K6, both P5 orders equal K4 "
+        "(K4/K6: the wgmma GEMM)")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1101,8 +1209,9 @@ def phase_probe_kernels(dev, rs, card):
         + f" | rotation (P6 full - norot) {t['P6 full'] - t['P6 norot']:.4f}, products (P6 full"
         f" - nodots) {t['P6 full'] - t['P6 nodots']:.4f}, the rest (nodots) "
         f"{t['P6 nodots']:.4f}; recombination per plane (P5 j-outer - limb-outer) "
-        f"{t['P5 j-outer'] - t['P5 limb-outer']:.4f}; K6 - P6 full {t['K6'] - t['P6 full']:.4f}, "
-        f"K4 - P5 limb-outer {t['K4'] - t['P5 limb-outer']:.4f}")
+        f"{t['P5 j-outer'] - t['P5 limb-outer']:.4f}; K6 (wgmma) / P6 full (__dp4a) "
+        f"{t['K6'] / t['P6 full']:.4f}, K4 (wgmma) / P5 limb-outer (__dp4a) "
+        f"{t['K4'] / t['P5 limb-outer']:.4f}")
     vplain = {v: cuda_ms(lambda rd=rd: limb_probe.variant_step_plain(acc, ai, tab, p, *rd), 2)
               for v, rd in limb_probe.VARIANTS.items() if v != "full"}
     log("probes", "plain P6 variants, ms: " + ", ".join(f"{k} {v:.4f}" for k, v in vplain.items()))
@@ -1316,19 +1425,33 @@ def phase_nuss_primitives(dev, card):
     return err, (dev_ms["kernel"], dev_ms["plain"]), x.numel() * 4 * 2
 
 
+PROFILE_TRIES = 3  # now and then a profiler session records no launch, or only some
+
+
+def profiled_times(fn, calls: int, seen=lambda times, counts: sum(times.values()) > 0):
+    """(device time in ms, launches) of each kernel the profiler saw on the
+    card in ``calls`` calls of ``fn``, after a warm-up.  A session whose
+    times and counts fail ``seen`` (by default: no device time at all) is
+    run again, up to PROFILE_TRIES sessions, and then it raises."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {}
+        times = device_times(prof, counts)
+        if seen(times, counts):
+            return times, counts
+    raise AssertionError(f"in {PROFILE_TRIES} sessions the profiler saw no device time of the "
+                         f"kernels it was to time ({sorted(times)})")
+
+
 def profiled_ms(fn, calls: int) -> float:
     """Device time (ms) per call of ``fn``: the sum over every kernel the
     profiler saw on the card in ``calls`` calls, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(device_times(prof).values())
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / calls
+    return sum(profiled_times(fn, calls)[0].values()) / calls
 
 
 def phase_coissue_entry_points(card):
@@ -1533,12 +1656,17 @@ def main() -> int:
         for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "C75")):
                 log("build", "ptxas: " + line.strip())
-    k1_regs = ptxas_kernels(libs["cmux_k"][1])
-    if k1_regs:  # built in this run (a cached library has no report)
-        log("build", "K1/K2 kernels (registers, spill bytes): " + ", ".join(
-            f"{k} {r}, {sp}" for k, (r, sp) in k1_regs.items()))
-        if any(sp for _, sp in k1_regs.values()) or "C75" in libs["cmux_k"][1]:
-            raise AssertionError("a K1/K2 kernel spills or ptxas serialised its wgmmas")
+    regs = {}
+    for lib, what, names in (("cmux_k", "K1/K2", K1_KERNELS),
+                             ("limb_step", "K4/K6/K5", LIMB_KERNELS)):
+        regs[lib] = ptxas_kernels(libs[lib][1], names)
+        if not regs[lib]:  # a cached library has no report
+            continue
+        log("build", f"{what} kernels (registers, spill bytes): " + ", ".join(
+            f"{k} {r}, {sp}" for k, (r, sp) in regs[lib].items()))
+        steps = {k: v for k, v in regs[lib].items() if not k.startswith("limb_kernel")}
+        if any(sp for _, sp in steps.values()) or "C75" in libs[lib][1]:
+            raise AssertionError(f"a {what} step kernel spills or ptxas serialised its wgmmas")
 
     # 3. kernels against their plain versions
     rs = np.random.RandomState(SEED)
@@ -1574,7 +1702,7 @@ def main() -> int:
     # 8. the limb engine: K4, K6 and K5 against their plain versions and
     # their times; the FAST_PARAMS path (K4 on every step) with the launch
     # counts of its run only; DEFAULT_PARAMS through K4, K6 and K5 per step
-    limb_errs, limb_times = phase_limb_kernels(dev, rs, card)
+    limb_errs, limb_times = phase_limb_kernels(dev, rs, card, regs["limb_step"])
     errs.update(limb_errs)
     fast = phase_fast_path(dev, card)
     dflt = phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want)
@@ -1612,23 +1740,26 @@ def main() -> int:
     f_limb_bytes = f_two_l * 2 * 4 * 2 * F.N
     b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
-        ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true>",
+        ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
          KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"],
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
-        ("external_product_k: key_panel_kernel + cmux_product_kernel<false>", KERNEL_SOURCE,
+        ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
          launches["k2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
         ("rotate_all_k", K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"], errs["k3"],
          k3_times[1][0], k3_times[1][2],
          (step_ops(p, 1, p.n), 2 * 2 * p.N * 4 + p.n * 4 + p.n * key_bytes), None),
-        ("limb_cmux_step_merged", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",
+        ("limb_cmux_step_merged: limb_panel_kernel + step_digits_kernel + "
+         "cmux_product_kernel<true, 2>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",
          fast["k4"], errs["k4"], fast_t["step"]["k4"], fast_t["step"]["plain"],
          (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
-        ("limb_external_product", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:158",
-         fast["k5"], errs["k5"], fast_t["k5_probe"]["k5"], fast_t["k5_probe"]["plain"],
+        ("limb_external_product: limb_kernel", LIMB_SOURCE,
+         "rustfhe_tpu/engine/pallas_step.py:158",
+         dflt["k5"], errs["k5"], fast_t["k5_probe"]["k5"], fast_t["k5_probe"]["plain"],
          (step_ops(F, b_k5), b_k5 * f_two_l * F.N + f_limb_bytes + b_k5 * 2 * F.N * 4), None),
-        ("limb_cmux_step_split", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:267",
+        ("limb_cmux_step_split: limb_panel_kernel + step_digits_kernel + "
+         "cmux_product_kernel<true, 1>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:267",
          dflt["k6"], errs["k6"], fast_t["step"]["k6"], fast_t["step"]["plain"],
          (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
         ("limb_probe_order", PROBE_SOURCE, "benches/limb_order_probe.py:85", probes["p5"],

@@ -6,7 +6,8 @@ package imports torch and numpy, never jax.  The blind-rotate step, the
 external product and the single-launch blind rotation of the latency mode
 are hand-written CUDA kernels (``engine/cmux_k.py``,
 ``engine/rotate_all_k.py``, ``csrc/``), and so are their limb-form
-counterparts that Bg = 2^8 selects (``engine/limb_step.py``), built with
+counterparts that Bg = 2^8 selects (``engine/limb_step.py``; K1 and its
+limb-form steps run on the int8 tensor cores), built with
 nvcc on first use; on the CPU every function runs their plain torch
 versions.  ``apps/`` holds
 the ``nander`` console and its fused evaluator.

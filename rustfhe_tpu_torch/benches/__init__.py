@@ -5,9 +5,11 @@ Each runs as ``python -m rustfhe_tpu_torch.benches.<name> [B] [which ...]``
 on a host with a CUDA device, with the JAX script's arguments and
 defaults:
 
-* ``step_breakdown_probe``: the limb step split by ablation (P6) and the
-  bare int8 dot tile (P7), beside K4 and K6;
-* ``limb_order_probe``: K4's two recombination orders (P5);
+* ``step_breakdown_probe``: the limb step split by ablation (P6, the
+  step's ``__dp4a`` form) and the bare int8 dot tile (P7), beside K4 and
+  K6 (the int8 ``wgmma`` GEMM);
+* ``limb_order_probe``: the merged step's two recombination orders (P5,
+  the ``__dp4a`` form), beside K4;
 * ``matmul_probe``: the blocked int8 GEMM at the external product's shape
   (P9), beside ``torch._int_mm``;
 * ``k2_floor_probe``: the two-level Karatsuba step (K1's function in the

@@ -4,17 +4,21 @@ Counterpart of ``benches/step_breakdown_probe.py``: the same variants, the
 same inputs (numpy seed 0, drawn in the same order) and the same rates,
 timed by ``_timing.chain``:
 
-  full      K6 (``limb_step.cmux_step_split``) and P6's "full", the same
-            function through the probe kernel
+  full      K6 (``limb_step.cmux_step_split``, the int8 wgmma GEMM) and
+            P6's "full", the same function through the probe kernel in the
+            limb step's __dp4a form (held to K6 word for word)
   merged    K4 (``limb_step.cmux_step_merged``); also run with "full"
   nodots    P6 without the products (a digit sum broadcast over N)
   norot     P6 without the rotation (digits of acc itself)
+            (nodots and norot split the __dp4a form's time, not K4/K6's:
+            chip_smoke.py times K4/K6's three kernels by the profiler)
   dots      P7: the bare int8 dot (B, 6144) @ (6144, 1024) on the tensor
             cores at each tile of ``int8_gemm.TILES``, beside
             ``torch._int_mm`` (cuBLASLt, the library yardstick, not the port)
   tm256, wide, fastbuild
-            vary the TPU's panel depth and panel build; the port reads no
-            panels, so these launch K4/K6 at the probe's shape and say so
+            vary the TPU's panel depth and panel build; K4/K6 build one
+            panel set per step (128-byte slices, one kernel), so these
+            launch K4/K6 at the probe's shape and say so
 
 Usage: python -m rustfhe_tpu_torch.benches.step_breakdown_probe [B] [which ...]
 """
@@ -76,7 +80,8 @@ def cases(B: int, which, device) -> list:
         return Case(f"{name} (P6)", lambda a: limb_probe.step_variant(a, a_t, tab, P, name),
                     acc0, ops)
 
-    out = [f"# the TPU's batch tile tb has no counterpart: a block holds {limb_step.TB} samples"]
+    out = [f"# the TPU's batch tile tb has no counterpart: a P6 block holds {limb_step.TB} "
+           "samples, a K4/K6 tile 128"]
     if "full" in which:
         out += [Case("full (K6)", k6, acc0, ops), variant("full")]
     if "merged" in which or "full" in which:
@@ -86,8 +91,8 @@ def cases(B: int, which, device) -> list:
             out.append(variant(name))
     for name, what in NO_PANELS.items():
         if name in which:
-            out.append(f"# {name}: {what} have no Hopper counterpart (the port reads no "
-                       "panels); K4 and K6 at the probe's shape")
+            out.append(f"# {name}: {what} have no Hopper counterpart (K4/K6 build one "
+                       "panel set per step); K4 and K6 at the probe's shape")
             out += [Case(f"{name} -> K4", k4, acc0, ops), Case(f"{name} -> K6", k6, acc0, ops)]
     if "dots" in which:
         w, d0 = dot_inputs(B, device, rs)

@@ -1,7 +1,7 @@
 // Device code shared by the blind-rotation kernels: the digit build of one
-// CMux step (K1's digit kernel in cmux_k.cu, K3 in rotate_all_k.cu, and the
-// limb-form steps of limb_common.cuh) and K3's uint32 multiply-add of
-// digits against a doubled key plane.
+// CMux step (the digit kernel of K1/K4/K6 in cmux_step.cuh, K3 in
+// rotate_all_k.cu, and the limb-form probes of limb_common.cuh) and K3's
+// uint32 multiply-add of digits against a doubled key plane.
 //
 // Layouts of the multiply-add:
 //   * a key plane is the doubled TRGSW row polynomial T = [-q, q] (2N words,

@@ -37,58 +37,33 @@
 //      has to be written out).  11.25 MiB a step at DEFAULT_PARAMS, built
 //      anew each step (all 635 steps' panels would take ~7 GiB);
 //   2. step_digits_kernel: the digits of X^{a~} * acc - acc as int8
-//      (B, 2L, Npad), Npad = N rounded up to 128, zeros past N
-//      (cmux_common.cuh's rotated_coeff, rounded_diff and digit);
-//   3. cmux_product_kernel: the GEMM on int8_gemm.cu's warp-specialised
-//      mainloop (hopper_common.cuh): a producer warpgroup keeps a 4-stage
-//      TMA ring full (one 128 x 128 B digit box and four 64 x 128 B panel
-//      boxes, one per limb, a stage), two consumer warpgroups run wgmma
-//      m64n256k32 .s32.s8.s8, a persistent grid walks the block tiles of
-//      128 samples x (one half c, 4 limbs x 64 coefficients).  The
-//      epilogue recombines the four limbs of each (b, k) in registers (the
-//      fragment holds them at column blocks j, j+8, j+16, j+24), adds acc
-//      and stores one word: 32 MiB out at B=4096, not 128 MiB of partials.
+//      (B, 2L, Npad), Npad = N rounded up to 128, zeros past N;
+//   3. cmux_product_kernel<true, 1>: the GEMM on int8_gemm.cu's
+//      warp-specialised mainloop (hopper_common.cuh): a producer warpgroup
+//      keeps a 4-stage TMA ring full (one 128 x 128 B digit box and four
+//      64 x 128 B panel boxes, one per limb, a stage), two consumer
+//      warpgroups run wgmma m64n256k32 .s32.s8.s8, a persistent grid walks
+//      the block tiles of 128 samples x (one half c, 4 limbs x 64
+//      coefficients).  The epilogue recombines the four limbs of each (b,
+//      k) in registers (the fragment holds them at column blocks j, j+8,
+//      j+16, j+24), adds acc and stores one word: 32 MiB out at B=4096,
+//      not 128 MiB of partials.
+// The digit and product kernels are cmux_step.cuh's, shared with the limb
+// engine's steps K4/K6 (limb_step.cu), which cut the same panels from the
+// int8 limb table.
 // K2 is the panel and the product without the add, on the caller's digits.
 // The digit and panel buffers are the wrapper's (engine/cmux_k.py keeps
 // them per thread across the steps of a rotation) and their TMA maps are
 // cached here by address.
 
 #include <cstdint>
-#include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "cmux_common.cuh"
-#include "hopper_common.cuh"
+#include "cmux_step.cuh"
 
 namespace {
 
-using namespace rustfhe::hopper;
-
-constexpr int LIMBS = 4;            // balanced signed 8-bit limbs of a key word
-constexpr int COEFFS = 64;          // output coefficients of one limb in a block tile
-constexpr int BM = 128;             // samples of a block tile: two consumer warpgroups
-constexpr int BN = LIMBS * COEFFS;  // columns of a block tile, limb-major
-constexpr int CONSUMERS = 2;
-constexpr int A_STAGE = BM * DEPTH;
-constexpr int B_STAGE = BN * DEPTH;
-constexpr int SMEM = ALIGN + STAGES * (A_STAGE + B_STAGE) + 2 * STAGES * 8;
-constexpr int MIN_N = 8, MAX_N = 2048;
-constexpr int CHUNK = 16;  // panel bytes (one row, consecutive r) per thread
-constexpr int THREADS = 256;  // of the panel and digit kernels
-
-// The shapes of one step at N and 2L planes.
-struct Geometry {
-  int npad;    // bytes of digits of a plane: N rounded up to DEPTH
-  int slices;  // DEPTH-byte K slices of a plane
-  int x0;      // key offset of a panel's first row
-  int rows;    // rows of one panel: [x0, 2N), at least one box of COEFFS
-  __host__ __device__ explicit Geometry(int N) {
-    npad = N < DEPTH ? DEPTH : N;
-    slices = npad / DEPTH;
-    x0 = N + DEPTH - npad;
-    rows = 2 * N - x0 < COEFFS ? COEFFS : 2 * N - x0;
-  }
-};
+using namespace rustfhe::cmux;
 
 // The four balanced limbs of w, limb t in byte t: adding 0x80 to every byte
 // with carries and flipping the bytes' top bits gives b - 128 in each, the
@@ -129,203 +104,11 @@ key_panel_kernel(const int32_t* __restrict__ key, int8_t* __restrict__ panel, in
   }
 }
 
-// 2. acc: (B, 2, N) words; a_tilde: (B,) (reduced mod 2N here); digits:
-// (B, 2L, npad) int8, plane p * l + lv.  Thread: four coefficients of one
-// half of one sample, all l levels.
-__global__ void __launch_bounds__(THREADS)
-step_digits_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ a_tilde,
-                   int8_t* __restrict__ digits, int B, int N, int l, int bgbit, uint32_t mask) {
-  const Geometry g(N);
-  const int quads = g.npad / 4;
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= B * 2 * quads) return;
-  const int q = idx % quads;
-  const int p = idx / quads % 2;
-  const int b = idx / (2 * quads);
-  const int tn = 2 * N;
-  int a = a_tilde[b] % tn;
-  if (a < 0) a += tn;
-  const int32_t* poly = acc + ((size_t)b * 2 + p) * N;
-  const auto at = [poly](int x) { return (uint32_t)poly[x]; };
-  uint32_t u[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int i = 4 * q + m;
-    u[m] = i < N ? rustfhe::rounded_diff(rustfhe::rotated_coeff(at, i, a, N), at(i), mask) : 0u;
-  }
-  for (int lv = 0; lv < l; ++lv) {
-    uint32_t word = 0u;
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      if (4 * q + m < N) word |= (uint32_t)(uint8_t)rustfhe::digit(u[m], lv, bgbit) << (8 * m);
-    *reinterpret_cast<uint32_t*>(digits + ((size_t)b * 2 * l + p * l + lv) * g.npad + 4 * q) = word;
-  }
-}
-
-// 3. tma_d: digits (B rows, 2L * npad bytes), boxes of (BM, DEPTH); tma_p:
-// panels (2L * 2 * LIMBS * rows, DEPTH), boxes of (COEFFS, DEPTH).
-// out = [acc_in +] the recombined product, (B, 2, N) words.
-template <bool ADD>
-__global__ void __launch_bounds__(Shape<CONSUMERS>::THREADS, 1)
-cmux_product_kernel(const __grid_constant__ CUtensorMap tma_d,
-                    const __grid_constant__ CUtensorMap tma_p, const int32_t* __restrict__ acc_in,
-                    int32_t* __restrict__ out, int B, int N, int two_l) {
-  using S = Shape<CONSUMERS>;
-  const Geometry g(N);
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
-  const uint32_t a_ring = base;
-  const uint32_t b_ring = base + STAGES * A_STAGE;
-  const uint32_t full = b_ring + STAGES * B_STAGE;  // STAGES barriers of 8 bytes
-  const uint32_t empty = full + STAGES * 8;
-
-  const int wg = threadIdx.x / WG;
-  const int KT = two_l * g.slices;  // K slices of a tile: plane j, slice kb = ks / slices, % slices
-  const int ctiles = (N + COEFFS - 1) / COEFFS;  // coefficient tiles of one half
-  const int tiles_m = (B + BM - 1) / BM, tiles_n = 2 * ctiles;
-  const int tiles = tiles_m * tiles_n;
-
-  if (threadIdx.x == 0) ring_init(full, empty, CONSUMERS * WG / 32);
-  __syncthreads();
-
-  // The block walks the tiles blockIdx.x, + gridDim.x, ...; `it` counts the
-  // stages it has passed through the ring over all its tiles (stage
-  // it % STAGES in round it / STAGES), so a tile may start mid-round.
-  if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) {
-      prefetch_map(&tma_d);
-      prefetch_map(&tma_p);
-      int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        int tm, tn;
-        tile_coords(tile, tiles_m, tiles_n, tm, tn);
-        const int m0 = tm * BM, c = tn / ctiles, k0 = tn % ctiles * COEFFS;
-        for (int ks = 0; ks < KT; ++ks, ++it) {
-          const int s = it % STAGES;
-          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(full + 8 * s, A_STAGE + B_STAGE);
-          tma_load(a_ring + s * A_STAGE, &tma_d, full + 8 * s, ks * DEPTH, m0);
-          const int j = ks / g.slices, kb = ks - j * g.slices;
-          const int y = (j * 2 + c) * LIMBS * g.rows + k0 + N - kb * DEPTH - g.x0;
-#pragma unroll
-          for (int t = 0; t < LIMBS; ++t)
-            tma_load(b_ring + s * B_STAGE + t * COEFFS * DEPTH, &tma_p, full + 8 * s, 0,
-                     y + t * g.rows);
-        }
-      }
-    }
-  } else {
-    // Consumers: warpgroup cw computes samples 64cw..64cw+63 of each tile.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
-    const int cw = wg - 1;
-    const int t = threadIdx.x % WG;
-    const int w = t / 32, ln = t % 32;
-    int32_t acc[BN / 2];  // set by each tile's first wgmma (scale 0)
-    int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      int tm, tn;
-      tile_coords(tile, tiles_m, tiles_n, tm, tn);
-      const int m0 = tm * BM, c = tn / ctiles, k0 = tn % ctiles * COEFFS;
-      for (int ks = 0; ks < KT; ++ks, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(full + 8 * s, (it / STAGES) & 1);
-        __syncwarp();  // the warp converges before the .aligned wgmma instructions
-        const uint32_t a_s = a_ring + s * A_STAGE + cw * 64 * DEPTH;
-        const uint32_t b_s = b_ring + s * B_STAGE;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DEPTH / KSTEP; ++kk)
-          Wgmma<BN>::mma(acc, smem_desc(a_s + kk * KSTEP), smem_desc(b_s + kk * KSTEP),
-                         (ks | kk) != 0);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products have retired
-        fence_acc(acc);
-        if (ks > 0 && ln == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (ln == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-
-      // Column block j + 8t of the fragment is limb t of coefficients
-      // k0 + 8j + 2(ln % 4), +1: acc[4j + e + 32t] (e: 0, 1 at row r, 2, 3
-      // at row r + 8).  Recombine, add, store one int2 per (row, j).
-      const int kq = k0 + 2 * (ln % 4);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int b = m0 + cw * 64 + w * 16 + ln / 4 + 8 * h;
-        if (b >= B) continue;
-        const size_t row = ((size_t)b * 2 + c) * N + kq;
-#pragma unroll
-        for (int j = 0; j < COEFFS / 8; ++j) {
-          if (kq + 8 * j >= N) continue;
-          const int e = 4 * j + 2 * h;
-          uint32_t v0 = 0u, v1 = 0u;
-#pragma unroll
-          for (int lt = 0; lt < LIMBS; ++lt) {
-            v0 += (uint32_t)acc[e + 32 * lt] << (8 * lt);
-            v1 += (uint32_t)acc[e + 1 + 32 * lt] << (8 * lt);
-          }
-          if (ADD) {
-            const int2 a = *reinterpret_cast<const int2*>(acc_in + row + 8 * j);
-            v0 += (uint32_t)a.x;
-            v1 += (uint32_t)a.y;
-          }
-          *reinterpret_cast<int2*>(out + row + 8 * j) = make_int2((int32_t)v0, (int32_t)v1);
-        }
-      }
-    }
-  }
-}
-
-// Shapes the kernels take: B >= 1; N a power of two in [MIN_N, MAX_N]; the
-// int32 sums exact for any int8 digits.
-bool shape_ok(int B, int N, int two_l) {
-  if (B < 1 || N < MIN_N || N > MAX_N || (N & (N - 1)) || two_l < 1) return false;
-  return (long long)two_l * Geometry(N).npad * 128 * 128 < (1ll << 31);
-}
-
 cudaError_t launch_panel(const void* key, void* panel, int N, int two_l, cudaStream_t stream) {
   if ((uintptr_t)panel % 16) return cudaErrorMisalignedAddress;
   const int threads = two_l * 2 * Geometry(N).rows * (DEPTH / CHUNK);
-  key_panel_kernel<<<(threads + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      (const int32_t*)key, (int8_t*)panel, N, two_l);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_digits(const void* acc, const void* a_tilde, void* digits, int B, int N, int l,
-                          int bgbit, unsigned int mask, cudaStream_t stream) {
-  if ((uintptr_t)digits % 16) return cudaErrorMisalignedAddress;
-  const int threads = B * 2 * (Geometry(N).npad / 4);
-  step_digits_kernel<<<(threads + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      (const int32_t*)acc, (const int32_t*)a_tilde, (int8_t*)digits, B, N, l, bgbit,
-      (uint32_t)mask);
-  return cudaGetLastError();
-}
-
-MapCache maps;  // the TMA maps of the digit and panel buffers
-
-template <bool ADD>
-cudaError_t launch_product(const void* digits, const void* panel, const void* acc_in, void* out,
-                           int B, int N, int two_l, cudaStream_t stream) {
-  static bool ready[MAX_DEVICES];
-  if ((uintptr_t)digits % 16 || (uintptr_t)panel % 16 || (uintptr_t)acc_in % 8 ||
-      (uintptr_t)out % 8)
-    return cudaErrorMisalignedAddress;
-  const auto kernel = cmux_product_kernel<ADD>;
-  int sms = 0;
-  cudaError_t e = prepare_kernel((const void*)kernel, SMEM, Shape<CONSUMERS>::LAUNCH_REGS, ready,
-                                 &sms);
-  if (e != cudaSuccess) return e;
-  const Geometry g(N);
-  CUtensorMap map_d, map_p;
-  if (!maps.get(&map_d, digits, B, two_l * g.npad, BM) ||
-      !maps.get(&map_p, panel, two_l * 2 * LIMBS * g.rows, DEPTH, COEFFS))
-    return cudaErrorInvalidValue;
-  const int tiles = (B + BM - 1) / BM * 2 * ((N + COEFFS - 1) / COEFFS);
-  kernel<<<tiles < sms ? tiles : sms, Shape<CONSUMERS>::THREADS, SMEM, stream>>>(
-      map_d, map_p, (const int32_t*)acc_in, (int32_t*)out, B, N, two_l);
+  key_panel_kernel<<<blocks(threads), THREADS, 0, stream>>>((const int32_t*)key, (int8_t*)panel,
+                                                            N, two_l);
   return cudaGetLastError();
 }
 
@@ -347,7 +130,7 @@ int rustfhe_cmux_step_k(const void* acc, const void* a_tilde, const void* key, v
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = launch_panel(key, panel, N, 2 * l, st);
   if (e == cudaSuccess) e = launch_digits(acc, a_tilde, digits, B, N, l, bgbit, mask, st);
-  if (e == cudaSuccess) e = launch_product<true>(digits, panel, acc, out, B, N, 2 * l, st);
+  if (e == cudaSuccess) e = launch_product<true, 1>(digits, panel, acc, out, B, N, 2 * l, st);
   return (int)e;
 }
 
@@ -357,7 +140,7 @@ int rustfhe_external_product_k(const void* digits, const void* key, void* out, v
   if (!shape_ok(B, N, two_l)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = launch_panel(key, panel, N, two_l, st);
-  if (e == cudaSuccess) e = launch_product<false>(digits, panel, nullptr, out, B, N, two_l, st);
+  if (e == cudaSuccess) e = launch_product<false, 1>(digits, panel, nullptr, out, B, N, two_l, st);
   return (int)e;
 }
 
@@ -376,7 +159,7 @@ int rustfhe_step_digits(const void* acc, const void* a_tilde, void* digits, int 
 int rustfhe_panel_product(const void* digits, const void* panel, const void* acc, void* out, int B,
                           int N, int two_l, void* stream) {
   if (!shape_ok(B, N, two_l)) return (int)cudaErrorInvalidValue;
-  return (int)launch_product<true>(digits, panel, acc, out, B, N, two_l, (cudaStream_t)stream);
+  return (int)launch_product<true, 1>(digits, panel, acc, out, B, N, two_l, (cudaStream_t)stream);
 }
 
 const char* rustfhe_cuda_error_string(int err) {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised int8
 // tensor-core kernels: the blocked GEMM of P7/P9 (int8_gemm.cu) and the
-// CMux step's product K1/K2 (cmux_k.cu).
+// CMux step's product of K1/K2 and K4/K6 (cmux_step.cuh, in cmux_k.cu and
+// limb_step.cu).
 //
 //   * a ring of STAGES shared-memory stages, each DEPTH = 128 bytes of K
 //     (one row of the 128-byte swizzle), filled by TMA copies

@@ -1,6 +1,7 @@
-// Device and host code shared by the limb-form kernels: K4-K6
-// (limb_step.cu), their measurement variants P5/P6 (limb_probe.cu) and,
-// with N the leaf size, the Karatsuba step (karatsuba_probe.cu).
+// Device and host code shared by the limb-form __dp4a kernels: K5
+// (limb_step.cu), the limb step's measurement variants P5/P6
+// (limb_probe.cu) and, with N the leaf size, the Karatsuba step
+// (karatsuba_probe.cu).
 //
 // Layouts:
 //   * the step's limb table is (2L, 2, K, 2N) int8 in device memory

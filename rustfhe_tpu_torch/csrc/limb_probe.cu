@@ -4,9 +4,12 @@
 //   P6 benches/step_breakdown_probe.py:134  make_variant.step (body variant_kernel, :80)
 //   P5 benches/limb_order_probe.py:85       make_step.step (body kernel, :33)
 //
-// Both are the structure of K4/K6 (limb_step.cu, limb_kernel<true, HALVES>)
-// with one part changed, so that the step's time can be split by ablation
-// (ncu does not run where the card is).  Contract, bit for bit:
+// Both keep the __dp4a form of the limb step that K4/K6 had before they
+// became an int8 wgmma GEMM (limb_step.cu): the limb table in shared
+// memory, the digits built in the block, with one part changed, so that the
+// step's time can be split by ablation (ncu does not run where the card
+// is).  The probes are held to the wgmma K4/K6 word for word.  Contract,
+// bit for bit:
 //   P6 "full"   (ROTATE, DOTS):  acc + ExtProd(key, Decompose(X^{a~} * acc - acc)), = K6;
 //   P6 "norot"  (!ROTATE, DOTS): acc + ExtProd(key, Decompose(acc)): the digits are
 //      built from acc itself, the rotation and difference are skipped;
@@ -19,13 +22,12 @@
 //      per (half, limb) and recombines once (K4's limb-outer order); J_OUTER
 //      true recombines (uint32) part << 8k after each plane j.  Both equal K4.
 // The shared code (table and digit layouts, digit build, product loop) is
-// limb_common.cuh, the same the production kernels compile; limb_kernel
-// itself carries no flags, so K4-K6 keep their code generation.
+// limb_common.cuh, the same K5 (limb_step.cu) compiles.
 //
-// What bounds it: as K4/K6 (integer issue of __dp4a), minus what a variant
-// drops.  Its design does nothing of its own: each variant is K6's (or
-// K4's) code with one part removed or reordered, so the differences between
-// their times are the parts' costs.
+// What bounds it: the integer issue of __dp4a, minus what a variant drops.
+// Its design does nothing of its own: each variant is the __dp4a step with
+// one part removed or reordered, so the differences between their times
+// are the parts' costs in that form.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -12,7 +12,9 @@ runs the plain version on a CPU tensor:
   (``wgmma``) GEMM on key panels built per step, K3 the whole rotation in
   one launch;
 * ``"limb"`` (``LimbEngine``): K4-K6 (``limb_step``) on the int8 limb
-  table, the counterpart of the JAX engine ``"pallas"``.
+  table, the counterpart of the JAX engine ``"pallas"``: the steps K4/K6
+  as K1's int8 ``wgmma`` GEMM on panels cut from the table, the external
+  product K5 (the engine's probe) a ``__dp4a`` kernel.
 
 Four are the JAX package's generic engines, with its methods
 (``prepare_trgsw``, ``external_product_digits``, ``poly_mul_torus_binary``):

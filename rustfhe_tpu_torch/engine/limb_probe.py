@@ -2,14 +2,17 @@
 
 Counterpart of two Pallas probe kernels of the JAX package that split the
 limb step's time by ablation: P6 ``make_variant``
-(``benches/step_breakdown_probe.py:134``, K6 without its products or
-without its rotation) and P5 ``make_step`` (``benches/limb_order_probe.py:85``,
-K4 with the limbs recombined after every plane or once).  The kernels are
-CUDA C++ for sm_90a in ``csrc/limb_probe.cu``, on the shared code of
-``csrc/limb_common.cuh`` that K4-K6 compile, built with nvcc into a library
-with a plain C interface on first use and called through ctypes.  They take
-K4/K6's operands: acc int32 (B, 2, N), a~ int32 (B,), the doubled limb
-table int8 (2L, 2, 4, 2N).
+(``benches/step_breakdown_probe.py:134``, the c-split step without its
+products or without its rotation) and P5 ``make_step``
+(``benches/limb_order_probe.py:85``, the merged step with the limbs
+recombined after every plane or once).  The probes keep the ``__dp4a``
+form of the limb step (the table in shared memory, the digits built in the
+block), and their full forms are held to K6 and K4, now an int8 ``wgmma``
+GEMM (``limb_step``), word for word.  The kernels are CUDA C++ for sm_90a
+in ``csrc/limb_probe.cu``, on the shared code of ``csrc/limb_common.cuh``
+that K5 compiles, built with nvcc into a library with a plain C interface
+on first use and called through ctypes.  They take K4/K6's operands: acc
+int32 (B, 2, N), a~ int32 (B,), the doubled limb table int8 (2L, 2, 4, 2N).
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain version beside it, a CUDA tensor launches the
@@ -31,9 +34,9 @@ from . import build, plain
 from .cmux_k import _dispatch
 from .limb_step import _check, _check_smem, _check_step, cmux_step_plain
 
-# P6's variants: (rotate, products).  "full" is K6.
+# P6's variants: (rotate, products).  "full" computes K6's function.
 VARIANTS = {"full": (True, True), "nodots": (True, False), "norot": (False, True)}
-# P5's recombination orders: "limb-outer" is K4's, "j-outer" recombines per plane.
+# P5's recombination orders: "limb-outer" is the TPU's K4's, "j-outer" recombines per plane.
 ORDERS = {"limb-outer": False, "j-outer": True}
 TM = 128  # coefficients per summed digit in "nodots": the TPU probe's panel depth
 
@@ -78,8 +81,8 @@ def _check_tm(params: TFHEParams, tm: int) -> None:
 
 def step_variant(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                  params: TFHEParams, variant: str = "full", tm: int = TM) -> torch.Tensor:
-    """P6: the c-split limb step (one output half per block, as K6) in one
-    of ``VARIANTS``.  Operands and result as ``limb_step.cmux_step_split``."""
+    """P6: the c-split limb step (one output half per block) in one of
+    ``VARIANTS``.  Operands and result as ``limb_step.cmux_step_split``."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; P6 has {', '.join(VARIANTS)}")
     rotate, dots = VARIANTS[variant]
@@ -103,9 +106,9 @@ def step_variant(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
 
 def step_order(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                params: TFHEParams, order: str = "limb-outer") -> torch.Tensor:
-    """P5: the merged limb step (both output halves per block, as K4) with
-    the recombination order of ``ORDERS``; both equal K4.  Operands and
-    result as ``limb_step.cmux_step_merged``."""
+    """P5: the merged limb step (both output halves per block) with the
+    recombination order of ``ORDERS``; both equal K4.  Operands and result
+    as ``limb_step.cmux_step_merged``."""
     if order not in ORDERS:
         raise ValueError(f"unknown order {order!r}; P5 has {', '.join(ORDERS)}")
     _check_step(acc, a_tilde, table, params)

@@ -4,16 +4,31 @@ Counterpart of ``rustfhe_tpu/engine/pallas_step.py``, the JAX engine
 ``"pallas"``: K4 replaces ``fused_cmux_step_merged`` (pallas_step.py:363),
 K6 ``fused_cmux_step`` (pallas_step.py:267) and K5
 ``fused_external_product`` (pallas_step.py:158).  The kernels are CUDA C++
-for sm_90a in ``csrc/limb_step.cu`` (with ``csrc/cmux_common.cuh``), built
-with nvcc into a shared library with a plain C interface on first use
-(``build``) and called through ctypes.  They read the step's doubled int8
-limb table of ``plain.prepare_trgsw_limbs``, (2L, 2, 4, 2N).
+for sm_90a in ``csrc/limb_step.cu`` (with ``csrc/cmux_step.cuh``,
+``csrc/hopper_common.cuh`` and ``csrc/limb_common.cuh``), built with nvcc
+into a shared library with a plain C interface on first use (``build``)
+and called through ctypes.  They read the step's doubled int8 limb table
+of ``plain.prepare_trgsw_limbs``, (2L, 2, 4, 2N).
+
+K4 and K6 are K1's step (``cmux_k``) on the limb table: one int8
+tensor-core (``wgmma``) GEMM in three launches from one call, the step's
+limb panels (``limb_panel``: K1's key panels, cut from the table's bytes),
+the digits (K1's digit kernel) and the product with the limb recombination
+and the add in its epilogue (K4's: ``merged_product``; K6's is K1's).
+K4's block tile holds both output halves (2 halves x 4 limbs x 32
+coefficients), K6's one half (4 limbs x 64 coefficients, K1's tile).  Each thread keeps its digit and
+panel buffers per device and stream while their shapes hold
+(``cmux_k._step_buffer``); the library keeps their TMA maps by address.
+They take N a power of two in [8, 2048] with any l whose sums stay exact
+(``check_bound`` and ``cmux_k.check_shape``).  K5 is a ``__dp4a`` kernel
+with the table of one output half in shared memory (``_check_smem``: it
+refuses PBS_PARAMS).
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
-kernel or raises.  ``cmux_step_merged.launches``,
-``cmux_step_split.launches`` and ``external_product.launches`` count the
-kernel launches, and nothing else.
+kernel or raises.  ``cmux_step_merged.launches`` and
+``cmux_step_split.launches`` count steps (three kernel launches each),
+``external_product.launches`` K5's launches; nothing else counts.
 """
 
 from __future__ import annotations
@@ -24,12 +39,14 @@ import functools
 import torch
 
 from .. import poly
+from .._u32 import wrap
 from ..params import TFHEParams
 from . import build, cmux_k, plain
-from .cmux_k import _check_tensor, _dispatch
+from .cmux_k import SLICE, _check_tensor, _dispatch
 from .plain import NUM_LIMBS
 
-TB = 8  # samples per block, as csrc/limb_step.cu
+TB = 8  # samples per block of K5 and the probes P5/P6, as csrc/limb_common.cuh
+MERGED_COEFFS = cmux_k.COEFFS // 2  # coefficients of one limb in K4's block tile
 
 
 @functools.lru_cache(maxsize=1)
@@ -37,16 +54,17 @@ def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/limb_step.cu``.
     Raises RuntimeError when no CUDA device is available."""
     lib = build.load("limb_step")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    step = [vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_uint, vp]
-    lib.rustfhe_limb_cmux_step_merged.argtypes = step
-    lib.rustfhe_limb_cmux_step_merged.restype = ci
-    lib.rustfhe_limb_cmux_step_split.argtypes = step
-    lib.rustfhe_limb_cmux_step_split.restype = ci
-    lib.rustfhe_limb_external_product.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-    lib.rustfhe_limb_external_product.restype = ci
-    lib.rustfhe_limb_smem_optin.argtypes = [ctypes.POINTER(ci)]
-    lib.rustfhe_limb_smem_optin.restype = ci
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    step = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]
+    for name, args in (("rustfhe_limb_cmux_step_merged", step),
+                       ("rustfhe_limb_cmux_step_split", step),
+                       ("rustfhe_limb_panel", [vp, vp, ci, ci, vp]),
+                       ("rustfhe_limb_merged_product", [vp, vp, vp, vp, ci, ci, ci, vp]),
+                       ("rustfhe_limb_external_product", [vp, vp, vp, ci, ci, ci, vp]),
+                       ("rustfhe_limb_smem_optin", [ctypes.POINTER(ci)])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ci
     return lib
 
 
@@ -55,8 +73,9 @@ def _check(err: int, what: str) -> None:
 
 
 def smem_bytes(params: TFHEParams, halves: int) -> int:
-    """Shared memory of one block: ``halves`` output halves of the limb
-    table (2L planes of K limbs of 2N bytes each) and the tile's digits."""
+    """Shared memory of one block of K5 (``halves`` 1) or of the probes P5
+    (2) and P6 (1): ``halves`` output halves of the limb table (2L planes
+    of K limbs of 2N bytes each) and the tile's digits."""
     two_l, N = 2 * params.l, params.N
     return halves * NUM_LIMBS * two_l * 2 * N + TB * two_l * N
 
@@ -115,40 +134,44 @@ def cmux_step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tenso
     return acc + plain.external_product_limbs(digits, table)
 
 
-def _step(entry: str, halves: int, acc, a_tilde, table, params: TFHEParams) -> torch.Tensor:
-    _check_smem(acc.device, params, halves, entry)
-    lib = load_library()
+def _step(entry: str, acc, a_tilde, table, params: TFHEParams) -> torch.Tensor:
+    """The three launches of K4 or K6 (``entry``) into the calling thread's
+    digit and panel buffers (``cmux_k._step_buffer``)."""
+    B = acc.shape[0]
+    N, two_l = params.N, 2 * params.l
+    cmux_k.check_shape(N, two_l)
+    if table.data_ptr() % 4:  # the panel kernel reads the table as words
+        table = table.clone()
+    stream = cmux_k._stream(acc.device)
+    digits = cmux_k._step_buffer("digits", (B, two_l, cmux_k.geometry(N)[0]), acc.device, stream)
+    panel = cmux_k._step_buffer("panel", cmux_k.panel_shape(params), acc.device, stream)
     out = torch.empty_like(acc)
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        err = getattr(lib, entry)(
-            acc.data_ptr(), a_tilde.data_ptr(), table.data_ptr(), out.data_ptr(),
-            acc.shape[0], params.N, params.l, params.bgbit, params.decomp_mask, stream)
-    _check(err, entry)
+    cmux_k._launch(entry, getattr(load_library(), entry), acc, a_tilde, table, out, digits, panel,
+                   B, N, params.l, params.bgbit, params.decomp_mask, stream=stream)
     return out
 
 
 def cmux_step_merged(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                      params: TFHEParams) -> torch.Tensor:
-    """K4, both output halves per block: ``acc`` int32 (B, 2, N), ``a_tilde``
-    int32 (B,) in [0, 2N), ``table`` the step's doubled limb table int8
-    (2L, 2, 4, 2N).  Returns the new accumulator."""
+    """K4, both output halves per block tile: ``acc`` int32 (B, 2, N),
+    ``a_tilde`` int32 (B,) in [0, 2N), ``table`` the step's doubled limb
+    table int8 (2L, 2, 4, 2N).  Returns the new accumulator."""
     _check_step(acc, a_tilde, table, params)
     if not _dispatch(acc.device):
         return cmux_step_plain(acc, a_tilde, table, params)
-    out = _step("rustfhe_limb_cmux_step_merged", 2, acc, a_tilde, table, params)
+    out = _step("rustfhe_limb_cmux_step_merged", acc, a_tilde, table, params)
     cmux_step_merged.launches += 1
     return out
 
 
 def cmux_step_split(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                     params: TFHEParams) -> torch.Tensor:
-    """K6, one output half per block (each block builds the digits again);
-    the operands and the result of ``cmux_step_merged``."""
+    """K6, one output half per block tile; the operands and the result of
+    ``cmux_step_merged``."""
     _check_step(acc, a_tilde, table, params)
     if not _dispatch(acc.device):
         return cmux_step_plain(acc, a_tilde, table, params)
-    out = _step("rustfhe_limb_cmux_step_split", 1, acc, a_tilde, table, params)
+    out = _step("rustfhe_limb_cmux_step_split", acc, a_tilde, table, params)
     cmux_step_split.launches += 1
     return out
 
@@ -188,6 +211,90 @@ def external_product(digits: torch.Tensor, table: torch.Tensor,
 
 
 external_product.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# The pieces of K4/K6 that are not K1's: their checks
+# --------------------------------------------------------------------- #
+def limb_panel_plain(table: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The step's panels from its limb table ``table`` int8 (2L, 2, 4, 2N):
+    int8 (2L, 2, 4, rows, SLICE) with
+
+      panel[j, c, t, x - x0, r] = table[j, c, t, x - r]   (r < N, x < 2N)
+
+    and zeros elsewhere: ``cmux_k.key_panel_plain`` of the int32 table
+    whose limbs ``table`` holds."""
+    N = params.N
+    _, x0, rows = cmux_k.geometry(N)
+    x = torch.arange(rows, device=table.device) + x0
+    r = torch.arange(SLICE, device=table.device)
+    live = (r[None, :] < N) & (x[:, None] < 2 * N)
+    bytes_ = table[..., (x[:, None] - r[None, :]).clamp(0, 2 * N - 1)]  # (2L, 2, 4, rows, SLICE)
+    return torch.where(live, bytes_, torch.zeros_like(bytes_)).contiguous()
+
+
+def limb_panel(table: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The panels of ``table`` (``limb_panel_plain``'s function), on the
+    table's device."""
+    N, two_l = params.N, 2 * params.l
+    _check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), table.device)
+    if not _dispatch(table.device):
+        return limb_panel_plain(table, params)
+    cmux_k.check_shape(N, two_l)
+    if table.data_ptr() % 4:
+        table = table.clone()
+    panel = torch.empty(cmux_k.panel_shape(params), dtype=torch.int8, device=table.device)
+    cmux_k._launch("limb_panel", load_library().rustfhe_limb_panel, table, panel, N, two_l)
+    return panel
+
+
+def merged_product_plain(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
+                         params: TFHEParams) -> torch.Tensor:
+    """K4's product as its block tile computes it: per tile of
+    ``MERGED_COEFFS`` coefficients k0 + kk, the stage's eight boxes (half c,
+    limb t), panel rows k0 + kk + N - SLICE kb - x0 of plane j, give the
+    tile's 256 columns 128c + 32t + kk; their int32 sums (float64, exact:
+    below 2^31) over every plane and slice are read back at the column
+    blocks 16c + 4t + kk // 8, recombined as sum_t << 8t mod 2^32 and added
+    to ``acc``.  ``digits`` int8 (B, 2L, npad); ``panel`` as
+    ``limb_panel``; returns int32 (B, 2, N)."""
+    N = params.N
+    npad, x0, _ = cmux_k.geometry(N)
+    B, two_l = digits.shape[0], digits.shape[1]
+    d = digits.to(torch.float64)
+    kk = torch.arange(MERGED_COEFFS, device=digits.device)
+    out = torch.empty((B, 2, N), dtype=torch.int64, device=digits.device)
+    for k0 in range(0, N, MERGED_COEFFS):
+        frag = torch.zeros((B, 2 * NUM_LIMBS * MERGED_COEFFS), dtype=torch.float64,
+                           device=digits.device)
+        for j in range(two_l):
+            for kb in range(npad // SLICE):
+                stage = panel[j].index_select(2, k0 + kk + N - SLICE * kb - x0)  # (2, 4, 32, SLICE)
+                frag += d[:, j, SLICE * kb: SLICE * (kb + 1)] @ \
+                    stage.reshape(-1, SLICE).to(torch.float64).t()
+        # column 128c + 32t + kk: fragment block 16c + 4t + kk // 8
+        part = frag.to(torch.int64).reshape(B, 2, NUM_LIMBS, MERGED_COEFFS)
+        width = min(MERGED_COEFFS, N - k0)
+        out[:, :, k0: k0 + width] = sum(part[:, :, t, :width] << (8 * t) for t in range(NUM_LIMBS))
+    return acc + wrap(out)
+
+
+def merged_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
+                   params: TFHEParams) -> torch.Tensor:
+    """K4's product (``merged_product_plain``'s function) on the device of
+    ``digits``; K6's product is K1's (``cmux_k.panel_product``)."""
+    B = digits.shape[0]
+    N, two_l = params.N, 2 * params.l
+    _check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
+    _check_tensor("panel", panel, torch.int8, cmux_k.panel_shape(params), digits.device)
+    _check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
+    if not _dispatch(digits.device):
+        return merged_product_plain(digits, panel, acc, params)
+    cmux_k.check_shape(N, two_l)
+    out = torch.empty_like(acc)
+    cmux_k._launch("limb_merged_product", load_library().rustfhe_limb_merged_product, digits,
+                   panel, acc, out, B, N, two_l)
+    return out
 
 
 def reset_counters() -> None:

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K6 and the probes P1-P10 against their plain
-versions, and the generic engines "matmul" and "matmul_bf16" against
+"""The CUDA kernels K1-K6 (and K4/K6's pieces) and the probes P1-P10
+against their plain versions, and the generic engines "matmul" and "matmul_bf16" against
 their CPU products, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
@@ -240,17 +240,141 @@ def test_limb_engine_selected_and_gates_on_card(cuda):
     assert cmux_k.cmux_step.launches == k1
 
 
-def test_limb_kernels_refuse_shapes_over_the_shared_memory_limit(cuda):
-    p = params.PBS_PARAMS  # N=2048, l=4: 384 KB for K4, 256 KB for K6 and K5
+# K4 and K6 (the K1 GEMM on the limb table) at every shape class: TEST_PARAMS
+# (N=64 padded to one slice, KT = 6: the ring wraps mid-tile), FAST, DEFAULT
+# and PBS_PARAMS (N=2048, l=4: past K5's shared memory).
+LIMB_PARAMS = {"TEST_PARAMS": params.TEST_PARAMS, "FAST_PARAMS": params.FAST_PARAMS,
+               "DEFAULT_PARAMS": params.DEFAULT_PARAMS, "PBS_PARAMS": params.PBS_PARAMS}
+LIMB_STEPS = {"K4": limb_step.cmux_step_merged, "K6": limb_step.cmux_step_split}
+
+
+def _limb_case(seed, B, p, cuda):
+    """rows with the limb edges, acc, a~ on the card, and the step's limb table."""
+    rows, acc, ai, _ = _case(seed, B, p)
+    rows[0, 0, :2] = [0x80808080, 0xFFFFFFFF]
+    table = plain.prepare_trgsw_limbs(_u32.from_numpy(rows, cuda))
+    return rows, _u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda), table
+
+
+@pytest.mark.parametrize("B", [1, 13, 129])  # one sample; a ragged tile; two tiles
+@pytest.mark.parametrize("name", list(LIMB_PARAMS))
+def test_limb_step_kernels_match_plain(cuda, name, B):
+    p = LIMB_PARAMS[name]
+    _, acc, ai, table = _limb_case(51, B, p, cuda)
+    want = limb_step.cmux_step_plain(acc, ai, table, p)  # float64 on the card
+    for tag, step in LIMB_STEPS.items():
+        before = step.launches
+        got = step(acc, ai, table, p)
+        assert step.launches == before + 1, tag
+        assert torch.equal(got, want), tag
+
+
+@pytest.mark.parametrize("N", [8, 16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_limb_step_kernels_at_every_ring_degree(cuda, N):
+    # N < 32 leaves most of K4's 32-coefficient tile past N, N < 128 pads
+    # the digits to one slice, N = 2048 has 16 slices a plane
+    p = params.FAST_PARAMS.replace(N=N)
+    _, acc, ai, table = _limb_case(52, 13, p, cuda)
+    want = limb_step.cmux_step_plain(acc, ai, table, p)
+    for tag, step in LIMB_STEPS.items():
+        assert torch.equal(step(acc, ai, table, p), want), (tag, N)
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "FAST_PARAMS", "DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_limb_step_pieces_match_plain(cuda, name):
+    # the limb panel (= K1's key panel), and the product in K4's merged tile
+    # and in K6's (K1's) tile, each against its plain version
+    p = LIMB_PARAMS[name]
+    rows, acc, ai, table = _limb_case(53, 13, p, cuda)
+    panel = limb_step.limb_panel(table, p)
+    assert torch.equal(panel, limb_step.limb_panel_plain(table, p))
+    assert torch.equal(panel, cmux_k.key_panel(plain.prepare_trgsw(_u32.from_numpy(rows, cuda)), p))
+    digits = cmux_k.step_digits(acc, ai, p)
+    want = limb_step.cmux_step_plain(acc, ai, table, p)
+    got = limb_step.merged_product(digits, panel, acc, p)
+    assert torch.equal(got, limb_step.merged_product_plain(digits, panel, acc, p))
+    assert torch.equal(got, want)
+    got = cmux_k.panel_product(digits, panel, acc, p)
+    assert torch.equal(got, cmux_k.panel_product_plain(digits, panel, acc, p))
+    assert torch.equal(got, want)
+
+
+def test_limb_step_kernels_with_more_tiles_than_blocks(cuda):
+    p = params.TEST_PARAMS
+    _, acc, ai, table = _limb_case(54, _more_tiles_than_blocks(cuda), p, cuda)
+    want = limb_step.cmux_step_plain(acc, ai, table, p)
+    for tag, step in LIMB_STEPS.items():
+        assert torch.equal(step(acc, ai, table, p), want), tag
+
+
+def test_limb_steps_threads_keep_their_own_buffers(cuda):
+    # two threads stepping side by side, one on K4 and one on K6, each on
+    # its own digit and panel buffers
+    p, B, steps = params.FAST_PARAMS, 256, 16
+    inputs, want = [], []
+    for seed in (55, 56):
+        _, acc, ai, table = _limb_case(seed, B, p, cuda)
+        a = acc
+        for _ in range(steps):
+            a = limb_step.cmux_step_plain(a, ai, table, p)
+        inputs.append((acc, ai, table))
+        want.append(a)
+    got, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def run(t):
+        try:
+            a, ai, table = inputs[t]
+            step = (limb_step.cmux_step_merged, limb_step.cmux_step_split)[t]
+            start.wait()
+            for _ in range(steps):
+                a = step(a, ai, table, p)
+            got[t] = a.clone()
+        except Exception as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for t in range(2):
+        assert torch.equal(got[t], want[t])
+
+
+def test_limb_steps_run_pbs_params_bit_exact(cuda):
+    # N=2048, l=4 (K4 needed 384 KB of shared memory in its __dp4a form):
+    # K4 and K6 equal the plain step and K1 on the same key
+    p = params.PBS_PARAMS
+    rows, acc, ai, table = _limb_case(57, 300, p, cuda)
+    k1 = cmux_k.cmux_step(acc, ai, plain.prepare_trgsw(_u32.from_numpy(rows, cuda)), p)
+    assert torch.equal(k1, limb_step.cmux_step_plain(acc, ai, table, p))
+    for tag, step in LIMB_STEPS.items():
+        assert torch.equal(step(acc, ai, table, p), k1), tag
+
+
+def test_limb_external_product_refuses_shapes_over_the_shared_memory_limit(cuda):
+    p = params.PBS_PARAMS  # N=2048, l=4: 256 KB for K5's block
     table = torch.zeros((2 * p.l, 2, 4, 2 * p.N), dtype=torch.int8, device=cuda)
-    acc = torch.zeros((1, 2, p.N), dtype=torch.int32, device=cuda)
-    ai = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    for step in (limb_step.cmux_step_merged, limb_step.cmux_step_split):
-        with pytest.raises(ValueError, match="opt-in limit"):
-            step(acc, ai, table, p)
     digits = torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8, device=cuda)
+    before = limb_step.external_product.launches
     with pytest.raises(ValueError, match="opt-in limit"):
         limb_step.external_product(digits, table, p)
+    assert limb_step.external_product.launches == before
+
+
+def test_limb_step_kernels_refuse_what_they_do_not_take(cuda):
+    for N in (4, 4096):
+        p = params.FAST_PARAMS.replace(N=N)
+        acc = torch.zeros((1, 2, N), dtype=torch.int32, device=cuda)
+        ai = torch.zeros((1,), dtype=torch.int32, device=cuda)
+        table = torch.zeros((2 * p.l, 2, 4, 2 * N), dtype=torch.int8, device=cuda)
+        for tag, step in LIMB_STEPS.items():
+            before = step.launches
+            with pytest.raises(ValueError, match="power of two"):
+                step(acc, ai, table, p)
+            assert step.launches == before, tag
 
 
 @pytest.mark.parametrize("B", [1, 13])  # 13 samples: a ragged last tile

@@ -5,9 +5,11 @@ On the CPU the wrappers run the kernels' plain versions; these are held
 word for word (tolerance zero) to the Pallas kernels of the JAX engine
 ``"pallas"`` in interpret mode (``PallasEngine(interpret=True, tb=8)``, as
 tests/test_poly.py runs them), at small N in the fast run and at
-FAST_PARAMS- and DEFAULT_PARAMS-shaped N=1024 rows in the slow tests.  The
-CUDA kernels themselves are compared with their plain versions on the
-card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+FAST_PARAMS- and DEFAULT_PARAMS-shaped N=1024 rows in the slow tests.
+K4/K6's pieces (the limb panel and the products in K4's and K6's tile
+orders) are held to K1's panel and to the plain step.  The CUDA kernels
+themselves are compared with their plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -180,6 +182,44 @@ def test_limb_step_equals_cmux_k_step(name):
 
 
 # --------------------------------------------------------------------- #
+# K4/K6's pieces: the limb panel, the products in the two tile orders
+# --------------------------------------------------------------------- #
+PIECE_PARAMS = {"TEST_PARAMS": params.TEST_PARAMS, "FAST_PARAMS": params.FAST_PARAMS,
+                "DEFAULT_PARAMS": params.DEFAULT_PARAMS, "PBS_PARAMS": params.PBS_PARAMS}
+
+
+@pytest.mark.parametrize("name", list(PIECE_PARAMS))
+def test_limb_panel_equals_k1_key_panel(name):
+    # the panel cut from the limb table's bytes = K1's panel split from the
+    # int32 key, word for word (N=64 padded, FAST, DEFAULT, N=2048 at l=4)
+    p = PIECE_PARAMS[name]
+    rows = _rows(15, p)
+    rows[0, 0], rows[1, 1, :5] = 0x80808080, EDGE_WORDS
+    t_rows = _u32.from_numpy(rows)
+    got = limb_step.limb_panel(plain.prepare_trgsw_limbs(t_rows), p)  # CPU: the plain version
+    assert got.shape == cmux_k.panel_shape(p) and got.dtype == torch.int8
+    assert torch.equal(got, cmux_k.key_panel_plain(plain.prepare_trgsw(t_rows), p))
+
+
+@pytest.mark.parametrize("name", ["N16", "TEST_PARAMS", "FAST_PARAMS", "DEFAULT_PARAMS"])
+def test_products_in_tile_order_equal_the_step(name):
+    # plain limb panel + plain digits through K4's merged tile order (both
+    # halves x 4 limbs x 32 coefficients) and through K6's (K1's) tile order
+    # = the plain step, word for word; N=16 leaves most of K4's tile past N
+    p = params.FAST_PARAMS.replace(N=16) if name == "N16" else PIECE_PARAMS[name]
+    rows = _rows(16, p)
+    acc, ai = _acc(17, p, 5)
+    table, t_acc, t_ai = _table(rows), _u32.from_numpy(acc), torch.from_numpy(ai)
+    want = limb_step.cmux_step_plain(t_acc, t_ai, table, p)
+    digits = cmux_k.step_digits_plain(t_acc, t_ai, p)
+    panel = limb_step.limb_panel_plain(table, p)
+    assert torch.equal(limb_step.merged_product_plain(digits, panel, t_acc, p), want)
+    assert torch.equal(cmux_k.panel_product_plain(digits, panel, t_acc, p), want)
+    # the wrapper on CPU tensors: the plain version
+    assert torch.equal(limb_step.merged_product(digits, panel, t_acc, p), want)
+
+
+# --------------------------------------------------------------------- #
 # The wrappers check their operands
 # --------------------------------------------------------------------- #
 def test_wrappers_check_their_operands():
@@ -216,6 +256,17 @@ def test_wrappers_check_their_operands():
         limb_step.cmux_step_split(meta, m_ai, m_tab, p)
     with pytest.raises(ValueError, match="no kernel or plain version"):
         limb_step.external_product(d8.to("meta"), m_tab, p)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        limb_step.limb_panel(m_tab, p)
+    # the pieces check their operands too
+    with pytest.raises(TypeError):
+        limb_step.limb_panel(table.to(torch.int32), p)
+    digits = cmux_k.step_digits_plain(t_acc, t_ai, p)
+    panel = limb_step.limb_panel_plain(table, p)
+    with pytest.raises(ValueError):
+        limb_step.merged_product(digits[:, :, :64].contiguous(), panel, t_acc, p)
+    with pytest.raises(ValueError):
+        limb_step.merged_product(digits, panel[:1], t_acc, p)
 
 
 def test_exactness_bound_check_raises():
