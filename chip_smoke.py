@@ -15,8 +15,8 @@ Phases, one line each:
 
   1. environment: torch, CUDA, nvcc, the card;
   2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use;
-     ptxas's registers, spills and performance notes; K1/K2's and K4/K6's
-     kernels may not spill);
+     ptxas's registers, spills and performance notes; K1/K2's, K3's and
+     K4/K5/K6's kernels may not spill);
   3. kernels: K1 (CMux step: key panel, digits and the int8 wgmma product
      with the limb recombination in its epilogue) and K2 (external
      product: panel and product) on the card against their plain torch
@@ -35,11 +35,15 @@ Phases, one line each:
      memory, and the SM clock sampled by nvidia-smi during the pass);
   6. K1 on the real bootstrapping key: the first steps of both main-path
      batches' blind rotations, kernel against plain version, bit for bit;
-  7. latency path: K3 (the single-launch blind rotation) against its plain
-     version and the K1 loop over all n steps, bit for bit, on random keys
-     at B = 1, 8, 32, 33; K3's time per rotation beside the K1 loop's and
-     the plain version's, and their medians over 7 rounds at B = 4, 8, 16,
-     32 (the crossover that sets ``rotate_all_k.MAX_BATCH``); then the
+  7. latency path: K3 (the single-launch blind rotation, one cluster per
+     sample, the step on the tensor cores) against its plain version and
+     the K1 loop over all n steps, bit for bit, on random keys at B = 1, 8,
+     32, 33, on clusters of 8 and of 16; K3's time per rotation beside the
+     K1 loop's, the plain version's, the latency floor (n cluster barriers
+     on K3's cluster shape) and the bound, at B = 1 to 512; the two
+     cluster sizes in turns at B = 1 and 16; K3's device time per step and
+     its registers; the medians of K3 and the K1 loop over 7 rounds at B =
+     4 to 128 (the crossover that sets ``rotate_all_k.MAX_BATCH``); then the
      nander console in latency mode
      (``nander_console(..., latency_mode=True)``) on a fixed script, every
      ``res:`` checked against ``PlainLogic``, with exactly one K3 launch
@@ -50,22 +54,25 @@ Phases, one line each:
      program layer by layer under ``torch.profiler``;
   8. the limb engine (the JAX engine "pallas"): K4 (merged CMux step), K6
      (c-split step), both K1's int8 wgmma GEMM on panels cut from the limb
-     table (K4's tile holds both output halves), and K5 (external product)
+     table (K4's tile holds both output halves), and K5 (external product:
+     the limb panel and the product without the add, as K2 is K1's)
      against their plain versions, bit for bit (K5 also against the
      oracle), at FAST_PARAMS (l=2, Bg=2^8) and DEFAULT_PARAMS, on the probe
      vectors and random tiles at B = 1, 13, 33, 1024, 4096, K4/K6's three
      kernels alone (limb panel, digits, the product in K4's and K6's tiles)
      at B=4096; their times in turns beside the plain version and K1/K2,
-     the three kernels' device time (profiler), the product's rate and the
-     share of the bound; K4 and K6 at PBS_PARAMS (N=2048, l=4) against the
-     plain step and K1, K5 refused there, and their times beside K1; then
+     the three kernels' device time (profiler), the
+     product's rate and the share of the bound; K4, K6 and K5 at
+     PBS_PARAMS (N=2048, l=4) against the plain step and K1 (K5 against
+     its plain version and K2), and their times beside K1 and K2; then
      the FAST_PARAMS path: ``TFHE.new`` picks the
      limb engine, the mixed batch, the MUX second pass and three NAND
      batches run K4 on every step and nothing else, and every lv0 output
      equals that of a K1 context on the same keys (the preset is unsound
      at n=635, so decrypt errors are counted, under a bound); then
      DEFAULT_PARAMS through K4, K6 and K5 per step on phase 4's mixed
-     batch, every output decrypted and equal to phase 4's;
+     batch, every output decrypted and equal to phase 4's, and the times
+     of one K5-per-step step's torch decomposition, K5 and the whole;
   9. the probes (the JAX package's ``benches/`` kernels the port carries):
      P6 (the limb step without its products or its rotation), P5 (the
      merged step's two recombination orders), both in their __dp4a forms
@@ -151,8 +158,9 @@ from rustfhe_tpu_torch.trgsw import decompose_trlwe
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel")  # a step's launches
-# K4/K6's launches (the digit and product kernels are K1's, csrc/cmux_step.cuh) and K5's kernel
-LIMB_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel", "limb_kernel")
+# K4/K6's and K5's launches (the digit and product kernels are K1's, csrc/cmux_step.cuh)
+LIMB_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel")
+K3_KERNELS = ("rotate_all_kernel", "barrier_floor_kernel")
 STEP_PIECES = {"panel": "panel_kernel", "digits": "step_digits_kernel",
                "product": "cmux_product_kernel"}  # a K1/K4/K6 step's kernels, by name
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
@@ -368,6 +376,8 @@ def ptxas_kernels(report: str, names) -> dict[str, tuple[int, int]]:
             name = next((k for k in names if k in m.group(1)), m.group(1))
             if t := re.search(r"ILb([01])ELi(\d)E", m.group(1)):
                 name += f"<{'true' if t.group(1) == '1' else 'false'}, {t.group(2)}>"
+            elif t := re.search(r"ILi(\d+)EE", m.group(1)):
+                name += f"<{t.group(1)}>"
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = int(m.group(1)) + int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
@@ -586,8 +596,9 @@ LATENCY_TIMES = (1, 2, 4, 8, 16, 32, 128, 256, 512)  # K3 and K1 loop per rotati
 PLAIN_TIMES = (1, 8, 32, 128)             # and the plain version
 # K3 against the K1 loop, CROSSOVER_REPS runs at each batch: the medians
 # set rotate_all_k.MAX_BATCH (the K1 loop's time is the host's, and varies).
-CROSSOVER = (4, 8, 16, 32)
+CROSSOVER = (4, 8, 16, 32, 64, 128)
 CROSSOVER_REPS = 7
+CLUSTER_TIMES = (1, 16)  # K3 on clusters of 8 and of 16 blocks, in turns
 # The console script: the 13 expressions of the JAX package's REPL tests,
 # one pipelined line of 32 single gates, and one parse error.
 EXPRS = [
@@ -616,9 +627,20 @@ def k1_loop(acc, a_steps, bk, p):
     return acc
 
 
-def phase_latency_kernels(p, dev, rs, card):
+def k3_work(p, b: int) -> tuple[float, int]:
+    """(int8 ops, bytes) of a rotation of b samples: the n steps' ops
+    (``step_ops``); the accumulator in and out, the rotations and the
+    key's q half (the -q half is its negation, and K3 reads only q)."""
+    return (step_ops(p, b, p.n),
+            b * 2 * 2 * p.N * 4 + p.n * b * 4 + p.n * 2 * p.l * 2 * p.N * 4)
+
+
+def phase_latency_kernels(p, dev, rs, card, regs):
     """K3 against its plain version and the K1 loop over all n steps, on a
-    random key; then the three times per rotation."""
+    random key, on both cluster sizes; then its time per rotation beside
+    the K1 loop's, the plain version's, the latency floor (n cluster
+    barriers on K3's cluster shape) and the bound; the two cluster sizes in
+    turns; K3's device time per step (profiler) and its registers."""
     bk = plain.prepare_trgsw(words(rs, (p.n, 2 * p.l, 2, p.N), dev))
     err = 0
     for b in LATENCY_CHECK:
@@ -626,10 +648,15 @@ def phase_latency_kernels(p, dev, rs, card):
         got = rotate_all_k.rotate_all(acc, a, bk, p)
         err = max(err, exact(f"K3 B={b} vs plain", got, rotate_all_k.rotate_all_plain(acc, a, bk, p)),
                   exact(f"K3 B={b} vs K1 loop", got, k1_loop(acc, a, bk, p)))
+        for cl in rotate_all_k.CLUSTERS:
+            err = max(err, exact(f"K3 B={b} on clusters of {cl}",
+                                 rotate_all_k._rotate_all(acc, a, bk, p, cl), got))
     torch.cuda.synchronize()
     log("latency", f"K3 bit-exact against its plain version and the K1 loop over all {p.n} "
-        f"steps, random key, B={', '.join(map(str, LATENCY_CHECK))}; the card holds "
-        f"{rotate_all_k.max_clusters(p)} K3 clusters at once")
+        f"steps, random key, B={', '.join(map(str, LATENCY_CHECK))}, on clusters of "
+        f"{' and '.join(map(str, rotate_all_k.CLUSTERS))}; the card holds " + ", ".join(
+            f"{rotate_all_k.max_clusters(p, cl)} K3 clusters of {cl}"
+            for cl in rotate_all_k.CLUSTERS) + " at once")
 
     times = {}
     for b in LATENCY_TIMES:
@@ -638,9 +665,29 @@ def phase_latency_kernels(p, dev, rs, card):
                        lambda: k1_loop(acc, a, bk, p), 2)
         pl = cuda_ms(lambda: rotate_all_k.rotate_all_plain(acc, a, bk, p), 1) \
             if b in PLAIN_TIMES else None
-        times[b] = (k3, k1, pl)
-        log("latency", f"B={b} on {card}: K3 {k3:.3f} ms per rotation, K1 loop {k1:.3f} ms, "
-            + (f"plain {pl:.3f} ms" if pl is not None else "plain not timed at this batch"))
+        cl = rotate_all_k.cluster_for(b, p, dev)
+        floor = cuda_ms(lambda: rotate_all_k.barrier_floor(b, p, dev, cl), 3)
+        bnd, by = bound(*k3_work(p, b))
+        times[b] = (k3, k1, pl, floor)
+        log("latency", f"B={b} on {card}: K3 {k3:.3f} ms per rotation (clusters of {cl}), K1 "
+            f"loop {k1:.3f} ms, " + (f"plain {pl:.3f} ms" if pl is not None else
+                                      "plain not timed at this batch")
+            + f"; latency floor ({p.n} cluster barriers) {floor:.3f} ms; bound {bnd:.4f} ms "
+            f"({by})")
+    for b in CLUSTER_TIMES:
+        acc, a = rotation_case(rs, p, b, dev)
+        t = turns({cl: (lambda cl=cl: rotate_all_k._rotate_all(acc, a, bk, p, cl))
+                   for cl in rotate_all_k.CLUSTERS}, 3)
+        log("latency", f"B={b} on {card}, in turns: K3 " + ", ".join(
+            f"{v:.3f} ms on clusters of {k}" for k, v in t.items())
+            + f"; rotate_all takes {rotate_all_k.cluster_for(b, p, dev)}")
+    acc, a = rotation_case(rs, p, 1, dev)
+    seen, counts = profiled_times(lambda: rotate_all_k.rotate_all(acc, a, bk, p), 3)
+    k3 = [k for k in seen if "rotate_all_kernel" in k]
+    dev_ms = sum(seen[k] for k in k3) / sum(counts[k] for k in k3)  # a session may miss some
+    log("profile", f"K3 at B=1 on {card}: device time {dev_ms:.3f} ms per rotation, "
+        f"{dev_ms / p.n * 1e3:.2f} us per step (profiler); registers (spill bytes): " + (", ".join(
+            f"{k} {r} ({sp})" for k, (r, sp) in regs.items()) if regs else "cached build"))
     crossover_sweep(p, dev, bk, card)
     return err, times
 
@@ -864,10 +911,10 @@ def phase_limb_kernels(dev, rs, card, regs):
     """K4, K6 and K5 against their plain versions, bit for bit (K5 also
     against the oracle), at FAST_PARAMS and DEFAULT_PARAMS: the probe
     vectors and random tiles at B = 1, 13, 33, 1024, 4096, and K4/K6's
-    three kernels alone at B=4096; K4 and K6 at PBS_PARAMS (K5 refused
-    there).  Then their times beside the plain version and K1 (K2 for K5)
-    at the same shape, the three kernels' device time, the product's rate
-    and the share of the bound."""
+    three kernels alone at B=4096; K4, K6 and K5 at PBS_PARAMS.  Then
+    their times beside the plain version and K1 (K2 for K5) at the same
+    shape, the three kernels' device time, the
+    product's rate and the share of the bound."""
     errs = {"k4": 0, "k5": 0, "k6": 0}
     times = {}
     for tag, p in (("FAST", FAST_PARAMS), ("DEFAULT", DEFAULT_PARAMS)):
@@ -915,6 +962,7 @@ def phase_limb_kernels(dev, rs, card, regs):
                    "k1": lambda: cmux_k.cmux_step(acc, ai, key, p),
                    "k4": lambda: limb_step.cmux_step_merged(acc, ai, tab, p),
                    "k6": lambda: limb_step.cmux_step_split(acc, ai, tab, p)}, 5)
+        # K5 beside K2
         t5 = turns({"plain": lambda: limb_step.external_product_plain(d, tab),
                     "k2": lambda: cmux_k.external_product(d, key, p),
                     "k5": lambda: limb_step.external_product(d, tab, p)}, 5)
@@ -932,9 +980,9 @@ def phase_limb_kernels(dev, rs, card, regs):
         log("limb", f"{tag} on {card}, B={BATCH}, ms per step in turns (CUDA events): K4 "
             f"{t['k4']:.4f}, K6 {t['k6']:.4f}, K1 {t['k1']:.4f}, plain {t['plain']:.4f}; share of "
             f"the {bnd:.4f} ms bound (the step's least int8 ops): K4 {bnd / t['k4']:.1%}, K6 "
-            f"{bnd / t['k6']:.1%}, K1 {bnd / t['k1']:.1%} | K5 {t5['k5']:.4f}, K2 {t5['k2']:.4f}, "
-            f"plain {t5['plain']:.4f} | at B=4 (probe): K5 {t5p['k5']:.4f}, K2 {t5p['k2']:.4f}, "
-            f"plain {t5p['plain']:.4f}")
+            f"{bnd / t['k6']:.1%}, K1 {bnd / t['k1']:.1%} | K5 {t5['k5']:.4f}, K2 "
+            f"{t5['k2']:.4f}, plain {t5['plain']:.4f} | at B={pd.shape[0]} (probe): K5 "
+            f"{t5p['k5']:.4f}, K2 {t5p['k2']:.4f}, plain {t5p['plain']:.4f}")
         log("limb", f"{tag} on {card}, B={BATCH}, device time per step (profiler), ms: "
             + "; ".join(f"{k.upper()} panel {v['panel']:.4f}, digits {v['digits']:.4f}, product "
                         f"{v['product']:.4f} ({ops / v['product'] / 1e9:.1f} TOPS, the GEMM's "
@@ -950,10 +998,10 @@ LIMB_PBS_CHECK = (1, 13, 129, MIXED)
 
 
 def phase_limb_pbs(dev, rs, card, errs) -> dict:
-    """K4 and K6 at PBS_PARAMS (N=2048, l=4), which their __dp4a forms
-    refused for shared memory: bit-exact against the plain step (on the
-    card) and K1 at B = 1, 13, 129, 1024, K5 refused; K4, K6 and K1 in
-    turns at B=4096."""
+    """K4, K6 and K5 at PBS_PARAMS (N=2048, l=4), which their __dp4a forms
+    refused for shared memory: K4 and K6 bit-exact against the plain step
+    (on the card) and K1, K5 against its plain version and K2, at B = 1,
+    13, 129, 1024; K4, K6 and K1 in turns at B=4096, K5 beside K2."""
     p = PBS_PARAMS
     rows = words(rs, (2 * p.l, 2, p.N), dev)
     tab, key = plain.prepare_trgsw_limbs(rows), plain.prepare_trgsw(rows)
@@ -966,25 +1014,27 @@ def phase_limb_pbs(dev, rs, card, errs) -> dict:
                                            limb_step.cmux_step_merged(acc, ai, tab, p), want))
         errs["k6"] = max(errs["k6"], exact(f"K6 PBS B={b}",
                                            limb_step.cmux_step_split(acc, ai, tab, p), want))
-    try:
-        limb_step.external_product(torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8, device=dev),
-                                   tab, p)
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("K5 ran at PBS_PARAMS, past its shared memory")
+        d = torch.from_numpy(rs.randint(-128, 128, size=(b, 2 * p.l, p.N)).astype(np.int8)).to(dev)
+        got = limb_step.external_product(d, tab, p)
+        errs["k5"] = max(errs["k5"], exact(f"K5 PBS B={b}", got,
+                                           limb_step.external_product_plain(d, tab)))
+        exact(f"K5 PBS B={b} vs K2", got, cmux_k.external_product(d, key, p))
     acc = words(rs, (BATCH, 2, p.N), dev)
     ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=BATCH).astype(np.int32)).to(dev)
+    d = torch.from_numpy(rs.randint(-128, 128, size=(BATCH, 2 * p.l, p.N)).astype(np.int8)).to(dev)
     t = turns({"k1": lambda: cmux_k.cmux_step(acc, ai, key, p),
                "k4": lambda: limb_step.cmux_step_merged(acc, ai, tab, p),
-               "k6": lambda: limb_step.cmux_step_split(acc, ai, tab, p)}, 5)
+               "k6": lambda: limb_step.cmux_step_split(acc, ai, tab, p),
+               "k5": lambda: limb_step.external_product(d, tab, p),
+               "k2": lambda: cmux_k.external_product(d, key, p)}, 5)
     torch.cuda.synchronize()
     bnd = bound(step_ops(p, BATCH), step_bytes(p, BATCH, 2 * p.l * 2 * 4 * 2 * p.N))[0]
     log("limb", f"PBS_PARAMS (N={p.N}, l={p.l}, Bg=2^{p.bgbit}): K4 and K6 bit-exact against the "
-        f"plain step and K1 at B={', '.join(map(str, LIMB_PBS_CHECK))}; K5 refused ({refused}); "
-        f"on {card}, B={BATCH}, ms per step in turns: K4 {t['k4']:.4f}, K6 {t['k6']:.4f}, K1 "
-        f"{t['k1']:.4f}; share of the {bnd:.4f} ms bound: K4 {bnd / t['k4']:.1%}, K6 "
-        f"{bnd / t['k6']:.1%}")
+        f"plain step and K1, K5 against its plain version and K2, at B="
+        f"{', '.join(map(str, LIMB_PBS_CHECK))}; on {card}, B={BATCH}, ms in turns: K4 "
+        f"{t['k4']:.4f}, K6 {t['k6']:.4f}, K1 {t['k1']:.4f} per step, K5 {t['k5']:.4f}, K2 "
+        f"{t['k2']:.4f} per product; share of the {bnd:.4f} ms bound: K4 {bnd / t['k4']:.1%}, "
+        f"K6 {bnd / t['k6']:.1%}")
     return t
 
 
@@ -1067,7 +1117,8 @@ def phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want):
     """DEFAULT_PARAMS through the limb engine chosen by name, on phase 4's
     mixed batch: one pass each of K4, K6 (merge_c=False) and K5 per step
     (fuse_step=False); every output decrypts correctly and all three equal
-    phase 4's K1 output word for word."""
+    phase 4's K1 output word for word.  Then one fuse_step=False step's
+    pieces, timed."""
     p = DEFAULT_PARAMS
     cmux_k.reset_counters()
     limb_step.reset_counters()
@@ -1094,6 +1145,24 @@ def phase_default_limb(dev, card, mixed_pre, mixed_out, mixed_want):
         "through K4, K6 (merge_c=False) and K5 per step (fuse_step=False): every output "
         "decrypts correctly and equals phase 4's K1 output word for word; launches "
         f"{launches}; pass " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in wall.items()))
+
+    # One fuse_step=False step at the pass's batch, in turns (after the
+    # counts): the torch rotation, difference and decomposition alone, K5
+    # alone on their digits, and the whole step as _limb_rotate runs it.
+    rs = np.random.RandomState(SEED)
+    acc = words(rs, (MIXED, 2, p.N), dev)
+    ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=MIXED).astype(np.int32)).to(dev)
+    table = ctx.ck.bk.table[0]
+
+    def torch_digits():
+        return decompose_trlwe(poly.rotate(acc, ai[:, None]) - acc, p).to(torch.int8)
+
+    d = torch_digits()
+    t = turns({"torch": torch_digits, "k5": lambda: limb_step.external_product(d, table, p),
+               "step": lambda: acc + limb_step.external_product(torch_digits(), table, p)}, 20)
+    log("limb", f"DEFAULT_PARAMS on {card}, one fuse_step=False step at B={MIXED}, ms in turns "
+        f"(CUDA events): torch rotation + decomposition {t['torch']:.4f}, K5 {t['k5']:.4f}, the "
+        f"step {t['step']:.4f}")
     return launches
 
 
@@ -1658,15 +1727,15 @@ def main() -> int:
                 log("build", "ptxas: " + line.strip())
     regs = {}
     for lib, what, names in (("cmux_k", "K1/K2", K1_KERNELS),
-                             ("limb_step", "K4/K6/K5", LIMB_KERNELS)):
+                             ("limb_step", "K4/K6/K5", LIMB_KERNELS),
+                             ("rotate_all_k", "K3", K3_KERNELS)):
         regs[lib] = ptxas_kernels(libs[lib][1], names)
         if not regs[lib]:  # a cached library has no report
             continue
         log("build", f"{what} kernels (registers, spill bytes): " + ", ".join(
             f"{k} {r}, {sp}" for k, (r, sp) in regs[lib].items()))
-        steps = {k: v for k, v in regs[lib].items() if not k.startswith("limb_kernel")}
-        if any(sp for _, sp in steps.values()) or "C75" in libs[lib][1]:
-            raise AssertionError(f"a {what} step kernel spills or ptxas serialised its wgmmas")
+        if any(sp for _, sp in regs[lib].values()) or "C75" in libs[lib][1]:
+            raise AssertionError(f"a {what} kernel spills or ptxas serialised its wgmmas")
 
     # 3. kernels against their plain versions
     rs = np.random.RandomState(SEED)
@@ -1692,7 +1761,7 @@ def main() -> int:
 
     # 7. the latency path: K3 checks and times, then the console with the
     # launch counts of its run only, then K3 on the real latency key
-    errs["k3"], k3_times = phase_latency_kernels(p, dev, rs, card)
+    errs["k3"], k3_times = phase_latency_kernels(p, dev, rs, card, regs["rotate_all_k"])
     lat = phase_console(p, dev, card)
     err, lat_ctx = phase_latency_real_key(p, dev, SEED)
     errs["k3"] = max(errs["k3"], err)
@@ -1747,14 +1816,14 @@ def main() -> int:
          "rustfhe_tpu/engine/pallas_k.py:506",
          launches["k2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
-        ("rotate_all_k", K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"], errs["k3"],
-         k3_times[1][0], k3_times[1][2],
-         (step_ops(p, 1, p.n), 2 * 2 * p.N * 4 + p.n * 4 + p.n * key_bytes), None),
+        ("rotate_all_k: rotate_all_kernel<TILES> (mma.sync s8, one cluster per sample)",
+         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"], errs["k3"],
+         k3_times[1][0], k3_times[1][2], k3_work(p, 1), None),
         ("limb_cmux_step_merged: limb_panel_kernel + step_digits_kernel + "
          "cmux_product_kernel<true, 2>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",
          fast["k4"], errs["k4"], fast_t["step"]["k4"], fast_t["step"]["plain"],
          (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
-        ("limb_external_product: limb_kernel", LIMB_SOURCE,
+        ("limb_external_product: limb_panel_kernel + cmux_product_kernel<false, 1>", LIMB_SOURCE,
          "rustfhe_tpu/engine/pallas_step.py:158",
          dflt["k5"], errs["k5"], fast_t["k5_probe"]["k5"], fast_t["k5_probe"]["plain"],
          (step_ops(F, b_k5), b_k5 * f_two_l * F.N + f_limb_bytes + b_k5 * 2 * F.N * 4), None),

@@ -13,13 +13,16 @@ The shifts are logical: on int32 words an arithmetic shift would make
 b~ and a~ negative for words >= 2^31.
 
 A latency-mode key (``keys.LatencyBK``) at a flattened batch of at most
-``rotate_all_k.MAX_BATCH`` runs the whole rotation as one launch of K3
+``rotate_all_k.MAX_BATCH``, at a shape K3 takes (``rotate_all_k.takes``:
+Bg <= 2^7 and N >= 64), runs the whole rotation as one launch of K3
 (``engine.rotate_all_k.rotate_all``), the JAX package's latency branch
 (``rustfhe_tpu/bootstrap.py:66-75``).  A larger batch takes the K1 loop,
 as the JAX engine's ``rotate_all_steps`` does, without its warning: the
 JAX panel key costs 12.6 GiB that a large batch wastes, the port's
 latency key costs nothing, and above the cap the K1 loop is the faster
-path (the console's 32-lane levels take it).
+path (the console's single gates and 32-lane levels stay below it).
+Any other latency key, FAST_PARAMS' Bg = 2^8 among them, takes the K1
+loop as well: its digits of -128 have no int8 negation.
 
 A limb key (``keys.LimbBK``) runs the limb engine, the JAX engine
 ``"pallas"`` (``rustfhe_tpu/bootstrap.py:101-117``): one launch of K4 per
@@ -95,7 +98,7 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | Gener
     if isinstance(bk, GenericBK):
         return _generic_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
     if isinstance(bk, LatencyBK):
-        if acc.shape[0] <= rotate_all_k.MAX_BATCH:
+        if acc.shape[0] <= rotate_all_k.MAX_BATCH and rotate_all_k.takes(params):
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
             return acc.reshape(lead + (2, params.N))
         bk = bk.bk

@@ -22,7 +22,7 @@
 //      per (half, limb) and recombines once (K4's limb-outer order); J_OUTER
 //      true recombines (uint32) part << 8k after each plane j.  Both equal K4.
 // The shared code (table and digit layouts, digit build, product loop) is
-// limb_common.cuh, the same K5 (limb_step.cu) compiles.
+// limb_common.cuh, which K4-K6 compiled in their __dp4a forms.
 //
 // What bounds it: the integer issue of __dp4a, minus what a variant drops.
 // Its design does nothing of its own: each variant is the __dp4a step with

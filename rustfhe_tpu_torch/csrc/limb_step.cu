@@ -53,16 +53,17 @@
 // (engine/limb_step.py keeps them per thread, device and stream, as K1's),
 // and their TMA maps are cached in this library by address.
 //
-// K5 keeps its first form: the limb table of one output half in shared
-// memory, byte-reversed, and __dp4a on the CUDA cores, TB=8 samples a
-// block (limb_common.cuh, shared with the probes P5/P6 of limb_probe.cu).
-// Its shared memory grows with N and l: it refuses PBS_PARAMS.
+// K5 is to K4/K6 what K2 is to K1: the limb panel and the product
+// without the add, on the caller's digits (B, 2L, N) int8, fed to TMA as
+// they are (N a multiple of DEPTH; the wrapper pads smaller N).  No digit
+// kernel.  Its tile is K1's and K6's (<false, 1>): K4's two-half tile
+// timed the same within the spread at FAST_PARAMS, B=4096 (PERF.md).  It
+// takes every shape K4/K6 take.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cmux_step.cuh"
-#include "limb_common.cuh"
 
 namespace {
 
@@ -141,64 +142,6 @@ int step(const void* acc, const void* a_tilde, const void* table, void* out, voi
   return (int)e;
 }
 
-// K5: the product of the caller's digits, one output half per block.
-using rustfhe::KPT;
-using namespace rustfhe::limb;
-
-__global__ void __launch_bounds__(MAX_THREADS)
-limb_kernel(const int8_t* __restrict__ digits, const uint32_t* __restrict__ table,
-            int32_t* __restrict__ out, int B, int N, int two_l) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int c = blockIdx.y;
-  const int b0 = blockIdx.x * TB;
-  uint32_t* tab_s = reinterpret_cast<uint32_t*>(smem);
-  int8_t* dig_s = reinterpret_cast<int8_t*>(smem + table_bytes(N, two_l, 1));
-
-  load_table(tab_s, table, c, 1, two_l, N);
-  const int per_sample = two_l * N;
-  for (int idx = threadIdx.x; idx < TB * per_sample; idx += blockDim.x) {
-    const int s = idx / per_sample;
-    const int ji = idx - s * per_sample;  // j*N + i
-    const int j = ji / N;
-    const int b = b0 + s;
-    dig_s[digit_byte(j, ji - j * N, s, N)] =
-        b < B ? digits[(size_t)b * per_sample + ji] : (int8_t)0;
-  }
-  __syncthreads();
-
-  const int k0 = threadIdx.x * KPT;
-  const uint32_t* dig_w = reinterpret_cast<const uint32_t*>(dig_s);
-  const int plane_words = two_l * (N / 2);
-  uint32_t res[TB][KPT];
-#pragma unroll
-  for (int s = 0; s < TB; ++s)
-#pragma unroll
-    for (int t = 0; t < KPT; ++t) res[s][t] = 0u;
-  for (int k = 0; k < NUM_LIMBS; ++k) {
-    int32_t part[TB][KPT];
-#pragma unroll
-    for (int s = 0; s < TB; ++s)
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) part[s][t] = 0;
-    limb_products(tab_s + (size_t)k * plane_words, dig_w, two_l, N, k0, part);
-#pragma unroll
-    for (int s = 0; s < TB; ++s)
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) res[s][t] += (uint32_t)part[s][t] << (LIMB_BITS * k);
-  }
-#pragma unroll
-  for (int s = 0; s < TB; ++s) {
-    const int b = b0 + s;
-    if (b < B) {
-      const size_t base = ((size_t)b * 2 + c) * N + k0;
-#pragma unroll
-      for (int t = 0; t < KPT; ++t) out[base + t] = (int32_t)res[s][t];
-    }
-  }
-}
-
-size_t extprod_granted[rustfhe::limb::MAX_DEVICES];
-
 }  // namespace
 
 extern "C" {
@@ -237,18 +180,16 @@ int rustfhe_limb_merged_product(const void* digits, const void* panel, const voi
                                       (cudaStream_t)stream);
 }
 
-// K5: digits (B, 2L, N) int8; table (2L, 2, 4, 2N) int8; out (B, 2, N) words.
-int rustfhe_limb_external_product(const void* digits, const void* table, void* out, int B,
-                                  int N, int l, void* stream) {
-  const int two_l = 2 * l;
-  const size_t smem = rustfhe::limb::smem_bytes(N, two_l, 1);
-  const cudaError_t e = rustfhe::limb::prepare((const void*)limb_kernel, B, N, two_l, smem,
-                                               extprod_granted);
-  if (e != cudaSuccess) return (int)e;
-  limb_kernel<<<dim3((B + rustfhe::limb::TB - 1) / rustfhe::limb::TB, 2), N / KPT, smem,
-                (cudaStream_t)stream>>>((const int8_t*)digits, (const uint32_t*)table,
-                                        (int32_t*)out, B, N, two_l);
-  return (int)cudaGetLastError();
+// K5: the limb panel, then the product of the caller's digits without
+// the add, in K1's tile.  digits (B, 2L, npad) int8; table (2L, 2, 4, 2N)
+// int8; out (B, 2, N) words; panel as above.
+int rustfhe_limb_external_product(const void* digits, const void* table, void* out, void* panel,
+                                  int B, int N, int two_l, void* stream) {
+  if (!shape_ok(B, N, two_l)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = launch_limb_panel(table, panel, N, two_l, st);
+  if (e == cudaSuccess) e = launch_product<false, 1>(digits, panel, nullptr, out, B, N, two_l, st);
+  return (int)e;
 }
 
 // The current device's opt-in limit of shared memory per block, in bytes.

@@ -10,7 +10,7 @@ form of the limb step (the table in shared memory, the digits built in the
 block), and their full forms are held to K6 and K4, now an int8 ``wgmma``
 GEMM (``limb_step``), word for word.  The kernels are CUDA C++ for sm_90a
 in ``csrc/limb_probe.cu``, on the shared code of ``csrc/limb_common.cuh``
-that K5 compiles, built with nvcc into a library with a plain C interface
+that K4-K6 compiled in their ``__dp4a`` forms, built with nvcc into a library with a plain C interface
 on first use and called through ctypes.  They take K4/K6's operands: acc
 int32 (B, 2, N), a~ int32 (B,), the doubled limb table int8 (2L, 2, 4, 2N).
 

@@ -20,15 +20,17 @@ coefficients), K6's one half (4 limbs x 64 coefficients, K1's tile).  Each threa
 panel buffers per device and stream while their shapes hold
 (``cmux_k._step_buffer``); the library keeps their TMA maps by address.
 They take N a power of two in [8, 2048] with any l whose sums stay exact
-(``check_bound`` and ``cmux_k.check_shape``).  K5 is a ``__dp4a`` kernel
-with the table of one output half in shared memory (``_check_smem``: it
-refuses PBS_PARAMS).
+(``check_bound`` and ``cmux_k.check_shape``).  K5 is to K4/K6 what K2 is
+to K1: the limb panel and the product without the add, on the caller's
+digits (two launches, no digit kernel), in K1's and K6's tile, at the
+same shapes.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
 kernel or raises.  ``cmux_step_merged.launches`` and
 ``cmux_step_split.launches`` count steps (three kernel launches each),
-``external_product.launches`` K5's launches; nothing else counts.
+``external_product.launches`` K5's calls (two launches each); nothing
+else counts.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from .. import poly
 from .._u32 import wrap
@@ -45,7 +48,7 @@ from . import build, cmux_k, plain
 from .cmux_k import SLICE, _check_tensor, _dispatch
 from .plain import NUM_LIMBS
 
-TB = 8  # samples per block of K5 and the probes P5/P6, as csrc/limb_common.cuh
+TB = 8  # samples per block of the probes P5/P6, as csrc/limb_common.cuh
 MERGED_COEFFS = cmux_k.COEFFS // 2  # coefficients of one limb in K4's block tile
 
 
@@ -60,7 +63,7 @@ def load_library() -> ctypes.CDLL:
                        ("rustfhe_limb_cmux_step_split", step),
                        ("rustfhe_limb_panel", [vp, vp, ci, ci, vp]),
                        ("rustfhe_limb_merged_product", [vp, vp, vp, vp, ci, ci, ci, vp]),
-                       ("rustfhe_limb_external_product", [vp, vp, vp, ci, ci, ci, vp]),
+                       ("rustfhe_limb_external_product", [vp, vp, vp, vp, ci, ci, ci, vp]),
                        ("rustfhe_limb_smem_optin", [ctypes.POINTER(ci)])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -73,9 +76,9 @@ def _check(err: int, what: str) -> None:
 
 
 def smem_bytes(params: TFHEParams, halves: int) -> int:
-    """Shared memory of one block of K5 (``halves`` 1) or of the probes P5
-    (2) and P6 (1): ``halves`` output halves of the limb table (2L planes
-    of K limbs of 2N bytes each) and the tile's digits."""
+    """Shared memory of one block of the probes P5 (``halves`` 2) and P6
+    (1): ``halves`` output halves of the limb table (2L planes of K limbs
+    of 2N bytes each) and the tile's digits."""
     two_l, N = 2 * params.l, params.N
     return halves * NUM_LIMBS * two_l * 2 * N + TB * two_l * N
 
@@ -190,7 +193,13 @@ external_product_plain = plain.external_product_limbs
 def external_product(digits: torch.Tensor, table: torch.Tensor,
                      params: TFHEParams) -> torch.Tensor:
     """ExtProd(rows, digits): ``digits`` int8 (B, 2L, N) against the doubled
-    limb table ``table`` int8 (2L, 2, 4, 2N).  Returns int32 (B, 2, N)."""
+    limb table ``table`` int8 (2L, 2, 4, 2N).  Returns int32 (B, 2, N).
+
+    On the card, K5's two launches: the limb panel into the calling
+    thread's panel buffer (``cmux_k._step_buffer``), then the product of
+    ``digits`` without the add, in K1's tile.  The digits go to TMA as they
+    are when N is a multiple of SLICE (the limb engine's shapes),
+    zero-padded to one slice below it."""
     B = digits.shape[0]
     N, two_l = params.N, 2 * params.l
     _check_tensor("digits", digits, torch.int8, (B, two_l, N), digits.device)
@@ -198,14 +207,19 @@ def external_product(digits: torch.Tensor, table: torch.Tensor,
     check_bound(params)
     if not _dispatch(digits.device):
         return external_product_plain(digits, table)
-    _check_smem(digits.device, params, 1, "rustfhe_limb_external_product")
-    lib = load_library()
+    cmux_k.check_shape(N, two_l)
+    npad = cmux_k.geometry(N)[0]
+    if npad != N:  # the product reads whole 128-byte slices: zeros past N
+        digits = F.pad(digits, (0, npad - N))
+    elif digits.data_ptr() % 16:
+        raise ValueError("digits must start on a 16-byte boundary (TMA reads them in place)")
+    if table.data_ptr() % 4:  # the panel kernel reads the table as words
+        table = table.clone()
+    stream = cmux_k._stream(digits.device)
+    panel = cmux_k._step_buffer("panel", cmux_k.panel_shape(params), digits.device, stream)
     out = torch.empty((B, 2, N), dtype=torch.int32, device=digits.device)
-    with torch.cuda.device(digits.device):
-        stream = torch.cuda.current_stream(digits.device).cuda_stream
-        err = lib.rustfhe_limb_external_product(
-            digits.data_ptr(), table.data_ptr(), out.data_ptr(), B, N, params.l, stream)
-    _check(err, "rustfhe_limb_external_product")
+    cmux_k._launch("limb_external_product", load_library().rustfhe_limb_external_product,
+                   digits, table, out, panel, B, N, two_l, stream=stream)
     external_product.launches += 1
     return out
 

@@ -207,6 +207,112 @@ def test_latency_mode_gates_on_card(cuda):
     assert rotate_all_k.rotate_all.launches == k3 + 1
 
 
+def test_latency_mode_takes_the_k1_loop_where_k3_does_not_take_the_shape(cuda):
+    # Bg = 2^8 (FAST_PARAMS' base) on the "cmux_k" engine: K1 per step, no K3
+    p = params.TEST_PARAMS.replace(bgbit=8, l=2)
+    ctx = TFHE.new(6, p, device=cuda, latency_mode=True, engine_name="cmux_k")
+    x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
+    k1, k3 = cmux_k.cmux_step.launches, rotate_all_k.rotate_all.launches
+    assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
+    assert cmux_k.cmux_step.launches == k1 + p.n
+    assert rotate_all_k.rotate_all.launches == k3
+
+
+# K3 (one cluster per sample, the step on the tensor cores) at TEST_PARAMS
+# (N=64: a cluster of one block), DEFAULT and N=2048 (l=3, and l=4 at
+# PBS_PARAMS), a shortened rotation of n steps.
+ROTATE_PARAMS = {"TEST_PARAMS": params.TEST_PARAMS, "DEFAULT_PARAMS": params.DEFAULT_PARAMS,
+                 "N2048_PARAMS": params.N2048_PARAMS, "PBS_PARAMS": params.PBS_PARAMS}
+
+
+def _rotation_case(seed, B, p, cuda):
+    rs = np.random.RandomState(seed)
+    rows = rs.randint(0, 2**32, size=(p.n, 2 * p.l, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    rows[0, 0, 0, :2] = [0x80808080, 0xFFFFFFFF]
+    acc = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    acc[0, 0, :5] = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    a = rs.randint(0, 2 * p.N, size=(p.n, B)).astype(np.int32)
+    a[:4, 0] = [0, p.N, 2 * p.N - 1, 1]
+    return (_u32.from_numpy(acc, cuda), torch.from_numpy(a).to(cuda),
+            plain.prepare_trgsw(_u32.from_numpy(rows, cuda)))
+
+
+def _k1_loop(acc, a, bk, p):
+    for i in range(p.n):
+        acc = cmux_k.cmux_step(acc, a[i], bk[i], p)
+    return acc
+
+
+@pytest.mark.parametrize("B", sorted({1, 2, 13, 16, 33, rotate_all_k.MAX_BATCH}))
+@pytest.mark.parametrize("name", list(ROTATE_PARAMS))
+def test_rotate_all_kernel_matches_plain_and_the_k1_loop(cuda, name, B):
+    p = ROTATE_PARAMS[name].replace(n=24)
+    acc, a, bk = _rotation_case(60 + B, B, p, cuda)
+    want = rotate_all_k.rotate_all_plain(acc, a, bk, p)
+    before = rotate_all_k.rotate_all.launches
+    got = rotate_all_k.rotate_all(acc, a, bk, p)
+    assert rotate_all_k.rotate_all.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, _k1_loop(acc, a, bk, p))
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "N2048_PARAMS"])
+def test_rotate_all_kernel_at_both_cluster_sizes(cuda, name, cluster):
+    p = ROTATE_PARAMS[name].replace(n=16)
+    acc, a, bk = _rotation_case(70, 3, p, cuda)
+    got = rotate_all_k._rotate_all(acc, a, bk, p, cluster)
+    assert torch.equal(got, rotate_all_k.rotate_all_plain(acc, a, bk, p))
+    assert rotate_all_k.max_clusters(p, cluster) >= 1
+
+
+def test_rotate_all_kernel_full_rotation_at_default(cuda):
+    p = params.DEFAULT_PARAMS
+    acc, a, bk = _rotation_case(71, 1, p, cuda)
+    assert torch.equal(rotate_all_k.rotate_all(acc, a, bk, p), _k1_loop(acc, a, bk, p))
+
+
+def test_rotate_all_kernel_threads_side_by_side(cuda):
+    # two threads rotating different samples at once, each on its own stream
+    p = params.DEFAULT_PARAMS.replace(n=32)
+    cases = [_rotation_case(seed, 2, p, cuda) for seed in (72, 73)]
+    want = [rotate_all_k.rotate_all_plain(*c, p) for c in cases]
+    torch.cuda.synchronize()  # the side streams read inputs made on the default one
+    got, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def run(t):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                start.wait()
+                for _ in range(3):
+                    out = rotate_all_k.rotate_all(*cases[t], p)
+                torch.cuda.current_stream().synchronize()
+            got[t] = out
+        except Exception as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for t in range(2):
+        assert torch.equal(got[t], want[t])
+
+
+def test_rotate_all_kernel_refuses_what_it_does_not_take(cuda):
+    for p in (params.TEST_PARAMS.replace(N=32, n=2), params.FAST_PARAMS.replace(n=2)):
+        acc = torch.zeros((1, 2, p.N), dtype=torch.int32, device=cuda)
+        a = torch.zeros((p.n, 1), dtype=torch.int32, device=cuda)
+        bk = torch.zeros((p.n, 2 * p.l, 2, 2 * p.N), dtype=torch.int32, device=cuda)
+        before = rotate_all_k.rotate_all.launches
+        with pytest.raises(ValueError):
+            rotate_all_k.rotate_all(acc, a, bk, p)
+        assert rotate_all_k.rotate_all.launches == before
+
+
 @pytest.mark.parametrize("name", ["FAST_PARAMS", "DEFAULT_PARAMS"])
 def test_limb_kernels_match_plain(cuda, name):
     p = getattr(params, name)
@@ -354,12 +460,46 @@ def test_limb_steps_run_pbs_params_bit_exact(cuda):
         assert torch.equal(step(acc, ai, table, p), k1), tag
 
 
-def test_limb_external_product_refuses_shapes_over_the_shared_memory_limit(cuda):
-    p = params.PBS_PARAMS  # N=2048, l=4: 256 KB for K5's block
-    table = torch.zeros((2 * p.l, 2, 4, 2 * p.N), dtype=torch.int8, device=cuda)
-    digits = torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8, device=cuda)
+# K5 (the limb panel and the product without the add, on the caller's
+# digits) at every shape class K4/K6 take, PBS_PARAMS included.
+EXTPROD_BATCHES = [1, 4, 13, 129, 4096]
+
+
+@pytest.mark.parametrize("B", EXTPROD_BATCHES)
+@pytest.mark.parametrize("name", list(LIMB_PARAMS))
+def test_limb_external_product_matches_plain_and_k2(cuda, name, B):
+    p = LIMB_PARAMS[name]
+    rows, _, _, digits = _case(58, B, p)
+    rows[0, 0, :2] = [0x80808080, 0xFFFFFFFF]
+    digits[0, 0, :2] = [-128, 127]
+    t_rows = _u32.from_numpy(rows, cuda)
+    table = plain.prepare_trgsw_limbs(t_rows)
+    d8 = torch.from_numpy(digits).to(cuda)
+    want = limb_step.external_product_plain(d8, table)  # float64 on the card
     before = limb_step.external_product.launches
-    with pytest.raises(ValueError, match="opt-in limit"):
+    got = limb_step.external_product(d8, table, p)
+    assert limb_step.external_product.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, cmux_k.external_product(d8, plain.prepare_trgsw(t_rows), p))  # K2
+
+
+@pytest.mark.parametrize("name", ["FAST_PARAMS", "DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_limb_external_product_probe_vectors_match_the_oracle(cuda, name):
+    p = LIMB_PARAMS[name]
+    rows_np, digits_np = engine.probe_vectors(p)
+    pd = torch.from_numpy(digits_np)
+    got = limb_step.external_product(pd.to(torch.int8).to(cuda),
+                                     plain.prepare_trgsw_limbs(_u32.from_numpy(rows_np, cuda)), p)
+    assert torch.equal(got.cpu(), oracle.external_product(_u32.from_numpy(rows_np), pd))
+
+
+def test_limb_external_product_refuses_misaligned_digits(cuda):
+    p = params.FAST_PARAMS
+    table = torch.zeros((2 * p.l, 2, 4, 2 * p.N), dtype=torch.int8, device=cuda)
+    buf = torch.zeros((2 * p.l * p.N + 1,), dtype=torch.int8, device=cuda)
+    digits = buf[1:].view(1, 2 * p.l, p.N)  # contiguous, one byte past a boundary
+    before = limb_step.external_product.launches
+    with pytest.raises(ValueError, match="16-byte"):
         limb_step.external_product(digits, table, p)
     assert limb_step.external_product.launches == before
 

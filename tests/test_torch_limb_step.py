@@ -7,7 +7,9 @@ word for word (tolerance zero) to the Pallas kernels of the JAX engine
 tests/test_poly.py runs them), at small N in the fast run and at
 FAST_PARAMS- and DEFAULT_PARAMS-shaped N=1024 rows in the slow tests.
 K4/K6's pieces (the limb panel and the products in K4's and K6's tile
-orders) are held to K1's panel and to the plain step.  The CUDA kernels
+orders) are held to K1's panel and to the plain step, and K5's (the limb
+panel and the product without the add) to the plain product and the
+Pallas K5.  The CUDA kernels
 themselves are compared with their plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -217,6 +219,45 @@ def test_products_in_tile_order_equal_the_step(name):
     assert torch.equal(cmux_k.panel_product_plain(digits, panel, t_acc, p), want)
     # the wrapper on CPU tensors: the plain version
     assert torch.equal(limb_step.merged_product(digits, panel, t_acc, p), want)
+
+
+# --------------------------------------------------------------------- #
+# K5's pieces: the limb panel, then the product without the add
+# --------------------------------------------------------------------- #
+def _k5_pieces(rows, digits, p):
+    """K5's plain pieces on the caller's digits (padded to one slice below
+    N=128, as the wrapper does): the limb panel, then the product without
+    the add in K5's tile order (K1's)."""
+    table = _table(rows)
+    d8 = torch.from_numpy(digits).to(torch.int8)
+    npad = cmux_k.geometry(p.N)[0]
+    dp = torch.nn.functional.pad(d8, (0, npad - p.N))
+    panel = limb_step.limb_panel_plain(table, p)
+    return d8, table, cmux_k.panel_product_plain(dp, panel, None, p)
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "FAST_PARAMS", "DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_k5_pieces_equal_the_plain_product(name):
+    # word for word; the wrapper takes every shape K4/K6 take on the CPU
+    # path too (PBS_PARAMS: N=2048, l=4)
+    p = PIECE_PARAMS[name]
+    rows, digits = _rows(18, p), _digits(19, p, 6)
+    rows[0, 0, :5] = EDGE_WORDS
+    d8, table, got = _k5_pieces(rows, digits, p)
+    want = plain.external_product_limbs(d8, table)
+    assert torch.equal(got, want)
+    assert torch.equal(limb_step.external_product(d8, table, p), want)
+
+
+@pytest.mark.parametrize("name", ["FAST_PARAMS", "DEFAULT_PARAMS",
+                                  pytest.param("PBS_PARAMS", marks=pytest.mark.slow)])
+def test_k5_pieces_match_pallas_interpret(name):
+    p = PIECE_PARAMS[name]
+    jp = JParams(n=8, N=p.N, l=p.l, bgbit=p.bgbit)
+    rows, digits = _rows(20, p), _digits(21, p, 8)
+    _, _, got = _k5_pieces(rows, digits, p)
+    want = _pallas_extprod(rows, digits, jp)
+    assert np.array_equal(_u32.to_numpy(got), want)
 
 
 # --------------------------------------------------------------------- #

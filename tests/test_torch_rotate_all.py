@@ -6,11 +6,15 @@ package's ``bootstrap.blind_rotate`` with the ``matmul`` engine, and, in
 the slow test, to ``fused_rotate_all_k`` itself in interpret mode.  Keys
 come from the JAX package's ``gen_cloud_key_raw`` through
 ``keys.from_jax_keys``; ciphertexts are random words from a numpy seed.
-The CUDA kernel is held to its plain version on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+K3's step in its own orientation (the digit circulant as the doubled
+reversed array, the key's limbs as columns; ``circulant_step_plain``) is
+held to K1's plain step word for word.  The CUDA kernel is held to its
+plain version on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
 
 import functools
+import types
 import warnings
 
 import jax
@@ -188,3 +192,67 @@ def test_rotate_all_plain_matches_fused_rotate_all_k_interpret(B):
     acc, a_steps = bootstrap.rotation_start(_u32.from_numpy(ct), _u32.from_numpy(np.asarray(tv)), p)
     got = rotate_all_k.rotate_all(acc, a_steps, ck.bk, p)
     assert np.array_equal(_u32.to_numpy(got), want)
+
+
+# --------------------------------------------------------------------- #
+# K3's orientation: A the doubled reversed digits, B the key's limb columns
+# --------------------------------------------------------------------- #
+ORIENTATION = {"TEST_PARAMS": (params.TEST_PARAMS, (1, 3)),
+               "DEFAULT_PARAMS": (params.DEFAULT_PARAMS, (1, 3)),
+               "N2048_PARAMS": (params.N2048_PARAMS, (3,))}
+
+
+@pytest.mark.parametrize("name", sorted(ORIENTATION))
+def test_circulant_step_equals_the_k1_step(name):
+    p, batches = ORIENTATION[name]
+    rs = np.random.RandomState(21)
+    rows = rs.randint(0, 2**32, size=(2 * p.l, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    rows[0, 0, :3] = [0x80808080, 0x7F7F7F7F, 0xFFFFFFFF]
+    key = cmux_k.plain.prepare_trgsw(_u32.from_numpy(rows))
+    for B in batches:
+        acc = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
+        acc[0, 0, :4] = [0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+        ai = rs.randint(0, 2 * p.N, size=(B,)).astype(np.int32)
+        ai[0] = p.N  # the whole accumulator negated
+        t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+        got = rotate_all_k.circulant_step_plain(t_acc, t_ai, key, p)
+        assert torch.equal(got, cmux_k.cmux_step_plain(t_acc, t_ai, key, p)), B
+
+
+def test_k3_shape_and_exactness_checks():
+    for p in (params.TEST_PARAMS, params.DEFAULT_PARAMS, params.N2048_PARAMS,
+              params.PBS_PARAMS):
+        rotate_all_k.check_shape(p)  # every shape the "cmux_k" engine takes
+    with pytest.raises(ValueError, match="power of two"):
+        rotate_all_k.check_shape(params.TEST_PARAMS.replace(N=32))
+    with pytest.raises(ValueError, match="power of two"):
+        rotate_all_k.check_shape(params.DEFAULT_PARAMS.replace(N=4096))
+    with pytest.raises(ValueError, match="Bg <= 2\\^7"):
+        rotate_all_k.check_shape(params.FAST_PARAMS)  # digits of -128 have no int8 negation
+    # half_bg * 128 * 2L * N = 2^31: one past the int32 range (no preset gets there)
+    edge = types.SimpleNamespace(N=2048, l=64, bgbit=7, half_bg=64)
+    with pytest.raises(ValueError, match="2\\^31"):
+        rotate_all_k.check_shape(edge)
+    rotate_all_k.check_shape(types.SimpleNamespace(N=2048, l=63, bgbit=7, half_bg=64))
+    assert rotate_all_k.takes(params.DEFAULT_PARAMS)
+    assert not rotate_all_k.takes(params.FAST_PARAMS)
+
+
+# Shapes of the "cmux_k" engine that K3 does not take: Bg = 2^8 (FAST_PARAMS'
+# base: digits of -128 have no int8 negation) and N below 64.
+K1_ONLY = {"Bg=2^8": params.TEST_PARAMS.replace(bgbit=8, l=2),
+           "N=32": params.TEST_PARAMS.replace(N=32)}
+
+
+@pytest.mark.parametrize("name", sorted(K1_ONLY))
+def test_latency_key_takes_the_k1_loop_where_k3_does_not_take_the_shape(monkeypatch, name):
+    p = K1_ONLY[name]
+    assert not rotate_all_k.takes(p)
+    ra, k1 = _Spy(rotate_all_k.rotate_all), _Spy(cmux_k.cmux_step)
+    monkeypatch.setattr(rotate_all_k, "rotate_all", ra)
+    monkeypatch.setattr(cmux_k, "cmux_step", k1)
+    ctx = TFHE.new(23, p, device="cpu", latency_mode=True, engine_name="cmux_k")
+    assert isinstance(ctx.ck.bk, keys.LatencyBK)
+    x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
+    assert ctx.decrypt(ctx.nand(x, y)).tolist() == [1, 1, 1, 0]
+    assert (ra.calls, k1.calls) == (0, p.n)
