@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's batched gate bootstrap, its interactive console, its
-limb engine, its generic engines and its measurement probes once on a
-CUDA card.
+limb engine, its generic engines, its measurement probes and its
+encrypted-integer path once on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -118,7 +118,21 @@ Phases, one line each:
      key (equal word for word); "matmul_bf16", "nuss" and
      "fft64" admitted by the oracle probe on the card and held to
      "matmul" on a random batch; a mixed batch at Bg = 2^9 (l=2, n=64) on
-     "matmul_bf16", every output decrypted.
+     "matmul_bf16", every output decrypted;
+ 13. the encrypted-integer path at DEFAULT_PARAMS on phase 4's context and
+     keys: the bench's 8-bit adder check through ``evaluate_encrypted``,
+     then ``FheUint`` width 8 (+ - * & | ^ ~ << >>, lt/eq/gt, min_/max_,
+     select), ``FheInt`` width 8 (the comparisons, abs_, mul_full),
+     ``divmod`` with a zero divisor and a 32-bit Kogge-Stone +, on seeded
+     operands (256 pairs; fewer for the deep ops), every output decrypted
+     against numpy, each op's ms, levels, bootstrap lanes (padding
+     counted) and bootstraps/s, and K1 launched n times per bootstrap
+     call; then a latency context on the same keys runs an 8-bit + and lt
+     at batch 1 and 2 on K3, word for word equal to the K1 loop's, one K3
+     launch per bootstrap call and no K1, with the times of a single 8-bit
+     add on K3 and on the K1 loop; then ``python3 -m
+     rustfhe_tpu_torch.bench`` as a subprocess (BENCH_BATCH=4096,
+     BENCH_ITERS=2), its one JSON line checked.
 
 Then one JSON line of kernels (each with its time, its bound on the card
 and, where one PyTorch call computes the same function, that call's time),
@@ -133,6 +147,7 @@ import dataclasses
 import functools
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1690,6 +1705,226 @@ def phase_generic_engines(dev, card):
         "decrypts correctly")
 
 
+# --------------------------------------------------------------------- #
+# 13. The encrypted-integer path: evaluate_encrypted, FheUint / FheInt,
+#     K3 against K1, and the port bench
+# --------------------------------------------------------------------- #
+INT_PAIRS = 256  # pairs for the ops of few levels (8-bit add: 84 lanes a pair)
+MUL_PAIRS = 64   # the 8-bit Wallace multiply: 30 levels, 584 lanes a pair
+WIDE_PAIRS = 16  # FheInt.mul_full, a 16-bit Wallace multiply: 56 levels, 2360 lanes a pair
+DIV_PAIRS = 8    # divmod: 72 levels, 864 lanes a pair
+ADD32_PAIRS = 64  # the 32-bit Kogge-Stone add: 11 levels, 560 lanes a pair
+BENCH_CHILD = {"BENCH_BATCH": "4096", "BENCH_ITERS": "2"}
+
+
+class Bootstraps:
+    """Counts a context's bootstrap_raw calls (levels) and lanes (the
+    flattened batches, padding counted) while it is installed."""
+
+    def __init__(self, ctx):
+        self.ctx, self.calls, self.lanes = ctx, 0, 0
+        raw = ctx.bootstrap_raw
+
+        def counted(pre):
+            self.calls += 1
+            self.lanes += pre.shape[:-1].numel()
+            return raw(pre)
+
+        ctx.bootstrap_raw = counted
+
+    def remove(self):
+        del self.ctx.bootstrap_raw
+
+
+def int_op(name, fn, counter, rows, card, want=None, got_fn=None):
+    """Run one integer op, timed (host clock around synchronised work);
+    check its decryption against numpy; log ms, levels, lanes and
+    bootstraps/s.  Returns the op's output."""
+    calls, lanes = counter.calls, counter.lanes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    calls, lanes = counter.calls - calls, counter.lanes - lanes
+    if want is not None:
+        got = got_fn(out)
+        if not np.array_equal(got, want):
+            bad = int((np.asarray(got) != np.asarray(want)).sum())
+            raise AssertionError(f"integers: {name}: {bad}/{np.size(want)} values decrypt wrong")
+    rows.append((name, ms, calls, lanes))
+    log("integers", f"{name}: {ms:.1f} ms, {calls} levels, {lanes} bootstrap lanes (padding "
+        f"counted), {lanes / ms * 1e3 if calls else 0:.1f} bootstraps/s on {card}")
+    return out
+
+
+def latency_levels(p, dev, widths, pairs) -> str:
+    """K3's cluster size and waves for each level batch (width x pairs)."""
+    parts = []
+    for w in widths:
+        b = w * pairs
+        cluster = rotate_all_k.cluster_for(b, p, dev)
+        held = rotate_all_k.max_clusters(p, cluster)
+        parts.append(f"B={b}: clusters of {cluster}, {-(-b // held)} wave(s) of {held}")
+    return "; ".join(parts)
+
+
+def phase_integers(ctx, p, dev, card):
+    """The encrypted-integer path at DEFAULT_PARAMS on phase 4's context:
+    the bench's adder check, FheUint / FheInt ops on seeded operands, each
+    decrypted against numpy, with K1 launched 635 times per bootstrap
+    call; then a latency context on the same keys runs an 8-bit add and a
+    compare on K3 at batch 1 and 2, word for word equal to the K1 context,
+    one K3 launch per level and no K1; then the port bench as a subprocess."""
+    from rustfhe_tpu_torch import FheInt, FheUint, keys
+    from rustfhe_tpu_torch import bench as port_bench
+    from rustfhe_tpu_torch.apps import circuits
+
+    rs = np.random.RandomState(SEED + 13)
+    draw = (lambda n, bits: rs.randint(0, 1 << bits, n, dtype=np.uint64))
+    cmux_k.reset_counters()
+    rotate_all_k.rotate_all.launches = 0
+    counter = Bootstraps(ctx)
+    rows = []
+    try:
+        t_adder = port_bench.check_adder(ctx)
+        log("integers", f"the bench's adder check: 4 sums of the 8-bit ripple-carry adder at "
+            f"fixed width 16 ({circuits.ripple_carry_adder(8).depth} levels) right, "
+            f"{t_adder * 1e3:.1f} ms on {card}")
+        av, bv = draw(INT_PAIRS, 8), draw(INT_PAIRS, 8)
+        a, b = ctx.encrypt_uint(av, 8), ctx.encrypt_uint(bv, 8)
+        u8 = (lambda x: x.decrypt())
+        bit = (lambda ct: ctx.decrypt(ct).cpu().numpy())
+        m = np.uint64(255)
+        int_op("uint8 +", lambda: a + b, counter, rows, card, (av + bv) & m, u8)
+        int_op("uint8 -", lambda: a - b, counter, rows, card, (av - bv) & m, u8)
+        int_op("uint8 &", lambda: a & b, counter, rows, card, av & bv, u8)
+        int_op("uint8 |", lambda: a | b, counter, rows, card, av | bv, u8)
+        int_op("uint8 ^", lambda: a ^ b, counter, rows, card, av ^ bv, u8)
+        int_op("uint8 ~", lambda: ~a, counter, rows, card, ~av & m, u8)
+        int_op("uint8 << 3", lambda: a << 3, counter, rows, card, (av << np.uint64(3)) & m, u8)
+        int_op("uint8 >> 3", lambda: a >> 3, counter, rows, card, av >> np.uint64(3), u8)
+        lt = int_op("uint8 lt", lambda: a.lt(b), counter, rows, card, av < bv, bit)
+        int_op("uint8 eq", lambda: a.eq(b), counter, rows, card, av == bv, bit)
+        int_op("uint8 gt", lambda: a.gt(b), counter, rows, card, av > bv, bit)
+        int_op("uint8 min_", lambda: a.min_(b), counter, rows, card, np.minimum(av, bv), u8)
+        int_op("uint8 max_", lambda: a.max_(b), counter, rows, card, np.maximum(av, bv), u8)
+        int_op("uint8 select", lambda: a.select(lt, b), counter, rows, card,
+               np.where(av < bv, av, bv), u8)
+        ma, mb = FheUint(ctx, a.bits[:MUL_PAIRS]), FheUint(ctx, b.bits[:MUL_PAIRS])
+        int_op(f"uint8 * ({MUL_PAIRS} pairs)", lambda: ma * mb, counter, rows, card,
+               (av[:MUL_PAIRS] * bv[:MUL_PAIRS]) & m, u8)
+        sv, tv = av.astype(np.int64) - 128, bv.astype(np.int64) - 128
+        sa, sb = ctx.encrypt_sint(sv, 8), ctx.encrypt_sint(tv, 8)
+        int_op("int8 lt", lambda: sa.lt(sb), counter, rows, card, sv < tv, bit)
+        int_op("int8 eq", lambda: sa.eq(sb), counter, rows, card, sv == tv, bit)
+        int_op("int8 gt", lambda: sa.gt(sb), counter, rows, card, sv > tv, bit)
+        int_op("int8 abs_", lambda: sa.abs_(), counter, rows, card,
+               np.where(sv == -128, -128, np.abs(sv)), u8)
+        wa, wb = FheInt(ctx, sa.bits[:WIDE_PAIRS]), FheInt(ctx, sb.bits[:WIDE_PAIRS])
+        int_op(f"int8 mul_full ({WIDE_PAIRS} pairs)", lambda: wa.mul_full(wb), counter, rows,
+               card, sv[:WIDE_PAIRS] * tv[:WIDE_PAIRS], u8)
+        dv = draw(DIV_PAIRS, 8)
+        dv[:2] = [0, 1]  # a zero divisor (q = 255, r = a) and a divisor of one
+        da = FheUint(ctx, a.bits[:DIV_PAIRS])
+        db = ctx.encrypt_uint(dv, 8)
+        safe = np.where(dv == 0, 1, dv)
+        q_want = np.where(dv == 0, 255, av[:DIV_PAIRS] // safe)
+        r_want = np.where(dv == 0, av[:DIV_PAIRS], av[:DIV_PAIRS] % safe)
+        int_op(f"uint8 divmod ({DIV_PAIRS} pairs, one zero divisor)", lambda: da.divmod(db),
+               counter, rows, card, np.stack([q_want, r_want]),
+               lambda qr: np.stack([qr[0].decrypt(), qr[1].decrypt()]))
+        xv, yv = draw(ADD32_PAIRS, 32), draw(ADD32_PAIRS, 32)
+        x32, y32 = ctx.encrypt_uint(xv, 32), ctx.encrypt_uint(yv, 32)
+        int_op(f"uint32 + Kogge-Stone ({ADD32_PAIRS} pairs)", lambda: x32 + y32, counter, rows,
+               card, (xv + yv) & np.uint64(2**32 - 1), u8)
+        k1_calls = counter.calls
+        k1 = cmux_k.cmux_step.launches
+        if k1 != p.n * k1_calls or rotate_all_k.rotate_all.launches:
+            raise AssertionError(f"integers: K1 launched {k1} times for {k1_calls} bootstrap "
+                                 f"calls (expected {p.n} each), K3 "
+                                 f"{rotate_all_k.rotate_all.launches}")
+        total_ms = sum(r[1] for r in rows)
+        lanes = sum(r[3] for r in rows)
+        log("integers", f"K1 launched {k1} times = {p.n} x {k1_calls} bootstrap calls (the "
+            f"adder check and {len(rows)} ops), no K3; the ops' {lanes} lanes in "
+            f"{total_ms:.1f} ms -> {lanes / total_ms * 1e3:.1f} bootstraps/s on {card}")
+    finally:
+        counter.remove()
+
+    # The latency context on the same keys: K3 at batch 1 and 2, word for
+    # word against the K1 loop of phase 4's context.
+    lat = TFHE(ctx.sk, keys.cloud_key_latency(ctx.ck), p, dev, None, ctx.engine_name)
+    la, lb = ctx.encrypt_uint(av[:2], 8), ctx.encrypt_uint(bv[:2], 8)
+    on_k1, on_k3 = Bootstraps(ctx), Bootstraps(lat)
+    k1_before = cmux_k.cmux_step.launches
+    rotate_all_k.rotate_all.launches = 0
+    times = {"K3": [], "K1 loop": []}
+    try:
+        for pairs in (1, 2):
+            for op, fn in (("+", lambda x, y: (x + y).bits), ("lt", lambda x, y: x.lt(y))):
+                outs = {}
+                for mode, c in (("K3", lat), ("K1 loop", ctx)):
+                    x, y = FheUint(c, la.bits[:pairs]), FheUint(c, lb.bits[:pairs])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs[mode] = fn(x, y)
+                    torch.cuda.synchronize()
+                    if op == "+" and pairs == 1:
+                        times[mode].append((time.perf_counter() - t0) * 1e3)
+                if not torch.equal(outs["K3"], outs["K1 loop"]):
+                    raise AssertionError(f"integers: K3's 8-bit {op} at batch {pairs} differs "
+                                         "from the K1 loop's")
+        # Two more single adds each, in turns, for the times.
+        x1, y1 = la.bits[:1], lb.bits[:1]
+        for _ in range(2):
+            for mode, c in (("K3", lat), ("K1 loop", ctx)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                FheUint(c, x1) + FheUint(c, y1)
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+        k3 = rotate_all_k.rotate_all.launches
+        k1 = cmux_k.cmux_step.launches - k1_before
+        if k3 != on_k3.calls or k1 != p.n * on_k1.calls:
+            raise AssertionError(f"integers: latency part launched K3 {k3} times for "
+                                 f"{on_k3.calls} bootstrap calls, K1 {k1} for {on_k1.calls}")
+    finally:
+        on_k1.remove()
+        on_k3.remove()
+    widths = [16, 16, 16, 16, 8, 8, 4]  # the 8-bit Kogge-Stone add's bucketed levels
+    log("integers", f"latency context on the same keys: 8-bit + and lt at batch 1 and 2 equal "
+        f"the K1 loop's word for word; K3 launched {k3} times = its {on_k3.calls} bootstrap "
+        f"calls, no K1 in the latency context; a single 8-bit add: K3 "
+        + ", ".join(f"{t:.2f}" for t in times["K3"]) + " ms, K1 loop "
+        + ", ".join(f"{t:.2f}" for t in times["K1 loop"]) + f" ms on {card}; K3's levels "
+        f"at batch 1: {latency_levels(p, dev, widths, 1)}")
+
+    # The port bench, as a user runs it.
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RUSTFHE_FORCE_CPU", "BENCH_PARAMS", "BENCH_GATES", "BENCH_HYBRID",
+                        "BENCH_SHARDED")}
+    env.update(BENCH_CHILD)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "rustfhe_tpu_torch.bench"], capture_output=True,
+                       text=True, timeout=600, env=env,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or len(out) != 1:
+        raise AssertionError(f"integers: the bench exited {r.returncode} with stdout {out}; "
+                             f"stderr: {r.stderr[-2000:]}")
+    rec = json.loads(out[0])
+    if (rec.get("metric") != port_bench.METRIC or rec.get("unit") != "gates/s"
+            or not rec.get("value", 0) > 0):
+        raise AssertionError(f"integers: the bench printed {out[0]}")
+    checks = [ln for ln in r.stderr.splitlines() if ln.startswith(("# correctness", "# per-batch"))]
+    log("integers", f"python3 -m rustfhe_tpu_torch.bench ("
+        + ", ".join(f"{k}={v}" for k, v in BENCH_CHILD.items()) + ") in "
+        f"{time.perf_counter() - t0:.1f} s: {out[0]}; {len(checks) - 1} checks passed; "
+        + (checks[-1][2:] if checks else "no per-batch line"))
+    return rows, times, rec
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -1757,7 +1992,7 @@ def main() -> int:
     nand_pre = gates.precombine("nand", cx, cy, params=p)
     errs["k1"] = max(errs["k1"], phase_real_key(ctx, p, (mixed_pre, nand_pre)))
     k1_key = ctx.ck.bk[0].clone()  # phase 12 times K1's step beside the matmul step
-    del ctx, cx, cy, nand_pre
+    del cx, cy, nand_pre  # phase 13 runs on phase 4's context and keys
 
     # 7. the latency path: K3 checks and times, then the console with the
     # launch counts of its run only, then K3 on the real latency key
@@ -1800,6 +2035,11 @@ def main() -> int:
     # of its run only; then the other generic engines and Bg = 2^9
     phase_matmul_path(dev, card, mixed_pre, mixed_out, mixed_want, k1_key)
     phase_generic_engines(dev, card)
+
+    # 13. the encrypted-integer path on phase 4's context, with the launch
+    # counts of its run only; then K3 against the K1 loop; then the bench
+    phase_integers(ctx, p, dev, card)
+    del ctx
 
     F = FAST_PARAMS
     fast_t = limb_times["FAST"]

@@ -10,10 +10,14 @@ counterparts that Bg = 2^8 selects (``engine/limb_step.py``; K1 and its
 limb-form steps run on the int8 tensor cores), built with
 nvcc on first use; on the CPU every function runs their plain torch
 versions.  ``apps/`` holds
-the ``nander`` console and its fused evaluator.
+the ``nander`` console, its fused evaluator and the level-fused circuit
+evaluator with its standard cells, on which the typed encrypted integers
+``FheUint`` / ``FheInt`` (``ints.py``) run; ``bench.py`` is the batched
+HomNAND benchmark.
 """
 
 from .context import TFHE
+from .ints import FheInt, FheUint
 from .params import DEFAULT_PARAMS, TEST_PARAMS, TFHEParams
 
-__all__ = ["TFHE", "TFHEParams", "DEFAULT_PARAMS", "TEST_PARAMS"]
+__all__ = ["TFHE", "TFHEParams", "DEFAULT_PARAMS", "TEST_PARAMS", "FheUint", "FheInt"]

@@ -1,8 +1,9 @@
 """High-level TFHE context: the user-facing object API.
 
 Counterpart of ``rustfhe_tpu/context.py`` (keygen, the latency mode, the
-key cache, encrypt/decrypt and the gate set; the typed-integer, PBS,
-seeded and public-key methods are not ported yet).  Randomness comes from
+key cache, encrypt/decrypt, the gate set and the typed-integer
+constructors; the PBS, radix, seeded and public-key methods are not ported
+yet).  Randomness comes from
 one ``torch.Generator`` on the context's device, used for keygen and then
 for every encryption.
 """
@@ -14,6 +15,7 @@ import torch
 from . import gates, tlwe, torus
 from ._device import resolve_device
 from .engine import resolve_engine, select_engine
+from .ints import FheInt, FheUint
 from .keys import CloudKey, SecretKey, cloud_key_latency, gen_keys
 from .params import DEFAULT_PARAMS, TFHEParams
 
@@ -140,3 +142,22 @@ class TFHE:
         pre_b = gates.precombine("andn", control, in0, params=self.params)
         both = self.bootstrap_raw(torch.stack([pre_a, pre_b]))
         return self._gate("or", both[0], both[1])
+
+    # ----------------------- typed integers --------------------------- #
+    # ``ints.FheUint`` reads two optional attributes of the context, as in
+    # the JAX package: ``circuit_fixed_width`` (pad every circuit level to
+    # this width) and ``circuit_adder`` ("kogge_stone", the default, or
+    # "ripple").
+    def encrypt_uint(self, values, width: int):
+        """Encrypt unsigned integers -> batched ``FheUint`` (ints.py)."""
+        return FheUint.encrypt(self, values, width)
+
+    def encrypt_sint(self, values, width: int):
+        """Encrypt signed integers -> batched ``FheInt`` (two's complement)."""
+        return FheInt.encrypt(self, values, width)
+
+    def trivial_uint(self, values, width: int):
+        return FheUint.trivial(self, values, width)
+
+    def trivial_sint(self, values, width: int):
+        return FheInt.trivial(self, values, width)

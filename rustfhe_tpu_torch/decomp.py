@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ._u32 import s32
+from ._u32 import s32, wrap
 from .params import TFHEParams, iks_round_constant
 
 
@@ -66,3 +66,12 @@ def decompose_unsigned(x: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """Key-switch decomposition: (...,) -> (..., iks_l) int32."""
     return decompose_unsigned_custom(x, params.iks_basebit, params.iks_l)
 
+
+
+def recompose_signed(digits: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """sum_i d_i * 2^(32 - bits*(i+1)) mod 2^32 over the last axis: the
+    inverse of ``decompose_signed`` up to its rounding (a test helper)."""
+    bits = params.bgbit
+    weights = torch.tensor([(1 << (32 - bits * (i + 1))) & 0xFFFFFFFF for i in range(params.l)],
+                           dtype=torch.int64, device=digits.device)
+    return wrap((digits.to(torch.int64) * weights).sum(dim=-1))

@@ -10,11 +10,15 @@ axis holds the N coefficients; torus polynomials are int32 words.
     JAX package's gather-free form, kept for parity.
   * ``negacyclic_mul_torus_oracle``: naive O(N^2) product mod 2^32, the
     ground truth every fast path is held to.
-  * ``to_signed_limbs``: balanced signed limb split of 32-bit words.
+  * ``negacyclic_mul_i64``: the exact product over the integers, host
+    numpy (an oracle for tests).
+  * ``to_signed_limbs`` / ``from_signed_limbs``: balanced signed limb
+    split of 32-bit words and its recombination.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ._u32 import as_u32_int64, srl, wrap
@@ -91,6 +95,19 @@ def negacyclic_mul_torus_oracle(a_torus: torch.Tensor, b_int: torch.Tensor,
     return wrap(torch.cat(outs, dim=-1))
 
 
+def negacyclic_mul_i64(a, b) -> np.ndarray:
+    """Exact negacyclic product over the integers (int64, host numpy):
+    out[k] = sum_i a_i * d[(k - i) mod 2N] with d = [b, -b].  O(N^2), for
+    tests only."""
+    a = np.asarray(a, np.int64)
+    b = np.asarray(b, np.int64)
+    N = a.shape[-1]
+    d = np.concatenate([b, -b], axis=-1)
+    k = np.arange(N)
+    idx = np.mod(k[:, None] - k[None, :], 2 * N)  # (N out, N in)
+    return np.einsum("...i,...ki->...k", a, d[..., idx])
+
+
 def to_signed_limbs(x: torch.Tensor, limb_bits: int, num_limbs: int,
                     dtype=torch.int8) -> torch.Tensor:
     """Split 32-bit words into balanced signed limbs ``(..., num_limbs)``.
@@ -113,3 +130,12 @@ def to_signed_limbs(x: torch.Tensor, limb_bits: int, num_limbs: int,
         limbs.append((raw - over.to(x.dtype) * (1 << limb_bits)).to(dtype))
         carry = over.to(x.dtype)
     return torch.stack(limbs, dim=-1)
+
+
+def from_signed_limbs(limbs: torch.Tensor, limb_bits: int) -> torch.Tensor:
+    """Recombine limbs ``(..., num_limbs)``: sum_k limb_k << (limb_bits*k)
+    mod 2^32, as int32 words (a test helper)."""
+    num = limbs.shape[-1]
+    weights = torch.tensor([(1 << (limb_bits * k)) & 0xFFFFFFFF if limb_bits * k < 32 else 0
+                            for k in range(num)], dtype=torch.int64, device=limbs.device)
+    return wrap((limbs.to(torch.int64) * weights).sum(dim=-1))

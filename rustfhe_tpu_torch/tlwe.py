@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import torus
-from ._u32 import wrap
+from ._u32 import s32, wrap
 from .params import TFHEParams
 from .utils.rng import gaussian_torus, uniform_torus
 
@@ -22,8 +22,32 @@ def trivial(b: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def logic_true(n: int, device) -> torch.Tensor:
+    """The noiseless ciphertext of One (+1/8), (n+1,) on ``device``."""
+    return trivial(torch.tensor(torus.TORUS_ONE_EIGHTH, dtype=torch.int32, device=device), n)
+
+
+def logic_false(n: int, device) -> torch.Tensor:
+    """The noiseless ciphertext of Zero (-1/8), (n+1,) on ``device``."""
+    return trivial(torch.tensor(torus.TORUS_MINUS_ONE_EIGHTH, dtype=torch.int32,
+                                device=device), n)
+
+
+def body(ct: torch.Tensor) -> torch.Tensor:
+    return ct[..., 0]
+
+
+def mask(ct: torch.Tensor) -> torch.Tensor:
+    return ct[..., 1:]
+
+
 def neg(ct: torch.Tensor) -> torch.Tensor:
     return -ct
+
+
+def mul_int(ct: torch.Tensor, k: int) -> torch.Tensor:
+    """Scalar multiple k * ct, wrapping mod 2^32; any Python int k."""
+    return ct * s32(k)
 
 
 def _dot_key(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

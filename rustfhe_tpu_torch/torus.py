@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ._u32 import s32, wrap
+from ._u32 import as_u32_int64, s32, ult, wrap
 
 TORUS_ONE_EIGHTH = s32(0x20000000)  # +1/8
 TORUS_MINUS_ONE_EIGHTH = s32(0xE0000000)  # -1/8
@@ -38,6 +38,11 @@ def from_double(x: torch.Tensor) -> torch.Tensor:
     return wrap(scaled.to(torch.float64).to(torch.int64))
 
 
+def to_double(t: torch.Tensor) -> torch.Tensor:
+    """Decode Torus32 words to float64 fractions in [0, 1)."""
+    return as_u32_int64(t).to(torch.float64) / 4294967296.0
+
+
 def binary_to_torus(b: torch.Tensor) -> torch.Tensor:
     """Binary {0,1} -> Torus32 message +-1/8."""
     b = torch.as_tensor(b)
@@ -48,3 +53,30 @@ def binary_to_torus(b: torch.Tensor) -> torch.Tensor:
 def torus_to_binary(t: torch.Tensor) -> torch.Tensor:
     """Torus32 -> Binary {0,1}: fraction < 0.5 (word < 0x8000_0000) is One."""
     return (t >= 0).to(torch.int32)
+
+
+def signed_to_torus(v, shift: int) -> torch.Tensor:
+    """Exact encoding v * 2^(32 - shift) mod 2^32 of small integers ``v``
+    (an int or an integer tensor): zeros unless 0 < shift < 32, as the JAX
+    package's uint32 shift gives."""
+    v = torch.as_tensor(v).to(torch.int64) & 0xFFFFFFFF
+    if not 0 < shift < 32:
+        return torch.zeros_like(v, dtype=torch.int32)
+    return wrap(v << (32 - shift))
+
+
+def pow_two_minus(k: int) -> int:
+    """Torus value 2^-k, as the int32 word with its bits (0 for k = 0)."""
+    if k == 0:
+        return 0
+    k = min(k, 32)
+    return s32(1 << (32 - k))
+
+
+def is_in(a: torch.Tensor, b, radius_pow: int = 10) -> torch.Tensor:
+    """True where the circular distance |a - b| (mod 1) is below
+    2^-radius_pow: the wrapping form of the JAX package's ``is_in``."""
+    d = a - b
+    nd = -d
+    dist = torch.where(ult(d, nd), d, nd)  # min(d, 2^32 - d), unsigned
+    return ult(dist, pow_two_minus(radius_pow))

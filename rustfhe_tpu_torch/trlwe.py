@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from . import torus
 from .engine.plain import poly_mul_torus_binary
 from .params import TFHEParams
 from .utils.rng import gaussian_torus, uniform_torus
@@ -32,6 +33,16 @@ def encrypt_torus_poly(gen: torch.Generator, s: torch.Tensor, m: torch.Tensor,
 def phase(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """b - a (*) s; ct (..., 2, N) -> (..., N)."""
     return ct[..., 0, :] - poly_mul_torus_binary(ct[..., 1, :], s)
+
+
+def encrypt_binary_poly(gen: torch.Generator, s: torch.Tensor, bits: torch.Tensor,
+                        params: TFHEParams) -> torch.Tensor:
+    """bits (..., N) in {0,1} -> TRLWE of the +-1/8 encoding."""
+    return encrypt_torus_poly(gen, s, torus.binary_to_torus(bits), params)
+
+
+def decrypt_binary_poly(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torus.torus_to_binary(phase(ct, s))
 
 
 def sample_extract(ct: torch.Tensor, index: int) -> torch.Tensor:

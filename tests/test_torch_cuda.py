@@ -670,3 +670,78 @@ def test_matmul_engines_match_cpu_and_oracle(cuda, name, B):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(want, oracle.external_product(t_rows, digits))
     assert engine.select_engine(p, cuda, name) == name
+
+
+# --------------------------------------------------------------------- #
+# The encrypted-integer path: evaluate_encrypted, FheUint, K3 against K1
+# --------------------------------------------------------------------- #
+def _contexts_on_one_key(seed, p, devices, engine_name="cmux_k"):
+    """One raw key set (made on the CPU) prepared on each device: contexts
+    whose outputs are comparable word for word."""
+    from rustfhe_tpu_torch import keys
+
+    gen = torch.Generator().manual_seed(seed)
+    sk = keys.gen_secret_key(gen, p, "cpu")
+    bk_raw, ksk_raw = keys.gen_cloud_key_raw(gen, sk, p)
+    out = []
+    for dev in devices:
+        ck = keys.prepare_cloud_key(bk_raw.to(dev), ksk_raw.to(dev), p, engine_name)
+        dsk = keys.SecretKey(sk.lv0.to(dev), sk.lv1.to(dev))
+        out.append(TFHE(dsk, ck, p, dev, None, engine_name))
+    return out
+
+
+def test_evaluate_encrypted_on_card_equals_cpu(cuda):
+    from rustfhe_tpu_torch.apps import circuits
+
+    p = params.TEST_PARAMS
+    cpu, card = _contexts_on_one_key(60, p, ["cpu", cuda])
+    rs = np.random.RandomState(61)
+    cases = rs.randint(0, 2, size=(5, 16))
+    cts = cpu.encrypt(cases)
+    for circuit, x in ((circuits.ripple_carry_adder(8), cts[0]),         # unbatched
+                       (circuits.kogge_stone_adder(8), cts),             # a leading axis
+                       (circuits.prefix_comparator(8), cts.reshape(5, 1, 16, -1))):
+        want = circuits.evaluate_encrypted(circuit, cpu, x)
+        before = cmux_k.cmux_step.launches
+        got = circuits.evaluate_encrypted(circuit, card, x.to(cuda))
+        assert cmux_k.cmux_step.launches > before
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    got = circuits.evaluate_encrypted(circuits.ripple_carry_adder(8), card, cts.to(cuda),
+                                      fixed_width=16)
+    dec = card.decrypt(got).cpu().numpy()
+    assert np.array_equal(dec, circuits.evaluate_plain(circuits.ripple_carry_adder(8), cases))
+
+
+def test_fheuint_at_default_params_decrypts_right(cuda):
+    p = params.DEFAULT_PARAMS
+    ctx = TFHE.new(62, p, device=cuda)
+    rs = np.random.RandomState(63)
+    av, bv = rs.randint(0, 256, 16).astype(np.uint64), rs.randint(0, 256, 16).astype(np.uint64)
+    a, b = ctx.encrypt_uint(av, 8), ctx.encrypt_uint(bv, 8)
+    assert a.bits.device.type == "cuda"
+    np.testing.assert_array_equal((a + b).decrypt(), (av + bv) & 255)
+    np.testing.assert_array_equal(ctx.decrypt(a.lt(b)).cpu().numpy(), av < bv)
+    np.testing.assert_array_equal((a * b).decrypt(), (av * bv) & 255)
+    sv = av.astype(np.int64) - 128
+    expect = np.abs(sv)
+    expect[sv == -128] = -128  # wraps, as wrapping_abs does
+    np.testing.assert_array_equal(ctx.encrypt_sint(sv, 8).abs_().decrypt(), expect)
+
+
+def test_latency_mode_integer_add_equals_the_k1_loop(cuda):
+    from rustfhe_tpu_torch import FheUint, keys
+
+    p = params.DEFAULT_PARAMS
+    ctx = TFHE.new(64, p, device=cuda)
+    lat = TFHE(ctx.sk, keys.cloud_key_latency(ctx.ck), p, cuda, None, ctx.engine_name)
+    a, b = ctx.encrypt_uint([200, 7], 8), ctx.encrypt_uint([100, 9], 8)
+    for sl in (slice(0, 1), slice(0, 2)):
+        x, y = FheUint(ctx, a.bits[sl]), FheUint(ctx, b.bits[sl])
+        want = x + y
+        k1, k3 = cmux_k.cmux_step.launches, rotate_all_k.rotate_all.launches
+        got = FheUint(lat, x.bits) + FheUint(lat, y.bits)
+        assert cmux_k.cmux_step.launches == k1
+        assert rotate_all_k.rotate_all.launches == k3 + 7  # one K3 launch per level
+        assert torch.equal(got.bits, want.bits)
+        np.testing.assert_array_equal(got.decrypt(), [44, 16][: sl.stop])

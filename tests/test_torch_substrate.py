@@ -276,3 +276,183 @@ def test_oracle_product_matches_jax():
     got = poly.negacyclic_mul_torus_oracle(torch.tensor([1, 2], dtype=torch.int32),
                                            torch.tensor([3, 4]))
     assert got.tolist() == [-5, 10]
+
+
+# --------------------------------------------------------------------- #
+# The rest of the substrate: tlwe, torus, decomp, poly, trlwe, trgsw
+# --------------------------------------------------------------------- #
+def test_tlwe_constants_and_linear_ops_match_jax():
+    from rustfhe_tpu import tlwe as jtlwe
+    from rustfhe_tpu_torch import tlwe
+
+    for n in (1, 16, 635):
+        assert np.array_equal(_np(tlwe.logic_true(n, "cpu")), np.asarray(jtlwe.logic_true(n)))
+        assert np.array_equal(_np(tlwe.logic_false(n, "cpu")), np.asarray(jtlwe.logic_false(n)))
+    ct = _words(20, (5, 3, 17))
+    assert np.array_equal(_np(tlwe.body(_t(ct))), np.asarray(jtlwe.body(jnp.asarray(ct))))
+    assert np.array_equal(_np(tlwe.mask(_t(ct))), np.asarray(jtlwe.mask(jnp.asarray(ct))))
+    for k in (0, 1, -1, 3, -7, 2**31 + 5, 2**32 + 2, -(2**40) - 3):
+        assert np.array_equal(_np(tlwe.mul_int(_t(ct), k)),
+                              np.asarray(jtlwe.mul_int(jnp.asarray(ct), k))), k
+
+
+def test_torus_helpers_match_jax():
+    w = _words(21, (4096,))
+    # JAX without x64 decodes in float32; the port in float64, which
+    # rounds to the same float32.
+    got = torus.to_double(_t(w))
+    assert got.dtype == torch.float64
+    assert np.array_equal(got.numpy(), w.astype(np.float64) / 2.0**32)
+    assert np.array_equal(got.numpy().astype(np.float32), np.asarray(jtorus.to_double(jnp.asarray(w))))
+    v = np.array([0, 1, 2, 3, 7, 31, 255], np.int32)
+    for shift in range(0, 40):
+        want = np.asarray(jtorus.signed_to_torus(jnp.asarray(v), shift))
+        assert np.array_equal(_np(torus.signed_to_torus(torch.from_numpy(v), shift)), want), shift
+    assert _np(torus.signed_to_torus(3, 8)).tolist() == 3 << 24
+    for k in range(0, 40):
+        assert torus.pow_two_minus(k) & 0xFFFFFFFF == int(jtorus.pow_two_minus(k)), k
+    a = _words(22, (2048,))
+    rs = np.random.RandomState(23)
+    near = (a.astype(np.int64) + rs.randint(-2**23, 2**23, size=a.shape)) % 2**32
+    b = np.concatenate([_words(24, (1024,)), near[1024:].astype(np.uint32)])
+    b[:4] = a[:4] + np.array([0, 1, 0x7FFFFFFF, 0x80000000], np.uint32)
+    for r in (0, 1, 8, 10, 20, 31, 32):
+        want = np.asarray(jtorus.is_in(jnp.asarray(a), jnp.asarray(b), r))
+        assert np.array_equal(torus.is_in(_t(a), _t(b), r).numpy(), want), r
+
+
+def test_iks_round_constant_and_recompose_match_jax():
+    for bits, l in ((2, 8), (4, 4), (3, 5), (8, 4), (16, 2)):
+        assert decomp.iks_round_constant(bits, l) == jdecomp.iks_round_constant(bits, l)
+    rs = np.random.RandomState(25)
+    for name in ("TEST_PARAMS", "DEFAULT_PARAMS", "FAST_PARAMS", "PBS_PARAMS"):
+        p, jp = getattr(params, name), getattr(jparams, name)
+        d = rs.randint(-(1 << (p.bgbit - 1)), 1 << (p.bgbit - 1), size=(64, p.l)).astype(np.int32)
+        want = np.asarray(jdecomp.recompose_signed(jnp.asarray(d), jp))
+        assert np.array_equal(_np(decomp.recompose_signed(torch.from_numpy(d), p)), want)
+        # decompose then recompose: the word up to the gadget's rounding (the
+        # production mask rounds within two units of the last digit)
+        w = _words(26, (256,))
+        back = decomp.recompose_signed(decomp.decompose_signed(_t(w), p), p)
+        err = (_np(back).astype(np.int64) - w.astype(np.int64) + 2**31) % 2**32 - 2**31
+        assert np.abs(err).max() < 2 << (32 - p.bgbit * p.l)
+
+
+def test_negacyclic_mul_i64_and_from_signed_limbs_match_jax():
+    rs = np.random.RandomState(27)
+    a = rs.randint(-2**20, 2**20, size=(3, 64)).astype(np.int64)
+    b = rs.randint(-64, 64, size=(3, 64)).astype(np.int64)
+    assert np.array_equal(poly.negacyclic_mul_i64(a, b), jpoly.negacyclic_mul_i64(a, b))
+    assert poly.negacyclic_mul_i64([1, 2], [3, 4]).tolist() == [-5, 10]
+    w = _words(28, (1000,))
+    for bits in (8, 4, 16):
+        limbs = poly.to_signed_limbs(_t(w), bits, 32 // bits, dtype=torch.int32)
+        assert np.array_equal(_np(poly.from_signed_limbs(limbs, bits)), w)
+        want = np.asarray(jpoly.from_signed_limbs(jnp.asarray(limbs.numpy()), bits))
+        assert np.array_equal(_np(poly.from_signed_limbs(limbs, bits)), want)
+    odd = np.random.RandomState(29).randint(-128, 128, size=(50, 5)).astype(np.int8)
+    assert np.array_equal(_np(poly.from_signed_limbs(torch.from_numpy(odd), 8)),
+                          np.asarray(jpoly.from_signed_limbs(jnp.asarray(odd), 8)))
+
+
+def _jax_poly_keys(p, seed):
+    rs = np.random.RandomState(seed)
+    return rs.randint(0, 2, size=p.N).astype(np.uint32)
+
+
+def test_trlwe_binary_poly_round_trip_and_jax_decrypt():
+    import jax
+
+    from rustfhe_tpu import trlwe as jtrlwe
+    from rustfhe_tpu.engine import get_engine
+    from rustfhe_tpu_torch import trlwe
+
+    p, jp = params.TEST_PARAMS, jparams.TEST_PARAMS
+    s = _jax_poly_keys(p, 30)
+    bits = np.random.RandomState(31).randint(0, 2, size=(4, p.N))
+    gen = torch.Generator().manual_seed(32)
+    ct = trlwe.encrypt_binary_poly(gen, _t(s), torch.from_numpy(bits), p)
+    assert ct.shape == (4, 2, p.N) and ct.dtype == torch.int32
+    assert np.array_equal(trlwe.decrypt_binary_poly(ct, _t(s)).numpy(), bits)
+    # JAX's encryption, decrypted by both packages: the same bits.
+    eng = get_engine("matmul")
+    jct = jtrlwe.encrypt_binary_poly(jax.random.PRNGKey(33), jnp.asarray(s), jnp.asarray(bits),
+                                     jp, eng)
+    got = trlwe.decrypt_binary_poly(_t(np.asarray(jct)), _t(s)).numpy()
+    assert np.array_equal(got, np.asarray(jtrlwe.decrypt_binary_poly(jct, jnp.asarray(s), jp, eng)))
+    assert np.array_equal(got, bits)
+
+
+TRGSW_ITEMS = {  # encryption -> (its decryption, the item's kind)
+    "encrypt_int_poly": ("decrypt_int_poly", "ints"),
+    "encrypt_uint_poly": ("decrypt_uint_poly", "ints"),
+    "encrypt_binary_poly": ("decrypt_binary_poly", "bits"),
+    "encrypt_int": ("decrypt_int", "scalars"),
+    "encrypt_binary": ("decrypt_binary", "bit"),
+}
+
+
+@pytest.mark.parametrize("enc_name", list(TRGSW_ITEMS))
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
+def test_trgsw_item_encryptions_round_trip_and_match_jax_decrypt(name, enc_name):
+    """The port's encryption decrypts to the item (randomised: held to
+    decryption); JAX's encryption decrypts in the port to JAX's words."""
+    import jax
+
+    from rustfhe_tpu import trgsw as jtrgsw
+    from rustfhe_tpu.engine import get_engine
+    from rustfhe_tpu_torch import trgsw
+
+    p, jp = getattr(params, name), getattr(jparams, name)
+    s, js = _t(_jax_poly_keys(p, 34)), jnp.asarray(_jax_poly_keys(p, 34))
+    dec_name, kind = TRGSW_ITEMS[enc_name]
+    rs = np.random.RandomState(35)
+    half = p.bg // 2
+    item = {"ints": lambda: rs.randint(-half + 1, half + 1, size=(2, p.N)),
+            "bits": lambda: rs.randint(0, 2, size=(2, p.N)),
+            "scalars": lambda: rs.randint(-half + 1, half + 1, size=(3,)),
+            "bit": lambda: rs.randint(0, 2, size=(3,))}[kind]().astype(np.int32)
+    rep = getattr(trgsw, enc_name)(torch.Generator().manual_seed(36), s, torch.from_numpy(item), p)
+    lead = item.shape[:-1] if "poly" in enc_name else item.shape
+    assert rep.shape == lead + (2 * p.l, 2, p.N) and rep.dtype == torch.int32
+    got = getattr(trgsw, dec_name)(rep, s, p)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), item)
+    jrep = getattr(jtrgsw, enc_name)(jax.random.PRNGKey(37), js, jnp.asarray(item), jp,
+                                     get_engine("matmul"))
+    want = np.asarray(getattr(jtrgsw, dec_name)(jrep, js, jp, get_engine("matmul")))
+    got = _np(getattr(trgsw, dec_name)(_t(np.asarray(jrep)), s, p))
+    assert np.array_equal(got, want.astype(np.uint32))
+    assert np.array_equal(got.view(np.int32), item)
+
+
+@pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_round_phase_to_digit_matches_jax(name):
+    from rustfhe_tpu import trgsw as jtrgsw
+    from rustfhe_tpu_torch import trgsw
+
+    p, jp = getattr(params, name), getattr(jparams, name)
+    w = _words(38, (4096,))
+    assert np.array_equal(trgsw._round_phase_to_digit(_t(w), p).numpy(),
+                          np.asarray(jtrgsw._round_phase_to_digit(jnp.asarray(w), jp)))
+
+
+def test_port_imports_nothing_of_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the
+    JAX package (their tests import both)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "rustfhe_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 30
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "rustfhe_tpu"), f"{path}: imports {name}"
