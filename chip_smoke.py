@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's batched gate bootstrap, its interactive console, its
-limb engine, its generic engines, its measurement probes and its
-encrypted-integer path once on a CUDA card.
+limb engine, its generic engines, its measurement probes, its
+encrypted-integer path and its programmable bootstrapping with the radix
+integers once on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -132,10 +133,30 @@ Phases, one line each:
      launch per bootstrap call and no K1, with the times of a single 8-bit
      add on K3 and on the K1 loop; then ``python3 -m
      rustfhe_tpu_torch.bench`` as a subprocess (BENCH_BATCH=4096,
-     BENCH_ITERS=2), its one JSON line checked.
+     BENCH_ITERS=2), its one JSON line checked;
+ 14. programmable bootstrapping and the radix integers at PBS_PARAMS
+     (n=714, N=2048, l=4, Bg=2^6, key switch 4x4) on ``TFHE.new(0,
+     PBS_PARAMS)`` ("cmux_k" by the rule: K1 on every step): space-8
+     lookups with a table per row at B=16384 (radix_bench's 65536 cut to a
+     quarter), chained twice, every lookup decoded (power draw, SM clock
+     and the allocator's peak across the pass); ``apply_luts`` (t=2) at
+     256 lanes with its decode errors counted; the port radix_bench's ops
+     (``radix_bench.OPS``: add, chained add, the bit-circuit add, mul, shl
+     2, shl 3, shr 3, x10, ``add_overflows``, the signed full product) at
+     256 lanes and
+     ``from_pbs_int``, each against numpy with its ms, bootstrap levels
+     and lookups; K1 launched n times per bootstrap call; a latency
+     context from the same seed runs a radix 8-bit add at batch 1 on K3,
+     word for word the K1 loop's; then, after the counts, K1 on the real
+     PBS key (steps 0, 1 and n-1 from the B=16384 batch's first
+     accumulators, a test vector per row) against its plain version, its
+     step times at B=4096 and 16384 beside the bound, and K3 on the real
+     latency key at B=1 against the K1 loop, with its time per step.
 
 Then one JSON line of kernels (each with its time, its bound on the card
-and, where one PyTorch call computes the same function, that call's time),
+and, where one PyTorch call computes the same function, that call's time;
+K1's and K3's launches count phase 14's beside the main path's and the
+console's),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
@@ -152,11 +173,12 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, poly, tlwe, trlwe
+from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, pbs, poly, radix, tlwe, trlwe
 from rustfhe_tpu_torch.apps import nander
 from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
 from rustfhe_tpu_torch.benches import (_timing, coissue2_probe, coissue_probe, k2_floor_probe,
@@ -167,6 +189,7 @@ from rustfhe_tpu_torch.engine import (build, cmux_k, get_engine, int8_gemm, kara
                                       karatsuba_probe, limb_probe, limb_step, matmul,
                                       nuss_primitives, oracle, plain, probe_vectors, rotate_all_k,
                                       select_engine)
+from rustfhe_tpu_torch.examples import radix_bench
 from rustfhe_tpu_torch.keys import CloudKey, GenericBK
 from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS, PBS_PARAMS, TFHEParams
 from rustfhe_tpu_torch.trgsw import decompose_trlwe
@@ -478,21 +501,29 @@ def phase_main_path(p, dev):
     return ctx, pre, out, want
 
 
-def sample_sm_clock():
-    """Start nvidia-smi sampling the card's SM clock (MHz) every 100 ms."""
-    return subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+def sample_card(query: str = "clocks.sm"):
+    """Start nvidia-smi sampling the card's ``query`` fields (the SM clock
+    in MHz by default; e.g. "power.draw,clocks.sm") every 100 ms."""
+    return subprocess.Popen(["nvidia-smi", "-i", "0", f"--query-gpu={query}",
                              "--format=csv,noheader,nounits", "-lms", "100"],
                             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
 
 
-def stop_sampling(proc) -> list[float]:
+def stop_sampling(proc) -> list[tuple[float, ...]]:
+    """Stop a ``sample_card`` process: one tuple of floats per sample."""
     proc.terminate()
     try:
         out, _ = proc.communicate(timeout=10)
     except subprocess.TimeoutExpired:
         proc.kill()
         out, _ = proc.communicate()
-    return [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append(tuple(float(x) for x in line.split(",")))
+        except ValueError:
+            continue
+    return rows
 
 
 def device_times(prof, counts: dict | None = None) -> dict[str, float]:
@@ -538,7 +569,7 @@ def phase_nand(ctx, p, card):
     testvec = trlwe.trivial(torch.full((p.N,), p.mu, dtype=torch.int32, device=cx.device))
     torch.cuda.reset_peak_memory_stats(cx.device)
     before = cmux_k.cmux_step.launches
-    clock = sample_sm_clock()
+    clock = sample_card()
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -548,7 +579,7 @@ def phase_nand(ctx, p, card):
             lv0, t_ks = timed(lambda: bootstrap.identity_key_switch(lv1, ctx.ck.ksk, p))
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        mhz = stop_sampling(clock)
+        mhz = [r[0] for r in stop_sampling(clock)]
     peak = torch.cuda.max_memory_allocated(cx.device)
     if cmux_k.cmux_step.launches - before != p.n:
         raise AssertionError("the layered pass did not launch K1 once per step")
@@ -1925,6 +1956,307 @@ def phase_integers(ctx, p, dev, card):
     return rows, times, rec
 
 
+# --------------------------------------------------------------------- #
+# 14. Programmable bootstrapping and the radix integers at PBS_PARAMS
+# --------------------------------------------------------------------- #
+PBS_LOOKUPS = 16384  # the chained space-8 batch: radix_bench's PBS_BATCH of 65536, cut to 1/4
+RADIX_LANES = 256    # radix_bench's BATCH
+RADIX_DIGITS = 4     # 8-bit radix integers
+PBS_SPACE = 8
+
+
+class Rotations:
+    """Counts the blind rotations and their rows (lookups) while installed,
+    at ``bootstrap.rotation_start``, which every blind rotation calls once
+    with its rows flattened."""
+
+    def __init__(self):
+        self.orig = bootstrap.rotation_start
+        self.calls = self.rows = 0
+
+        def counted(ct, testvec, params):
+            self.calls += 1
+            self.rows += ct.shape[0]
+            return self.orig(ct, testvec, params)
+
+        bootstrap.rotation_start = counted
+
+    def remove(self):
+        bootstrap.rotation_start = self.orig
+
+
+def power_clock_text(rows) -> str:
+    """The power draw (W) and SM clock (MHz) samples of ``stop_sampling``."""
+    if not rows:
+        return "power and SM clock not measured"
+    w, mhz = np.array(rows).T
+    return (f"power {w.min():.1f}-{w.max():.1f} W (mean {w.mean():.1f}), SM clock "
+            f"{mhz.min():.0f}-{mhz.max():.0f} MHz (mean {mhz.mean():.0f}) over {len(rows)} "
+            "nvidia-smi samples")
+
+
+def radix_op(name, fn, rot, rows, card, want, got_fn):
+    """Run one PBS-path op, timed (host clock around synchronised work);
+    check its decryption against numpy; log ms, bootstrap levels (from the
+    launch counts: n K1 launches or one K3 launch a level, checked against
+    the blind rotations ``rot`` saw) and lookups (the levels' rows).
+    Returns the op's output."""
+    n = PBS_PARAMS.n
+    k1, k3, calls, lookups = (cmux_k.cmux_step.launches, rotate_all_k.rotate_all.launches,
+                              rot.calls, rot.rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    k1, k3 = cmux_k.cmux_step.launches - k1, rotate_all_k.rotate_all.launches - k3
+    calls, lookups = rot.calls - calls, rot.rows - lookups
+    levels = k1 // n + k3
+    if k1 % n or levels != calls:
+        raise AssertionError(f"pbs: {name}: K1 launched {k1} times and K3 {k3} for {calls} "
+                             f"blind rotations (expected {n} K1 launches or one K3 each)")
+    got = got_fn(out)
+    if not np.array_equal(got, want):
+        bad = int((np.asarray(got) != np.asarray(want)).sum())
+        raise AssertionError(f"pbs: {name}: {bad}/{np.size(want)} values decrypt wrong")
+    rows.append((name, ms, levels, lookups))
+    log("pbs", f"{name}: {ms:.1f} ms, {levels} bootstrap levels, {lookups} lookups, "
+        f"{lookups / ms * 1e3:.1f} lookups/s on {card}; every value right")
+    return out
+
+
+def phase_pbs(dev, card):
+    """The PBS and radix path at PBS_PARAMS (n=714, N=2048, l=4, Bg=2^6,
+    key switch 4x4) on a context of ``TFHE.new(SEED, PBS_PARAMS)``: the
+    space-8 chained lookups at B=PBS_LOOKUPS with a table per row, the
+    t=2 multi-lookup at 256 lanes, the port radix_bench's ops at 256
+    lanes, ``from_pbs_int``, and a radix add at batch 1 on K3 against the
+    K1 loop.  Returns (the context, the latency context, K1's and K3's
+    launches, and the B=PBS_LOOKUPS batch's pre-offset inputs and tables
+    for the real-key check)."""
+    p = PBS_PARAMS
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = TFHE.new(SEED, p, device=dev)
+    torch.cuda.synchronize()
+    if ctx.engine_name != "cmux_k":
+        raise AssertionError(f"pbs: TFHE.new picked {ctx.engine_name} at PBS_PARAMS, not cmux_k")
+    log("pbs", f"TFHE.new(SEED, PBS_PARAMS) on {dev}: engine {ctx.engine_name} by the rule, "
+        f"keys in {time.perf_counter() - t0:.2f} s; {pbs.check_pbs_space(p, PBS_SPACE)[1]}; "
+        f"{radix.check_radix(p)[1]}")
+    rs = np.random.RandomState(SEED + 14)
+    cmux_k.reset_counters()
+    rotate_all_k.rotate_all.launches = 0
+    rot = Rotations()
+    rows = []
+    try:
+        # The space-8 lookups, a table per row, chained twice.
+        B = PBS_LOOKUPS
+        xs = rs.randint(0, PBS_SPACE, size=B)
+        tables = rs.randint(0, PBS_SPACE, size=(B, PBS_SPACE))
+        ct = ctx.encrypt_int(xs, PBS_SPACE)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        clock = sample_card("power.draw,clocks.sm")
+        try:
+            mid = radix_op(f"space-8 lookup, a table per row, B={B}",
+                           lambda: ctx.apply_lut(ct, tables, PBS_SPACE), rot, rows, card,
+                           tables[np.arange(B), xs],
+                           lambda o: ctx.decrypt_int(o, PBS_SPACE).cpu().numpy())
+            radix_op(f"the same lookups chained, B={B}",
+                     lambda: ctx.apply_lut(mid, tables, PBS_SPACE), rot, rows, card,
+                     tables[np.arange(B), tables[np.arange(B), xs]],
+                     lambda o: ctx.decrypt_int(o, PBS_SPACE).cpu().numpy())
+        finally:
+            power = power_clock_text(stop_sampling(clock))
+        peak = torch.cuda.max_memory_allocated(dev)
+        log("pbs", f"B={B} (cut from radix_bench's PBS_BATCH of 65536 to keep the phase near a "
+            f"minute): {B}/{B} chained lookups decode right; {power}; allocator peak "
+            f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the keys and inputs) "
+            f"on {card}")
+        del mid
+
+        # The multi-lookup (t=2) at the radix batch, its decode errors counted.
+        ok_m, msg_m = pbs.check_pbs_many(p, PBS_SPACE, 2)
+        tabs2 = rs.randint(0, PBS_SPACE, size=(2, PBS_SPACE))
+        ctm = ctx.encrypt_int(xs[:RADIX_LANES], PBS_SPACE)
+        calls = rot.calls
+        outm = ctx.apply_luts(ctm, tabs2, PBS_SPACE)
+        decm = ctx.decrypt_int(outm, PBS_SPACE).cpu().numpy()
+        bad = sum(int((decm[:, j] != tabs2[j][xs[:RADIX_LANES]]).sum()) for j in range(2))
+        if rot.calls - calls != 1 or not ok_m:
+            raise AssertionError(f"pbs: apply_luts ran {rot.calls - calls} rotations ({msg_m})")
+        log("pbs", f"apply_luts (space 8, t=2) at {RADIX_LANES} lanes: one rotation, "
+            f"{2 * RADIX_LANES - bad}/{2 * RADIX_LANES} lookups decode right ({bad} errors; "
+            f"{msg_m})")
+
+        # The port radix_bench's ops at RADIX_LANES lanes, 8 bits.
+        nd, m8 = RADIX_DIGITS, radix_bench.M8
+        av = rs.randint(0, 256, size=RADIX_LANES).astype(np.uint64)
+        bv = rs.randint(0, 256, size=RADIX_LANES).astype(np.uint64)
+        v = SimpleNamespace(a=av, b=bv, sa=av.astype(np.int64) - 128, sb=bv.astype(np.int64) - 128)
+        o = SimpleNamespace(a=ctx.encrypt_radix(v.a, nd), b=ctx.encrypt_radix(v.b, nd),
+                            ua=ctx.encrypt_uint(v.a, 8), ub=ctx.encrypt_uint(v.b, 8),
+                            sa=ctx.encrypt_radix_signed(v.sa, nd),
+                            sb=ctx.encrypt_radix_signed(v.sb, nd))
+        for name, (op, want) in radix_bench.OPS.items():
+            radix_op(name, lambda: op(o), rot, rows, card, want(v),
+                     lambda out: radix_bench.decrypt(ctx, out))
+        u = radix_op(f"from_pbs_int at space 8, {RADIX_LANES} lanes",
+                     lambda: ctx.int_to_uint(ctm, PBS_SPACE), rot, rows, card,
+                     xs[:RADIX_LANES].astype(np.uint64), lambda r: r.decrypt())
+        t_chosen = next((t for t in (4, 2) if pbs.check_pbs_many(p, PBS_SPACE, t)[0]), 1)
+        log("pbs", f"from_pbs_int: {u.width} bit planes in {rows[-1][2]} rotations of t="
+            f"{t_chosen} (t=4: {pbs.check_pbs_many(p, PBS_SPACE, 4)[1]})")
+        k1_std = rot.calls
+        if cmux_k.cmux_step.launches != p.n * k1_std or rotate_all_k.rotate_all.launches:
+            raise AssertionError(f"pbs: K1 launched {cmux_k.cmux_step.launches} times for "
+                                 f"{k1_std} bootstrap calls (expected {p.n} each), K3 "
+                                 f"{rotate_all_k.rotate_all.launches}")
+
+        # A latency context from the same seed: a radix 8-bit add at batch 1
+        # on K3, word for word the K1 loop's.
+        lat = TFHE.new(SEED, p, device=dev, latency_mode=True)
+        if not torch.equal(lat.ck.bk.bk, ctx.ck.bk):
+            raise AssertionError("pbs: the latency context's key differs from the same seed's")
+        la, lb = ctx.encrypt_radix(av[:1], nd), ctx.encrypt_radix(bv[:1], nd)
+        k1_before = cmux_k.cmux_step.launches
+        times = {"K3": [], "K1 loop": []}
+        calls = {"K3": 0, "K1 loop": 0}
+        outs = {}
+        for _ in range(3):
+            for mode, c in (("K3", lat), ("K1 loop", ctx)):
+                x, y = radix.RadixUint(c, la.digits), radix.RadixUint(c, lb.digits)
+                before = rot.calls
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[mode] = (x + y).digits
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                calls[mode] += rot.calls - before
+            if not torch.equal(outs["K3"], outs["K1 loop"]):
+                raise AssertionError("pbs: K3's radix add at batch 1 differs from the K1 loop's")
+        np.testing.assert_array_equal(radix.RadixUint(ctx, outs["K3"]).decrypt(),
+                                      (av[:1] + bv[:1]) & m8)
+        k3_lat = rotate_all_k.rotate_all.launches
+        if (k3_lat != calls["K3"] or k3_lat != 3 * nd
+                or cmux_k.cmux_step.launches - k1_before != p.n * calls["K1 loop"]):
+            raise AssertionError(f"pbs: the latency part launched K3 {k3_lat} times for "
+                                 f"{calls['K3']} latency calls, K1 "
+                                 f"{cmux_k.cmux_step.launches - k1_before} for "
+                                 f"{calls['K1 loop']} calls on the standard key")
+        log("pbs", f"latency context (TFHE.new(SEED, PBS_PARAMS, latency_mode=True), the same "
+            f"key): a radix 8-bit add at batch 1 equals the K1 loop's word for word, 3 times; "
+            f"{k3_lat} K3 launches for its {calls['K3']} levels ({calls['K1 loop']} "
+            f"K1-loop levels on the standard key); K3 " + ", ".join(
+                f"{t:.2f}" for t in times["K3"]) + " ms, K1 loop " + ", ".join(
+                f"{t:.2f}" for t in times["K1 loop"]) + f" ms on {card}; K3's clusters at "
+            f"B=2: {rotate_all_k.cluster_for(2, p, dev)} blocks")
+        k1_total, k1_calls = cmux_k.cmux_step.launches, k1_std + calls["K1 loop"]
+        if k1_total != p.n * k1_calls:
+            raise AssertionError(f"pbs: K1 launched {k1_total} times for {k1_calls} K1-loop calls")
+        total_ms = sum(r[1] for r in rows)
+        log("pbs", f"K1 launched {k1_total} times = {p.n} x {k1_calls} bootstrap calls on the "
+            f"standard key, K3 {k3_lat} = one per latency call; the ops' {sum(r[3] for r in rows)} "
+            f"lookups in {total_ms:.1f} ms on {card}")
+    finally:
+        rot.remove()
+    pre = tlwe.add_to_body(ct, (1 << 32) // (4 * PBS_SPACE))
+    return ctx, lat, k1_total, k3_lat, pre, tables
+
+
+def pbs_breakdown(ctx, pre, tables, dev, card) -> None:
+    """One PBS pass of ``pre``'s rows (the half-bucket offset already
+    added), a table per row, layer by layer (host clock around
+    synchronised work) under ``torch.profiler``: the test vector, the blind
+    rotation, the extraction, the key switch; the device's busy and idle
+    share, K1's kernels per step and the allocator's peak."""
+    p = PBS_PARAMS
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tv, t_tv = timed(lambda: pbs.lut_testvec(tables, PBS_SPACE, p, device=dev))
+        acc, t_rot = timed(lambda: bootstrap.blind_rotate(pre, ctx.ck.bk, tv, p))
+        lv1, t_ext = timed(lambda: trlwe.sample_extract(acc, 0))
+        lv0, t_ks = timed(lambda: bootstrap.identity_key_switch(lv1, ctx.ck.ksk, p))
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    dev_ms = device_times(prof)
+    busy = sum(dev_ms.values())
+    b = pre.shape[0]
+    txt = (f"PBS pass at B={b}, a table per row, on {card}: test vector {t_tv:.2f} ms, blind "
+           f"rotate {t_rot:.1f} ms ({t_rot / p.n:.3f} ms a step), extract {t_ext:.2f} ms, key "
+           f"switch {t_ks:.2f} ms; pass {wall:.1f} ms ({b / wall * 1e3:.1f} lookups/s); "
+           f"allocator peak {peak / 2**30:.3f} GiB")
+    if busy > 0:
+        k1 = {name: sum(v for k, v in dev_ms.items() if name in k) for name in K1_KERNELS}
+        top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
+        txt += (f"; device busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; K1 "
+                f"{sum(k1.values()) / busy:.2%} of device time (per step " + ", ".join(
+                    f"{k} {v / p.n * 1e3:.1f} us" for k, v in k1.items())
+                + "); top: " + "; ".join(f"{k[:50]} {v:.2f} ms" for k, v in top))
+    else:
+        txt += "; the profiler saw no device time (breakdown not measured)"
+    log("pbs", txt)
+
+
+def phase_pbs_kernels(ctx, lat, pre, tables, dev, card):
+    """After the counts were read: K1 on the real PBS key against its plain
+    version, steps 0, 1 and n-1 from the real first accumulators of the
+    B=PBS_LOOKUPS batch (a test vector per row); K1's step time there and
+    at B=4096 beside the plain step and its bound; K3's rotation at B=1 on
+    the real latency key against the K1 loop, its time and device time per
+    step.  Returns K1's and K3's largest errors."""
+    p = PBS_PARAMS
+    testvec = pbs.lut_testvec(tables, PBS_SPACE, p, device=dev)
+    acc, a_steps = bootstrap.rotation_start(pre, testvec, p)
+    del testvec
+    err = 0
+    got = acc
+    for i in (0, 1, p.n - 1):
+        nxt = cmux_k.cmux_step(got, a_steps[i], ctx.ck.bk[i], p)
+        err = max(err, exact(f"K1 on the PBS key bk[{i}], B={acc.shape[0]}", nxt,
+                             cmux_k.cmux_step_plain(got, a_steps[i], ctx.ck.bk[i], p)))
+        got = nxt
+    log("pbs", f"K1 bit-exact against its plain version on the PBS_PARAMS key (steps 0, 1 and "
+        f"{p.n - 1}) from the real first accumulators, a test vector per row, B={acc.shape[0]}")
+    key_bytes = 2 * p.l * 2 * 2 * p.N * 4
+    for b in (4096, acc.shape[0]):
+        ab, ai = acc[:b].contiguous(), a_steps[0, :b].contiguous()
+        t = turns({"K1": lambda: cmux_k.cmux_step(ab, ai, ctx.ck.bk[0], p),
+                   "plain": lambda: cmux_k.cmux_step_plain(ab, ai, ctx.ck.bk[0], p)}, 3)
+        bnd, by = bound(step_ops(p, b), step_bytes(p, b, key_bytes))
+        log("pbs", f"K1 step at PBS_PARAMS, B={b} on {card}: {t['K1']:.4f} ms (plain "
+            f"{t['plain']:.3f} ms); bound {bnd:.4f} ms ({by}), {bnd / t['K1']:.1%} of it; "
+            f"a pass of {p.n} steps {t['K1'] * p.n:.1f} ms -> {b / (t['K1'] * p.n) * 1e3:.1f} "
+            "lookups/s by K1 alone")
+    del acc, a_steps, got
+    pbs_breakdown(ctx, pre[:4096], tables[:4096], dev, card)
+    a1, s1 = bootstrap.rotation_start(pre[:1], pbs.lut_testvec(tables[:1], PBS_SPACE, p,
+                                                               device=dev), p)
+    k3_out = rotate_all_k.rotate_all(a1, s1, lat.ck.bk.bk, p)
+    err3 = exact("K3 on the PBS key, B=1", k3_out, k1_loop(a1, s1, ctx.ck.bk, p))
+    # One launch per rotation, milliseconds long: back to back, the events
+    # time the kernel itself (a profiler session here, after the layered
+    # pass's, has recorded nothing).
+    ms = cuda_ms(lambda: rotate_all_k.rotate_all(a1, s1, lat.ck.bk.bk, p), 3)
+    bnd, by = bound(*k3_work(p, 1))
+    log("pbs", f"K3 at PBS_PARAMS, B=1, on the real latency key: equal to the K1 loop word for "
+        f"word; {ms:.3f} ms a rotation (CUDA events, 3 launches back to back), "
+        f"{ms / p.n * 1e3:.2f} us a step; bound {bnd:.4f} ms ({by}); clusters of "
+        f"{rotate_all_k.cluster_for(1, p, dev)} on {card}")
+    return err, err3
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -2041,6 +2373,15 @@ def main() -> int:
     phase_integers(ctx, p, dev, card)
     del ctx
 
+    # 14. PBS and the radix integers at PBS_PARAMS, with the launch counts
+    # of its run only; then K1 and K3 on the real PBS keys
+    t14 = time.perf_counter()
+    pbs_ctx, pbs_lat, k1_pbs, k3_pbs, pbs_pre, pbs_tables = phase_pbs(dev, card)
+    k1_err, k3_err = phase_pbs_kernels(pbs_ctx, pbs_lat, pbs_pre, pbs_tables, dev, card)
+    errs["k1"], errs["k3"] = max(errs["k1"], k1_err), max(errs["k3"], k3_err)
+    del pbs_ctx, pbs_lat, pbs_pre
+    log("pbs", f"phase 14 in {time.perf_counter() - t14:.1f} s")
+
     F = FAST_PARAMS
     fast_t = limb_times["FAST"]
     two_l, f_two_l = 2 * p.l, 2 * F.l
@@ -2050,14 +2391,14 @@ def main() -> int:
     b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
         ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
-         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"],
+         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"] + k1_pbs,
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
         ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
          launches["k2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
         ("rotate_all_k: rotate_all_kernel<TILES> (mma.sync s8, one cluster per sample)",
-         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"], errs["k3"],
+         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"] + k3_pbs, errs["k3"],
          k3_times[1][0], k3_times[1][2], k3_work(p, 1), None),
         ("limb_cmux_step_merged: limb_panel_kernel + step_digits_kernel + "
          "cmux_product_kernel<true, 2>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",

@@ -12,12 +12,17 @@ nvcc on first use; on the CPU every function runs their plain torch
 versions.  ``apps/`` holds
 the ``nander`` console, its fused evaluator and the level-fused circuit
 evaluator with its standard cells, on which the typed encrypted integers
-``FheUint`` / ``FheInt`` (``ints.py``) run; ``bench.py`` is the batched
-HomNAND benchmark.
+``FheUint`` / ``FheInt`` (``ints.py``) run; programmable bootstrapping
+(``pbs.py``, gated by the noise model of ``utils/noise.py``) carries the
+radix integers ``RadixUint`` / ``RadixInt`` (``radix.py``) at
+``PBS_PARAMS``; ``bench.py`` is the batched HomNAND benchmark and
+``examples/radix_bench.py`` the PBS and radix one.
 """
 
 from .context import TFHE
 from .ints import FheInt, FheUint
-from .params import DEFAULT_PARAMS, TEST_PARAMS, TFHEParams
+from .params import DEFAULT_PARAMS, PBS_PARAMS, PBS_TEST_PARAMS, TEST_PARAMS, TFHEParams
+from .radix import RadixInt, RadixUint
 
-__all__ = ["TFHE", "TFHEParams", "DEFAULT_PARAMS", "TEST_PARAMS", "FheUint", "FheInt"]
+__all__ = ["TFHE", "TFHEParams", "DEFAULT_PARAMS", "TEST_PARAMS", "PBS_PARAMS",
+           "PBS_TEST_PARAMS", "FheUint", "FheInt", "RadixUint", "RadixInt"]

@@ -53,7 +53,9 @@ def rotation_start(ct: torch.Tensor, testvec: torch.Tensor,
                    params: TFHEParams) -> tuple[torch.Tensor, torch.Tensor]:
     """The blind rotation's inputs for lv0 TLWE ``ct (B, n+1)``: the first
     accumulator X^{-b~} * testvec, int32 (B, 2, N), and the rotations a~,
-    int32 (n, B), one contiguous row per step."""
+    int32 (n, B), one contiguous row per step.  ``testvec`` is one test
+    vector (2, N) for every row, read in place by the rotation's gather,
+    or one per row (B, 2, N)."""
     shift = 32 - params.nbit - 1
     b_tilde = srl(ct[:, 0], shift)
     a_tilde = srl(ct[:, 1:] + (1 << (shift - 1)), shift)
@@ -87,12 +89,20 @@ def _generic_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: GenericBK,
 
 def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | GenericBK,
                  testvec: torch.Tensor, params: TFHEParams) -> torch.Tensor:
-    """Rotate ``testvec (2, N)`` by the encrypted phase of lv0 TLWE ``ct
-    (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N), or it as a
-    latency key, or a limb key, or a generic engine's key.  Returns int32
-    (..., 2, N)."""
-    lead = ct.shape[:-1]
-    acc, a_steps = rotation_start(ct.reshape(-1, params.n + 1), testvec, params)
+    """Rotate ``testvec (..., 2, N)`` by the encrypted phase of lv0 TLWE
+    ``ct (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N), or it as
+    a latency key, or a limb key, or a generic engine's key.  The leading
+    axes of ``testvec`` broadcast against those of ``ct``, as in
+    ``rustfhe_tpu/bootstrap.py:32-37``: a (2, N) vector serves every row
+    without a copy, and a vector per row (programmable bootstrapping with
+    a table per row, ``pbs.py``) is flattened with the rows.  Every branch
+    below starts from the one accumulator (B, 2, N) this makes.  Returns
+    int32 (..., 2, N)."""
+    lead = torch.broadcast_shapes(ct.shape[:-1], testvec.shape[:-2])
+    ct = ct.expand(lead + ct.shape[-1:]).reshape(-1, params.n + 1)
+    if testvec.dim() > 2:
+        testvec = testvec.expand(lead + testvec.shape[-2:]).reshape(-1, 2, params.N)
+    acc, a_steps = rotation_start(ct, testvec, params)
     if isinstance(bk, LimbBK):
         return _limb_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
     if isinstance(bk, GenericBK):

@@ -1,9 +1,9 @@
 """High-level TFHE context: the user-facing object API.
 
 Counterpart of ``rustfhe_tpu/context.py`` (keygen, the latency mode, the
-key cache, encrypt/decrypt, the gate set and the typed-integer
-constructors; the PBS, radix, seeded and public-key methods are not ported
-yet).  Randomness comes from
+key cache, encrypt/decrypt, the gate set, the typed-integer and radix
+constructors and the programmable-bootstrapping methods; the seeded and
+public-key methods are not ported yet).  Randomness comes from
 one ``torch.Generator`` on the context's device, used for keygen and then
 for every encryption.
 """
@@ -12,10 +12,11 @@ from __future__ import annotations
 
 import torch
 
-from . import gates, tlwe, torus
+from . import gates, pbs, tlwe, torus
 from ._device import resolve_device
 from .engine import resolve_engine, select_engine
-from .ints import FheInt, FheUint
+from .ints import FheInt, FheUint, from_pbs_int
+from .radix import RadixInt, RadixUint
 from .keys import CloudKey, SecretKey, cloud_key_latency, gen_keys
 from .params import DEFAULT_PARAMS, TFHEParams
 
@@ -161,3 +162,47 @@ class TFHE:
 
     def trivial_sint(self, values, width: int):
         return FheInt.trivial(self, values, width)
+
+    def int_to_uint(self, cts, space: int, *, unsafe: bool = False):
+        """PBS-domain encrypted int -> FheUint bit planes, one bootstrap
+        level (ints.from_pbs_int: multi-output PBS with raw +-mu tables).
+        Raises when the calibrated (space, t) noise margin is below
+        threshold unless ``unsafe=True``."""
+        return from_pbs_int(self, cts, space, unsafe=unsafe)
+
+    def encrypt_radix(self, values, ndigits: int):
+        """Encrypt unsigned integers in radix form (radix.RadixUint: 2-bit
+        PBS digits; an add costs one bootstrap level per digit instead of
+        the bit circuit's per gate level).  Use params.PBS_PARAMS."""
+        return RadixUint.encrypt(self, values, ndigits)
+
+    def trivial_radix(self, values, ndigits: int):
+        return RadixUint.trivial(self, values, ndigits)
+
+    def encrypt_radix_signed(self, values, ndigits: int):
+        """Signed (two's complement) radix integers (radix.RadixInt)."""
+        return RadixInt.encrypt(self, values, ndigits)
+
+    # ------------------ programmable bootstrapping -------------------- #
+    def encrypt_int(self, x, space: int) -> torch.Tensor:
+        """Encrypt ints in [0, space) (padding-bit encoding; pbs.py)."""
+        if self.sk is None:
+            raise ValueError("cloud-only context cannot encrypt")
+        return pbs.encrypt_int(self.gen, self.sk.lv0, x, space, self.params)
+
+    def decrypt_int(self, cts: torch.Tensor, space: int) -> torch.Tensor:
+        if self.sk is None:
+            raise ValueError("cloud-only context cannot decrypt")
+        return pbs.decrypt_int(cts, self.sk.lv0, space)
+
+    def apply_lut(self, cts: torch.Tensor, table, space: int) -> torch.Tensor:
+        """Programmable bootstrap: cts of x -> cts of table[x] (pbs.pbs).
+
+        ``table``: (space,) ints, or (..., space) for a different function
+        per batch row.  One bootstrap of cost; the output noise is reset."""
+        return pbs.pbs(self.ck, cts, table, space=space, params=self.params)
+
+    def apply_luts(self, cts: torch.Tensor, tables, space: int) -> torch.Tensor:
+        """Multi-output PBS (pbs.pbs_many): ``tables (..., t, space)`` ->
+        ``(..., t, n+1)``, all t lookups from one blind rotation."""
+        return pbs.pbs_many(self.ck, cts, tables, space=space, params=self.params)

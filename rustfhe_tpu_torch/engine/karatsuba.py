@@ -43,7 +43,7 @@ import torch
 from .._u32 import s32, srl, wrap
 from ..params import TFHEParams
 from ..poly import to_signed_limbs
-from .plain import LIMB_BITS, NUM_LIMBS, _circulant
+from .plain import LIMB_BITS, NUM_LIMBS, _circulant_product
 
 LEVELS = 2
 R = 1 << LEVELS  # residues per polynomial half
@@ -290,8 +290,7 @@ def leaf_parts(dig: torch.Tensor, table: torch.Tensor, v: Step, tm: int) -> torc
         return d[:, :, None, None, None] + w.transpose(0, 1)[None]
     # leaf t's planes as (2L, 2*K, 2ns): one circulant of the (c, k) outputs
     planes = table.permute(1, 3, 0, 2, 4).reshape(T, two_l, 2 * K, 2 * ns)  # (t, j, (c, k), x)
-    parts = [dig[:, t].reshape(B, two_l * ns).to(torch.float64) @ _circulant(planes[t])
-             for t in range(T)]
+    parts = [_circulant_product(dig[:, t], planes[t]) for t in range(T)]
     return torch.stack(parts, dim=1).to(torch.int64).reshape(B, T, 2, K, ns)
 
 

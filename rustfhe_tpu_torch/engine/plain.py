@@ -47,15 +47,18 @@ def prepare_trgsw(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([-rows, rows], dim=-1).contiguous()
 
 
-def _circulant(table: torch.Tensor) -> torch.Tensor:
-    """Doubled table ``(2L, H, 2N)`` (H output polynomials, 2 for the two
-    halves) -> float64 ``(2L*N, H*N)`` with C[(j, i), (c, k)] = T[j, c, k - i + N]."""
+def _circulant_product(d: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``d.reshape(B, 2L*N) @ C`` for digits ``d (B, 2L, N)`` and the
+    circulant C[(j, i), (c, k)] = T[j, c, k - i + N] of the doubled table
+    ``(2L, H, 2N)`` (H output polynomials, 2 for the two halves): float64
+    ``(B, H*N)``, with one copy of the table: T[k - i + N] = T[1 + i' + k]
+    for i' = N - 1 - i, so the windows of T[1:] (a view) serve as the
+    matrix against the digits reversed along i."""
     two_l, halves, tn = table.shape
     N = tn // 2
-    ar = torch.arange(N, device=table.device)
-    idx = ar[None, :] - ar[:, None] + N  # (i, k)
-    circ = table[:, :, idx]  # (2L, H, i, k)
-    return circ.permute(0, 2, 1, 3).reshape(two_l * N, halves * N).to(torch.float64)
+    circ = table[..., 1:].to(torch.float64).unfold(-1, N, 1)  # (2L, H, i', k)
+    circ = circ.permute(0, 2, 1, 3).reshape(two_l * N, halves * N)
+    return d.flip(-1).reshape(d.shape[0], two_l * N).to(torch.float64) @ circ
 
 
 def external_product(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -74,9 +77,7 @@ def external_product(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if two_l * N > 1 << 15:
         raise ValueError(f"2L*N = {two_l * N} breaks the float64 exactness bound")
     B = digits.shape[0]
-    d = digits.reshape(B, two_l * N).to(torch.float64)
-    out = d @ _circulant(table)
-    return wrap(out).reshape(B, 2, N)
+    return wrap(_circulant_product(digits, table)).reshape(B, 2, N)
 
 
 def prepare_trgsw_limbs(rows: torch.Tensor) -> torch.Tensor:
@@ -131,10 +132,9 @@ def external_product_limbs(digits: torch.Tensor, table: torch.Tensor) -> torch.T
     two_l, _, num_limbs, tn = table.shape
     N = tn // 2
     B = digits.shape[0]
-    d = digits.reshape(B, two_l * N).to(torch.float64)
     out = torch.zeros((B, 2 * N), dtype=torch.int64, device=digits.device)
     for k in range(num_limbs):
-        part = wrap(d @ _circulant(table[:, :, k]))
+        part = wrap(_circulant_product(digits, table[:, :, k]))
         out += part.to(torch.int64) << (LIMB_BITS * k)
     return wrap(out).reshape(B, 2, N)
 
@@ -162,8 +162,12 @@ def key_switch_digits(ksk: torch.Tensor, digits: torch.Tensor,
                       params: TFHEParams) -> torch.Tensor:
     """sum_{i,l} KSK[i, l, digits[..., i, l]] as int32 ``(..., n+1)``.
 
-    One (digit == t) mask product per digit value t; |sum| <= 3 * N*iks_l
-    * 2^31 = 2^45.6 at DEFAULT_PARAMS, exact in float64.
+    One (digit == t) mask product per digit value t, T - 1 of them (T =
+    iks_t); each selects at most N*iks_l key words of |w| <= 2^31, so
+    |sum| <= (T - 1) * N*iks_l * 2^31, below 2^53 on every preset, and
+    the float64 sums are exact: TEST_PARAMS 3 * 512 (2^41.6), DEFAULT and
+    FAST 3 * 8192 (2^45.6), N2048 3 * 16384 (2^46.6), PBS_TEST 15 * 1024
+    (2^44.9), PBS_PARAMS 15 * 8192 (2^47.9).
     """
     lead = digits.shape[:-2]
     d = digits.reshape(-1, params.N * params.iks_l)

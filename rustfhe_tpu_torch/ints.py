@@ -18,8 +18,9 @@ Every op returns new tensors and writes into none it was given: an
 integer's ``bits`` may be shared with another integer (``extend`` and a
 zero shift return the operand itself), so no op updates bits in place.
 
-Not ported yet: the seeded and public-key constructors and
-``from_pbs_int`` (they wait for the PRNG, the public key and PBS).
+``from_pbs_int`` bridges a PBS-domain integer (``pbs.py``) into the bit
+world.  Not ported yet: the seeded and public-key constructors (they wait
+for the PRNG and the public key).
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import pbs as _pbs
 from . import tlwe
+from ._u32 import from_numpy
 from .apps import circuits
 
 
@@ -417,3 +420,63 @@ class FheInt(FheUint):
             mask = (1 << width) - 1 if 0 < width <= 64 else 0
             v = v.astype(np.int64).view(np.uint64) & np.uint64(mask)
         return FheUint._to_bits(v, width)
+
+
+def from_pbs_int(ctx, ct: torch.Tensor, space: int, *, unsafe: bool = False) -> FheUint:
+    """Bridge a PBS-domain encrypted integer into the bit world: decompose
+    ``ct`` (padding-bit encoding of x in [0, space), ``pbs.py``) into a
+    ``FheUint`` of width log2(space) via multi-output PBS with raw
+    gate-encoded +-mu tables.
+
+    The multi-output degree ``t`` is chosen adaptively: the largest power
+    of two whose t^2-scaled modulus-switch drift passes the calibrated
+    noise check at ``ctx.params`` (``pbs.check_pbs_many``; t=1 uses
+    ``check_pbs_space``), and the bit planes split into ``ceil(width / t)``
+    rotations: at ``params.PBS_PARAMS`` a space-8 integer decomposes in 2
+    rotations of t=2 at a >= 5-sigma margin, where one rotation of t=4
+    would sit at ~2.6 calibrated sigma.  If even t=1 fails the space
+    check, raises unless ``unsafe=True`` (which also takes the
+    single-rotation maximal t, for borderline-margin measurements).
+
+    The result's bits are fresh gate-encoded ciphertexts, so the integer
+    and circuit API composes on them.  ``ct`` is not written to.
+    """
+    w = space.bit_length() - 1
+    if space != 1 << w:
+        raise ValueError(f"space must be a power of two, got {space}")
+    t_full = 1 << max(0, (w - 1)).bit_length() if w > 1 else 1  # pad to pow2
+    if unsafe:
+        t = t_full
+    else:
+        t = 0
+        cand = t_full
+        while cand >= 1:
+            ok, msg = (_pbs.check_pbs_many(ctx.params, space, cand)
+                       if cand > 1 else _pbs.check_pbs_space(ctx.params, space))
+            if ok:
+                t = cand
+                break
+            cand >>= 1
+        if t == 0:
+            raise ValueError(
+                f"from_pbs_int margin below threshold at this parameter set "
+                f"even at t=1 ({msg}); use a PBS-tuned preset "
+                f"(params.PBS_PARAMS) or pass unsafe=True to override"
+            )
+    mu = ctx.params.mu
+    neg_mu = (-mu) & 0xFFFFFFFF
+    bit_tab = [[(mu if (x >> j) & 1 else neg_mu) for x in range(space)]
+               for j in range(w)]
+    planes = []
+    for j0 in range(0, w, t):
+        chunk = bit_tab[j0: j0 + t]
+        pad = t - len(chunk)
+        tabs = from_numpy(np.array(chunk + [[0] * space] * pad, np.uint32), ct.device)
+        if t == 1:
+            out = _pbs.pbs(ctx.ck, ct, tabs[0], space=space, raw=True, params=ctx.params,
+                           unsafe=unsafe)[..., None, :]
+        else:
+            out = _pbs.pbs_many(ctx.ck, ct, tabs, space=space, raw=True, params=ctx.params,
+                                unsafe=unsafe)
+        planes.append(out[..., : len(chunk), :])
+    return FheUint(ctx, torch.cat(planes, dim=-2))

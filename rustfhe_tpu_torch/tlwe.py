@@ -41,6 +41,12 @@ def mask(ct: torch.Tensor) -> torch.Tensor:
     return ct[..., 1:]
 
 
+def add_to_body(ct: torch.Tensor, word: int) -> torch.Tensor:
+    """A new tensor: ``ct`` with the uint32 ``word`` added to every body
+    (the JAX package's ``ct.at[..., 0].add(word)``; ``ct`` is not written)."""
+    return torch.cat([ct[..., :1] + s32(word), ct[..., 1:]], dim=-1)
+
+
 def neg(ct: torch.Tensor) -> torch.Tensor:
     return -ct
 

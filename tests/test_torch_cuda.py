@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K6 (and K4/K6's pieces) and the probes P1-P10
 against their plain versions, and the generic engines "matmul" and "matmul_bf16" against
-their CPU products, on the card.
+their CPU products, on the card; the integer, PBS and radix paths on K1
+and K3 (a test vector per row at PBS_PARAMS) against the CPU and the K1 loop.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -745,3 +746,96 @@ def test_latency_mode_integer_add_equals_the_k1_loop(cuda):
         assert rotate_all_k.rotate_all.launches == k3 + 7  # one K3 launch per level
         assert torch.equal(got.bits, want.bits)
         np.testing.assert_array_equal(got.decrypt(), [44, 16][: sl.stop])
+
+
+# --------------------------------------------------------------------- #
+# Programmable bootstrapping and the radix integers: a test vector per row
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("B", [1, 8, 33])
+def test_per_row_test_vectors_at_pbs_params_on_k1_and_k3(cuda, B):
+    """At PBS_PARAMS (N=2048, l=4; a shortened rotation of n steps) a test
+    vector per row through ``blind_rotate``: the K1 loop equals its plain
+    version, and K3 (a latency key) equals the K1 loop, word for word."""
+    from rustfhe_tpu_torch import bootstrap, keys
+
+    p = params.PBS_PARAMS.replace(n=24)
+    _, a, bk = _rotation_case(90 + B, B, p, cuda)
+    rs = np.random.RandomState(91 + B)
+    ct = _u32.from_numpy(rs.randint(0, 2**32, size=(B, p.n + 1), dtype=np.uint64), cuda)
+    tv = _u32.from_numpy(rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64), cuda)
+    acc, a_steps = bootstrap.rotation_start(ct, tv, p)
+    want = rotate_all_k.rotate_all_plain(acc, a_steps, bk, p)
+    k1 = cmux_k.cmux_step.launches
+    got = bootstrap.blind_rotate(ct, bk, tv, p)
+    assert cmux_k.cmux_step.launches == k1 + p.n
+    assert torch.equal(got, want)
+    k3 = rotate_all_k.rotate_all.launches
+    lat = bootstrap.blind_rotate(ct, keys.LatencyBK(bk), tv, p)
+    assert rotate_all_k.rotate_all.launches == k3 + 1
+    assert torch.equal(lat, got)
+
+
+def test_pbs_and_radix_on_card_equal_cpu(cuda):
+    """PBS_TEST_PARAMS on one key set: per-row tables, pbs_many and a radix
+    add on the card (K1; K3 on a latency key) equal the CPU's words."""
+    from rustfhe_tpu_torch import keys, pbs
+    from rustfhe_tpu_torch.radix import RadixUint
+
+    p = params.PBS_TEST_PARAMS
+    cpu, card = _contexts_on_one_key(92, p, ["cpu", cuda])
+    lat = TFHE(card.sk, keys.cloud_key_latency(card.ck), p, cuda, None, card.engine_name)
+    rs = np.random.RandomState(93)
+    xs = rs.randint(0, 8, size=(3, 5))
+    ct = pbs.encrypt_int(torch.Generator().manual_seed(94), cpu.sk.lv0, xs, 8, p)
+    tables = rs.randint(0, 8, size=(3, 1, 8))
+    want = pbs.pbs(cpu.ck, ct, tables, space=8, params=p)
+    for c in (card, lat):
+        got = pbs.pbs(c.ck, ct.to(cuda), tables, space=8, params=p)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(cpu.decrypt_int(want, 8).numpy(), tables[:, 0][
+        np.arange(3)[:, None], xs])
+    tabs2 = rs.randint(0, 8, size=(2, 8))
+    many = pbs.pbs_many(cpu.ck, ct, tabs2, space=8, params=p, unsafe=True)
+    got = pbs.pbs_many(card.ck, ct.to(cuda), tabs2, space=8, params=p, unsafe=True)
+    assert torch.equal(got.cpu(), many)
+    av, bv = rs.randint(0, 64, 4).astype(np.uint64), rs.randint(0, 64, 4).astype(np.uint64)
+    gen = torch.Generator().manual_seed(95)
+    a, b = (RadixUint(cpu, pbs.encrypt_int(gen, cpu.sk.lv0, RadixUint._to_digits(v, 3), 8, p))
+            for v in (av, bv))
+    s_cpu = (a + b).digits
+    for c in (card, lat):
+        s = RadixUint(c, a.digits.to(cuda)) + RadixUint(c, b.digits.to(cuda))
+        assert torch.equal(s.digits.cpu(), s_cpu)
+    np.testing.assert_array_equal(RadixUint(cpu, s_cpu).decrypt(), (av + bv) & 63)
+
+
+def test_pbs_params_context_on_card(cuda):
+    """``TFHE.new(seed, PBS_PARAMS)`` on the card picks "cmux_k": a space-8
+    lookup with a table per row decodes right, and a radix 4-bit add at
+    batch 1 on K3 equals the K1 loop's word for word."""
+    from rustfhe_tpu_torch import keys
+    from rustfhe_tpu_torch.radix import RadixUint
+
+    p = params.PBS_PARAMS
+    ctx = TFHE.new(95, p, device=cuda)
+    assert ctx.engine_name == "cmux_k"
+    rs = np.random.RandomState(96)
+    xs, tables = rs.randint(0, 8, size=64), rs.randint(0, 8, size=(64, 8))
+    k1 = cmux_k.cmux_step.launches
+    out = ctx.apply_lut(ctx.encrypt_int(xs, 8), tables, 8)
+    assert cmux_k.cmux_step.launches == k1 + p.n
+    np.testing.assert_array_equal(ctx.decrypt_int(out, 8).cpu().numpy(), tables[np.arange(64), xs])
+    lat = TFHE(ctx.sk, keys.cloud_key_latency(ctx.ck), p, cuda, None, ctx.engine_name)
+    a, b = ctx.encrypt_radix([13], 2), ctx.encrypt_radix([9], 2)
+    want = a + b
+    k1, k3 = cmux_k.cmux_step.launches, rotate_all_k.rotate_all.launches
+    got = RadixUint(lat, a.digits) + RadixUint(lat, b.digits)
+    assert rotate_all_k.rotate_all.launches == k3 + 2 and cmux_k.cmux_step.launches == k1
+    assert torch.equal(got.digits, want.digits)
+    np.testing.assert_array_equal(got.decrypt(), [6])  # 13 + 9 = 22 mod 16
+    x = ctx.encrypt_radix([0xB5], 4)  # an odd shift: one level of 8 lanes, one K3 launch
+    k3 = rotate_all_k.rotate_all.launches
+    got = RadixUint(lat, x.digits).shift_left(1)
+    assert rotate_all_k.rotate_all.launches == k3 + 1
+    assert torch.equal(got.digits, x.shift_left(1).digits)
+    np.testing.assert_array_equal(got.decrypt(), [0x6A])
