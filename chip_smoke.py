@@ -16,8 +16,8 @@ Phases, one line each:
 
   1. environment: torch, CUDA, nvcc, the card;
   2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use;
-     ptxas's registers, spills and performance notes; K1/K2's, K3's and
-     K4/K5/K6's kernels may not spill);
+     ptxas's registers, spills and performance notes; K1/K2's, K3's,
+     K4/K5/K6's, P5/P6's and P1-P4/P8's kernels may not spill);
   3. kernels: K1 (CMux step: key panel, digits and the int8 wgmma product
      with the limb recombination in its epilogue) and K2 (external
      product: panel and product) on the card against their plain torch
@@ -75,9 +75,10 @@ Phases, one line each:
      batch, every output decrypted and equal to phase 4's, and the times
      of one K5-per-step step's torch decomposition, K5 and the whole;
   9. the probes (the JAX package's ``benches/`` kernels the port carries):
-     P6 (the limb step without its products or its rotation), P5 (the
-     merged step's two recombination orders), both in their __dp4a forms
-     and held to the wgmma K6 and K4, P7 and P9 (the int8 GEMM on the tensor
+     P6 (K6's wgmma step without its products or its rotation), P5 (K4's
+     step with the fragment drained per plane or once), held to K6 and K4,
+     and their own pieces alone (the digits without rotation, the nodots
+     kernel, the drain product), P7 and P9 (the int8 GEMM on the tensor
      cores, wgmma on TMA-fed shared memory) against their plain versions,
      word for word, on a limb table mapped from a random JAX-layout ``qd``
      (P6 at B = 1, 13, 33, 8192, "full" also against K6; P5 also against
@@ -86,19 +87,26 @@ Phases, one line each:
      (STAGES + 1) x DEPTH, one tile, several, and more than the persistent
      grid's blocks, rows and columns of -128), at K = 2^17 - DEPTH all
      -128, and a ragged shape that must raise); their times in turns
-     beside the plain versions (the step's breakdown, TOPS beside
+     beside the plain versions (the step's breakdown by CUDA events and
+     each variant's kernels by the profiler, TOPS beside
      ``torch._int_mm``); then
      the probes' entry points (``rustfhe_tpu_torch.benches``:
      step_breakdown_probe, limb_order_probe, matmul_probe) with their
      defaults, each with the launch counts of its own run;
  10. the Karatsuba step probes (the JAX package's K1 at levels 2 in the
-     residue layout): every form of P4 (ablations), P8 (digit-side
-     variants), P1 (limb-outer) and P2 (split tile) against its plain
+     residue layout; nine leaf GEMMs on wgmma: tree digits, leaf panels,
+     the leaf product, the combine): every form of P4 (ablations), P8
+     (digit-side variants), P1 (limb-outer), P2 (split tile) and P3 (the
+     sum leaves built in the product's producer) against its plain
      version, word for word, at B = 1, 13, 33, 8192 (a~ edges 0, 1, N,
      2N-1, a table mapped from random JAX-layout bytes); the exact forms
      on a table from random rows against K1 through the scan layout; P8's
-     two steps per call against two single steps; every form's time in
-     turns beside K1 and the plain step, and P4's attribution; then the
+     two steps per call against two single steps; each piece of every
+     form alone against its plain version; every form's time in turns
+     beside K1 and the plain step (SM clock sampled), P4's attribution,
+     the step / K1 and the share of the bound, P4 full's and K1's kernels
+     by the profiler; P4 full at PBS_PARAMS (N=2048, l=4), B=4096, against
+     its plain version and K1, then in turns beside K1; then the
      four entry points (k2_floor_probe, vpu_reduce_probe,
      karatsuba2_probe, coissue_probe) with their defaults, each with the
      launch counts of its own run (P3's two forms join the form checks and
@@ -199,6 +207,11 @@ K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel")  
 # K4/K6's and K5's launches (the digit and product kernels are K1's, csrc/cmux_step.cuh)
 LIMB_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel")
 K3_KERNELS = ("rotate_all_kernel", "barrier_floor_kernel")
+# P5/P6's launches (K4/K6's kernels, the norot digits, the nodots kernel)
+PROBE_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel", "nodots_kernel")
+# a Karatsuba step's launches (nodots: broadcast_kernel for the product; accio: accio_kernel)
+KARATSUBA_KERNELS = ("tree_digits_kernel", "limb_panel_kernel", "cmux_product_kernel",
+                     "broadcast_kernel", "combine_kernel", "accio_kernel")
 STEP_PIECES = {"panel": "panel_kernel", "digits": "step_digits_kernel",
                "product": "cmux_product_kernel"}  # a K1/K4/K6 step's kernels, by name
 K3_SOURCE = "rustfhe_tpu_torch/csrc/rotate_all_k.cu"
@@ -413,9 +426,16 @@ def ptxas_kernels(report: str, names) -> dict[str, tuple[int, int]]:
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             name = next((k for k in names if k in m.group(1)), m.group(1))
             if t := re.search(r"ILb([01])ELi(\d)E", m.group(1)):
-                name += f"<{'true' if t.group(1) == '1' else 'false'}, {t.group(2)}>"
+                name += f"<{'true' if t.group(1) == '1' else 'false'}, {t.group(2)}"
+                if f := re.search(r"LeafProductILi(\d)ELb([01])ELi(\d)E", m.group(1)):
+                    name += f", LeafProduct<{f.group(1)}, {f.group(2)}, {f.group(3)}>"
+                elif "5DrainE" in m.group(1):
+                    name += ", Drain"
+                name += ">"
             elif t := re.search(r"ILi(\d+)EE", m.group(1)):
                 name += f"<{t.group(1)}>"
+            elif t := re.search(r"ILb([01])EE", m.group(1)):
+                name += f"<{'true' if t.group(1) == '1' else 'false'}>"
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = int(m.group(1)) + int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
@@ -1251,12 +1271,15 @@ def gemm_edges(dev, gen) -> int:
 
 
 def phase_probe_kernels(dev, rs, card):
-    """P6's three variants and P5's two orders against their plain versions
-    (and K6, K4), word for word, at DEFAULT_PARAMS on a limb table mapped
-    from a random JAX-layout qd; P7/P9 at every tile against the float64
-    product at the probe shapes and the ring's edges, and a ragged shape
-    refused.  Then the times in turns: the step's breakdown and the GEMM's
-    TOPS at each tile."""
+    """P6's three variants and P5's two orders (K6's and K4's tensor-core
+    step with one part changed) against their plain versions (and K6, K4),
+    word for word, at DEFAULT_PARAMS on a limb table mapped from a random
+    JAX-layout qd, and their own pieces alone (the digits without rotation,
+    P5's drain product, P6's nodots kernel); P7/P9 at every tile against
+    the float64 product at the probe shapes and the ring's edges, and a
+    ragged shape refused.  Then the times in turns: the step's breakdown
+    (CUDA events, and each variant's kernels by the profiler) and the
+    GEMM's TOPS at each tile."""
     p = DEFAULT_PARAMS
     errs = {"p5": 0, "p6": 0, "p7": 0, "p9": 0}
     qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4, 2 * p.N)).astype(np.int8))
@@ -1277,11 +1300,21 @@ def phase_probe_kernels(dev, rs, card):
             got = limb_probe.step_order(acc, ai, tab, p, order)
             errs["p5"] = max(errs["p5"], exact(f"P5 {order} B={b}", got, want))
             exact(f"P5 {order} vs K4 B={b}", got, k4)
+    # the probes' own pieces alone at B=8192 (acc, ai of the last check)
+    norot = limb_probe.step_digits(acc, ai, p, rotate=False)
+    errs["p6"] = max(errs["p6"], exact("P6 norot digits", norot, limb_probe.step_digits_plain(
+        acc, ai, p, rotate=False)))
+    digits, panel = cmux_k.step_digits(acc, ai, p), limb_step.limb_panel(tab, p)
+    errs["p6"] = max(errs["p6"], exact("P6 nodots kernel", limb_probe.nodots(digits, acc, p),
+                                       limb_probe.nodots_plain(digits, acc, p)))
+    errs["p5"] = max(errs["p5"], exact("P5 drain product", limb_probe.drain_product(
+        digits, panel, acc, p), limb_step.merged_product_plain(digits, panel, acc, p)))
     torch.cuda.synchronize()
-    log("probes", f"P6 (full, nodots, norot) and P5 (j-outer, limb-outer), the __dp4a forms of "
-        f"the limb step, bit-exact against their plain versions at "
-        f"B={', '.join(map(str, PROBE_CHECK))}; P6 full equals K6, both P5 orders equal K4 "
-        "(K4/K6: the wgmma GEMM)")
+    log("probes", f"P6 (full, nodots, norot) and P5 (j-outer, limb-outer), K6's and K4's wgmma "
+        f"step with one part changed, bit-exact against their plain versions at "
+        f"B={', '.join(map(str, PROBE_CHECK))}; P6 full equals K6, both P5 orders equal K4; "
+        f"at B={acc.shape[0]} the digits without rotation, the nodots kernel and the drain "
+        "product equal their plain versions")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1319,14 +1352,18 @@ def phase_probe_kernels(dev, rs, card):
             **{f"P5 {o}": (lambda o=o: limb_probe.step_order(acc, ai, tab, p, o))
                for o in limb_probe.ORDERS}}
     t = turns(step, 5)
-    log("probes", f"limb step at DEFAULT, B={acc.shape[0]}, on {card}, ms/step: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+    log("probes", f"limb step at DEFAULT, B={acc.shape[0]}, on {card}, ms/step (CUDA events, "
+        "in turns): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
         + f" | rotation (P6 full - norot) {t['P6 full'] - t['P6 norot']:.4f}, products (P6 full"
         f" - nodots) {t['P6 full'] - t['P6 nodots']:.4f}, the rest (nodots) "
         f"{t['P6 nodots']:.4f}; recombination per plane (P5 j-outer - limb-outer) "
-        f"{t['P5 j-outer'] - t['P5 limb-outer']:.4f}; K6 (wgmma) / P6 full (__dp4a) "
-        f"{t['K6'] / t['P6 full']:.4f}, K4 (wgmma) / P5 limb-outer (__dp4a) "
-        f"{t['K4'] / t['P5 limb-outer']:.4f}")
+        f"{t['P5 j-outer'] - t['P5 limb-outer']:.4f}; P6 full / K6 {t['P6 full'] / t['K6']:.4f}, "
+        f"P5 limb-outer / K4 {t['P5 limb-outer'] / t['K4']:.4f}")
+    split = {k: profiled_times(step[k], 10)[0] for k in
+             ("P6 full", "P6 norot", "P6 nodots", "P5 limb-outer", "P5 j-outer")}
+    log("probes", "device time per step by kernel (profiler, 10 steps), ms: " + "; ".join(
+        f"{k}: " + ", ".join(f"{kernel_label(n)} {v / 10:.4f}" for n, v in sorted(d.items()))
+        for k, d in split.items()))
     vplain = {v: cuda_ms(lambda rd=rd: limb_probe.variant_step_plain(acc, ai, tab, p, *rd), 2)
               for v, rd in limb_probe.VARIANTS.items() if v != "full"}
     log("probes", "plain P6 variants, ms: " + ", ".join(f"{k} {v:.4f}" for k, v in vplain.items()))
@@ -1387,12 +1424,52 @@ KARATSUBA_REPLACES = {"P4": "benches/k2_floor_probe.py:164", "P8": "benches/vpu_
                       "P3": "benches/coissue2_probe.py:134"}
 
 
+KARATSUBA_PIECES = {"tree digits": "tree_digits_kernel", "leaf panels": "limb_panel_kernel",
+                    "leaf product": "cmux_product_kernel", "combine": "combine_kernel"}
+KARATSUBA_PBS_B = 4096  # the Karatsuba step beside K1 at PBS_PARAMS
+
+
+def karatsuba_pieces(flat, ai, tab, p, dev) -> int:
+    """Each piece of every form alone on the card against its plain version
+    (also on the card): the tree digits (P3's forms: the residue leaves),
+    the leaf panels, the leaves (on every leaf's digits) and the combine.
+    Returns the largest error (0, or it raised)."""
+    err = exact("leaf panels", karatsuba_probe.leaf_panel(tab, p),
+                karatsuba_probe.leaf_panel_plain(tab, p))
+    panel = karatsuba_probe.leaf_panel_plain(tab, p)
+    for form in sorted(karatsuba_probe.FORMS - {karatsuba_probe.ABLATIONS["accio"]}, key=str):
+        want = karatsuba_probe.tree_digits_plain(flat, ai, p, form)
+        got = karatsuba_probe.tree_digits(flat, ai, p, form)
+        if form.build != "upfront":
+            got, want = (x[:, list(karatsuba_probe.RESIDUE_LEAVES)] for x in (got, want))
+        err = max(err, exact(f"tree digits {form}", got, want))
+        dig = karatsuba_probe.tree_digits_plain(flat, ai, p, form)
+        leaves = karatsuba_probe.leaves(dig, panel, tab, p, form)
+        err = max(err, exact(f"leaves {form}", leaves,
+                             karatsuba_probe.leaves_plain(dig, panel, tab, p, form)))
+        err = max(err, exact(f"combine {form}", karatsuba_probe.combine(flat, leaves, p, form),
+                             karatsuba_probe.combine_plain(flat, leaves, p, form)))
+    return err
+
+
+def karatsuba_split(fn, calls: int = 10) -> dict[str, float]:
+    """Device time (ms) per step of each of a Karatsuba step's kernels
+    (``KARATSUBA_PIECES``) under the profiler."""
+    times, _ = profiled_times(fn, calls, lambda t, n: all(
+        any(k in name for name in n) for k in KARATSUBA_PIECES.values()))
+    return {piece: sum(v for n, v in times.items() if k in n) / calls
+            for piece, k in KARATSUBA_PIECES.items()}
+
+
 def phase_karatsuba_kernels(dev, rs, card):
-    """Every form of P4, P8, P1 and P2 against its plain version, word for
-    word, at B = 1, 13, 33, 8192 on a table mapped from random JAX-layout
-    bytes; the exact forms on a table from random rows against K1 through
-    the scan layout; P8's two steps per call against two single steps.
-    Then every form's time in turns at B=8192 beside K1 and the plain step."""
+    """Every form of P4, P8, P1, P2 and P3 against its plain version, word
+    for word, at B = 1, 13, 33, 8192 on a table mapped from random
+    JAX-layout bytes; the exact forms on a table from random rows against
+    K1 through the scan layout; P8's two steps per call against two single
+    steps; each piece of every form alone against its plain version at
+    B=8192.  Then every form's time in turns at B=8192 beside K1 and the
+    plain step (the SM clock sampled), the share of the bound, and P4
+    full's kernels by the profiler."""
     p = DEFAULT_PARAMS
     errs = dict.fromkeys(KARATSUBA_REPLACES, 0)
     qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4 * 9, p.N // 2)).astype(np.int8))
@@ -1418,12 +1495,15 @@ def phase_karatsuba_kernels(dev, rs, card):
         exact(f"P8 unroll2 B={b}", karatsuba_probe.step_var(flat, a2, torch.stack([tab, rtab]), p,
                                                           unroll=2),
               karatsuba_probe.step_var(one, ai.flip(0).contiguous(), rtab, p))
+    piece_err = karatsuba_pieces(flat, ai, tab, p, dev)
+    errs = {k: max(v, piece_err) for k, v in errs.items()}
     torch.cuda.synchronize()
     log("karatsuba", f"{len(calls)} forms (P4 {len(karatsuba_probe.ABLATIONS)}, P8 "
         f"{len(karatsuba_probe.VAR_FORMS)}, P1 1, P2 2, P3 2) bit-exact against their plain "
         f"versions at B={', '.join(map(str, PROBE_CHECK))}; P4 full, every exact P8 form, P1, "
         "both P2 orders and both P3 forms equal K1 through the scan layout; P8 unroll2 equals "
-        "two single steps")
+        f"two single steps; at B={flat.shape[0]} every form's tree digits, leaf panels, leaves "
+        "and combine equal their plain versions")
 
     # Times at the probes' B=8192 (std, flat, ai of the last check), on the rows' table.
     a2 = torch.stack([ai, ai], dim=1)
@@ -1433,14 +1513,68 @@ def phase_karatsuba_kernels(dev, rs, card):
            **{f"{probe} {label}": (lambda fn=fn, kw=kw: fn(flat, ai, rtab, p, **kw))
               for probe, label, fn, kw, _ in calls},
            "P8 unroll2 (2 steps)": lambda: karatsuba_probe.step_var(flat, a2, rtabs, p, unroll=2)}
+    for fn in fns.values():  # a warm-up round: the card at its working clock
+        fn()
+    clock = sample_card()
     t = turns(fns, 5)
-    log("karatsuba", f"Karatsuba step at DEFAULT, B={flat.shape[0]}, on {card}, ms/step: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k != "P8 unroll2 (2 steps)")
-        + f", P8 unroll2 {t['P8 unroll2 (2 steps)'] / 2:.4f} (two launches)")
+    mhz = [r[0] for r in stop_sampling(clock)]
+    b = flat.shape[0]
+    bnd = bound(step_ops(p, b), step_bytes(p, b, int(np.prod(karatsuba.table_shape(p)))))[0]
+    clock_text = (f"SM clock {min(mhz):.0f}-{max(mhz):.0f} MHz (mean {np.mean(mhz):.0f}, "
+                  f"{len(mhz)} samples)" if mhz else "SM clock not measured")
+    log("karatsuba", f"Karatsuba step at DEFAULT, B={b}, on {card}, ms/step (CUDA events, in "
+        "turns): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k != "P8 unroll2 (2 steps)")
+        + f", P8 unroll2 {t['P8 unroll2 (2 steps)'] / 2:.4f} (two steps); {clock_text}")
     log("karatsuba", "P4 attribution (full - variant), ms: " + ", ".join(
         f"{v} {t['P4 full'] - t[f'P4 {v}']:+.4f}" for v in karatsuba_probe.ABLATIONS if v != "full")
-        + f" | Karatsuba step / K1: {t['P4 full'] / t['K1']:.3f}")
-    return errs, t, flat.shape[0]
+        + f" | Karatsuba step / K1: {t['P4 full'] / t['K1']:.3f}; share of the {bnd:.4f} ms "
+        f"bound: P4 full {bnd / t['P4 full']:.1%}, K1 {bnd / t['K1']:.1%}")
+    split = karatsuba_split(fns["P4 full"])
+    k1_split = step_piece_ms(fns["K1"], 10)
+    log("karatsuba", f"P4 full's kernels, device time per step (profiler), ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()) + f" (sum {sum(split.values()):.4f}); the leaf "
+        f"product at {step_ops(p, b) / split['leaf product'] / 1e9:.1f} TOPS (the Karatsuba "
+        "ops) | K1's: " + ", ".join(f"{k} {v:.4f}" for k, v in k1_split.items())
+        + f" ({schoolbook_ops(p, b) / k1_split['product'] / 1e9:.1f} TOPS, the schoolbook ops)")
+    return errs, t, b
+
+
+def phase_karatsuba_pbs(dev, rs, card):
+    """The Karatsuba step at PBS_PARAMS (N=2048, l=4), B=4096: P4 full
+    against its plain version and K1 through the scan layout, word for
+    word, then P4 full, K1 and the plain step in turns, the share of the
+    bound, and P4 full's kernels by the profiler."""
+    p, b = PBS_PARAMS, KARATSUBA_PBS_B
+    karatsuba.check_bound(p)
+    rows = words(rs, (2 * p.l, 2, p.N), dev)
+    tab, key = karatsuba.prepare_table(rows), plain.prepare_trgsw(rows)
+    std = words(rs, (b, 2, p.N), dev)
+    ai = torch.from_numpy(rs.randint(0, 2 * p.N, size=b).astype(np.int32)).to(dev)
+    ai[:4] = torch.tensor([0, 1, p.N, 2 * p.N - 1], dtype=torch.int32)
+    flat = karatsuba.scan_enter(std)
+    got = karatsuba_probe.step_ablate(flat, ai, tab, p, "full")
+    err = exact("P4 full PBS", got, karatsuba.step_plain(flat, ai, tab, p))
+    exact("P4 full PBS vs K1", karatsuba.scan_exit(got), cmux_k.cmux_step(std, ai, key, p))
+    torch.cuda.synchronize()
+    fns = {"plain": lambda: karatsuba.step_plain(flat, ai, tab, p),
+           "K1": lambda: cmux_k.cmux_step(std, ai, key, p),
+           "P4 full": lambda: karatsuba_probe.step_ablate(flat, ai, tab, p, "full")}
+    for fn in fns.values():
+        fn()
+    clock = sample_card()
+    t = turns(fns, 5)
+    mhz = [r[0] for r in stop_sampling(clock)]
+    bnd = bound(step_ops(p, b), step_bytes(p, b, int(np.prod(karatsuba.table_shape(p)))))[0]
+    split = karatsuba_split(fns["P4 full"])
+    log("karatsuba", f"PBS_PARAMS (N={p.N}, l={p.l}), B={b}: P4 full equals its plain version "
+        f"and K1 through the scan layout; on {card}, ms/step in turns (CUDA events): P4 full "
+        f"{t['P4 full']:.4f}, K1 {t['K1']:.4f}, plain {t['plain']:.4f}; Karatsuba step / K1: "
+        f"{t['P4 full'] / t['K1']:.3f}; share of the {bnd:.4f} ms bound: P4 full "
+        f"{bnd / t['P4 full']:.1%}, K1 {bnd / t['K1']:.1%}; SM clock "
+        + (f"{min(mhz):.0f}-{max(mhz):.0f} MHz (mean {np.mean(mhz):.0f})" if mhz else
+           "not measured") + " | P4 full's kernels (profiler), ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    return err, t
 
 
 def phase_karatsuba_entry_points(card):
@@ -1561,6 +1695,13 @@ def profiled_times(fn, calls: int, seen=lambda times, counts: sum(times.values()
             return times, counts
     raise AssertionError(f"in {PROFILE_TRIES} sessions the profiler saw no device time of the "
                          f"kernels it was to time ({sorted(times)})")
+
+
+def kernel_label(key: str) -> str:
+    """A profiler key's kernel name and template arguments, without the
+    namespaces and the parameter list."""
+    name = re.sub(r"\(anonymous namespace\)::|rustfhe::cmux::|rustfhe::", "", key)
+    return name.split("(")[0].replace("void ", "").strip()
 
 
 def profiled_ms(fn, calls: int) -> float:
@@ -2295,7 +2436,9 @@ def main() -> int:
     regs = {}
     for lib, what, names in (("cmux_k", "K1/K2", K1_KERNELS),
                              ("limb_step", "K4/K6/K5", LIMB_KERNELS),
-                             ("rotate_all_k", "K3", K3_KERNELS)):
+                             ("rotate_all_k", "K3", K3_KERNELS),
+                             ("limb_probe", "P5/P6", PROBE_KERNELS),
+                             ("karatsuba_probe", "P1-P4/P8", KARATSUBA_KERNELS)):
         regs[lib] = ptxas_kernels(libs[lib][1], names)
         if not regs[lib]:  # a cached library has no report
             continue
@@ -2353,6 +2496,8 @@ def main() -> int:
     # versions and K1, their times; then their entry points with the launch
     # counts of each run
     kara_errs, kara_t, kara_b = phase_karatsuba_kernels(dev, rs, card)
+    pbs_err, _ = phase_karatsuba_pbs(dev, rs, card)
+    kara_errs["P4"] = max(kara_errs["P4"], pbs_err)
     kara = phase_karatsuba_entry_points(card)
 
     # 11. P3 and P10: against the production step, the matmul engine and
@@ -2412,10 +2557,14 @@ def main() -> int:
          "cmux_product_kernel<true, 1>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:267",
          dflt["k6"], errs["k6"], fast_t["step"]["k6"], fast_t["step"]["plain"],
          (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
-        ("limb_probe_order", PROBE_SOURCE, "benches/limb_order_probe.py:85", probes["p5"],
-         errs["p5"], probe_t["P5 j-outer"], probe_t["plain"],
+        ("limb_probe_order: limb_panel_kernel<1> + step_digits_kernel<true> + "
+         "cmux_product_kernel<true, 2, Drain> (j-outer; limb-outer: <true, 2>)", PROBE_SOURCE,
+         "benches/limb_order_probe.py:85", probes["p5"], errs["p5"], probe_t["P5 j-outer"],
+         probe_t["plain"],
          (step_ops(p, PROBE_CHECK[-1]), step_bytes(p, PROBE_CHECK[-1], limb_bytes)), None),
-        ("limb_probe_variant", PROBE_SOURCE, "benches/step_breakdown_probe.py:134", probes["p6"],
+        ("limb_probe_variant: limb_panel_kernel<1> + step_digits_kernel<true> + "
+         "cmux_product_kernel<true, 1> (full; norot: step_digits_kernel<false>; nodots: "
+         "nodots_kernel)", PROBE_SOURCE, "benches/step_breakdown_probe.py:134", probes["p6"],
          errs["p6"], probe_t["P6 full"], probe_t["plain"],
          (step_ops(p, PROBE_CHECK[-1]), step_bytes(p, PROBE_CHECK[-1], limb_bytes)), None),
     ]
@@ -2431,11 +2580,18 @@ def main() -> int:
         f"count, {schoolbook_ops(p, kara_b):.4e} ops, would give "
         f"{bound(schoolbook_ops(p, kara_b), kara_bytes)[0]:.4f} ms)")
     kara_t["P3 B"] = p3_t["B"]  # the per-leaf form, timed in turns beside A and K1
-    for probe, name, label in (("P4", "karatsuba_step_ablate", "P4 full"),
-                               ("P8", "karatsuba_step_var", "P8 leaf_u32"),
-                               ("P1", "karatsuba_step_k2", "P1 step_k2"),
-                               ("P2", "karatsuba_step_split", "P2 serial"),
-                               ("P3", "karatsuba_step_coissue", "P3 B")):
+    kara_step = ("tree_digits_kernel<V> + limb_panel_kernel<9> + cmux_product_kernel<false, 1, "
+                 "LeafProduct<{}>> + combine_kernel<V>")
+    for probe, name, label in (
+            ("P4", "karatsuba_step_ablate (full): " + kara_step.format("RECOMBINE, false, 0"),
+             "P4 full"),
+            ("P8", "karatsuba_step_var (leaf_u32): " + kara_step.format("RECOMBINE, false, 0"),
+             "P8 leaf_u32"),
+            ("P1", "karatsuba_step_k2: " + kara_step.format("PER_LIMB, false, 0"), "P1 step_k2"),
+            ("P2", "karatsuba_step_split (serial): " + kara_step.format("RECOMBINE, true, 0"),
+             "P2 serial"),
+            ("P3", "karatsuba_step_coissue (B): " + kara_step.format("RECOMBINE, false, 1"),
+             "P3 B")):
         rows.append((name, KARATSUBA_SOURCE, KARATSUBA_REPLACES[probe], kara[probe],
                      kara_errs[probe], kara_t[label], kara_t["plain"],
                      (step_ops(p, kara_b), kara_bytes), None))

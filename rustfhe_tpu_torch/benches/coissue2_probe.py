@@ -3,11 +3,12 @@
 Counterpart of ``benches/coissue2_probe.py``, which asks whether building
 each leaf's operand planes next to its products lets the TPU co-issue the
 vector work with the matrix unit.  On the card (``karatsuba_probe.
-step_coissue``): the block builds the four residues' digits, and each sum
-leaf's warp builds its own tree planes after the block barrier, just before
-its ``__dp4a`` stream (B), or its second plane group between its first
-group's products (C), against the upfront build (A, ``step_var``'s
-leaf-first multiply-extract form).  Same inputs (numpy seed 7, in the same
+step_coissue``): the digit kernel writes the four residue leaves alone, and
+the leaf product's producer warpgroup builds each sum leaf's tree planes
+from them, stage by stage, into the swizzled ring just before their
+``wgmma``s (B), or with the stage's key boxes requested before the build
+(C), against the upfront build (A, ``step_var``'s leaf-first
+multiply-extract form: all nine leaves through device memory).  Same inputs (numpy seed 7, in the same
 order) as the JAX probe; B and C are checked first on 256 samples against
 the ``"matmul"`` engine's acc + ExtProd(key, Decompose(X^a~ * acc - acc)),
 through the scan layout, as the JAX script does.

@@ -2,11 +2,12 @@
 
 Counterpart of ``benches/coissue_probe.py``, which asks whether the TPU
 co-issues one sub-tile's vector work with another's matrix products.  On
-the card the block's tile of 8 samples is taken as two sub-tiles of 4
-(``karatsuba_probe.step_split``): serially (digits, products, digits,
-products) or grouped (both digit builds, then both products), against the
-unsplit Karatsuba step; the question becomes whether the digit build
-(integer ALU) and the ``__dp4a`` stream overlap.  Same inputs (numpy seed
+the card the digits are built apart from the leaf product, and its block
+tile of 128 samples is taken as two sub-tiles of 64
+(``karatsuba_probe.step_split``): in turn, each sub-tile's stages through
+the ring to one consumer warpgroup, the key boxes loaded twice (serial),
+or by the two warpgroups together, the product's own tile (grouped),
+against the unsplit Karatsuba step.  Same inputs (numpy seed
 7, in the same order) as the JAX probe, checked on the card against the
 unsplit step first.  The TPU's batch tile tb=256 has no counterpart.
 
@@ -57,8 +58,10 @@ def cases(B: int, device) -> list:
         return kp.step_ablate(a, a_t, tab, P, "full")
 
     return [Case("baseline (Karatsuba step)", full, acc0, ops),
-            Case("split-serial (2x4)", lambda a: kp.step_split(a, a_t, tab, P, False), acc0, ops),
-            Case("split-grouped (2x4)", lambda a: kp.step_split(a, a_t, tab, P, True), acc0, ops),
+            Case("split-serial (2x64)", lambda a: kp.step_split(a, a_t, tab, P, False), acc0,
+                 ops),
+            Case("split-grouped (2x64)", lambda a: kp.step_split(a, a_t, tab, P, True), acc0,
+                 ops),
             "# baseline tb=256: the TPU's batch tile has no counterpart; the same kernel",
             Case("baseline tb=256 -> Karatsuba step", full, acc0, ops)]
 

@@ -17,7 +17,8 @@ each drop one part, through ``karatsuba_probe.step_ablate``, timed by
 The JAX probe encrypts 1 under a jax.random key for its TRGSW rows; the
 port cannot reproduce jax's bits, so the rows, a~ and the accumulator are
 random words from numpy seed 0 (the values do not change the time).
-``PRESET=pbs`` raises: PBS_PARAMS needs more shared memory than a block has.
+``PRESET=pbs`` runs the same ablations at PBS_PARAMS (N=2048, l=4), as the
+JAX probe does.
 
 Usage: python -m rustfhe_tpu_torch.benches.k2_floor_probe [B] [which ...]
 """
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import _u32
-from ..engine import karatsuba, karatsuba_probe, limb_step
+from ..engine import karatsuba, karatsuba_probe
 from ..params import DEFAULT_PARAMS as P
 from ..params import PBS_PARAMS
 from . import _timing
@@ -39,42 +40,44 @@ from ._timing import Case
 
 DEFAULT_B = 8192
 ORDER = tuple(karatsuba_probe.ABLATIONS)
-MACS_FULL = 2 * P.l * P.N * 2 * 4 * P.N  # the reference's int8 MACs per sample and step
-TB_NOTE = (f"# the TPU's batch tile tb=128 has no counterpart: a block holds "
-           f"{karatsuba_probe.TB} samples and one output half")
 
 
-def draw_acc(rs: np.random.RandomState, B: int, device):
+def macs(p) -> int:
+    """The reference's int8 MACs per sample and step at ``p``."""
+    return 2 * p.l * p.N * 2 * 4 * p.N
+
+
+MACS_FULL = macs(P)
+TB_NOTE = ("# the TPU's batch tile tb=128 has no counterpart: a block tile of the leaf "
+           "product holds 128 samples and 64 coefficients of one output half of a leaf")
+
+
+def preset():
+    """PBS_PARAMS under ``PRESET=pbs`` (the JAX probe's switch), else DEFAULT_PARAMS."""
+    return PBS_PARAMS if os.environ.get("PRESET") == "pbs" else P
+
+
+def draw_acc(rs: np.random.RandomState, B: int, device, p=P):
     """acc (B, 2, N) and a~ (B,) from ``rs``, in this order (the JAX
     scripts' numpy order)."""
-    acc = _u32.from_numpy(rs.randint(0, 2**32, size=(B, 2, P.N), dtype=np.uint64), device)
-    a_t = torch.from_numpy(rs.randint(0, 2 * P.N, size=(B,)).astype(np.int32)).to(device)
+    acc = _u32.from_numpy(rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64), device)
+    a_t = torch.from_numpy(rs.randint(0, 2 * p.N, size=(B,)).astype(np.int32)).to(device)
     return acc, a_t
 
 
-def draw_step(rs: np.random.RandomState, B: int, device):
+def draw_step(rs: np.random.RandomState, B: int, device, p=P):
     """Random rows, then acc and a~ (``draw_acc``) from ``rs`` -> (residue-
     layout acc, a~, the leaf table, the K1 key, the standard acc)."""
     from ..engine import plain
 
-    rows = _u32.from_numpy(rs.randint(0, 2**32, size=(2 * P.l, 2, P.N), dtype=np.uint64),
+    rows = _u32.from_numpy(rs.randint(0, 2**32, size=(2 * p.l, 2, p.N), dtype=np.uint64),
                            device)
-    acc, a_t = draw_acc(rs, B, device)
+    acc, a_t = draw_acc(rs, B, device, p)
     return (karatsuba.scan_enter(acc), a_t, karatsuba.prepare_table(rows),
             plain.prepare_trgsw(rows), acc)
 
 
 def parse(argv) -> tuple[int, tuple[str, ...]]:
-    if os.environ.get("PRESET") == "pbs":
-        need = karatsuba_probe.smem_bytes(PBS_PARAMS)
-        limit = ("the card's opt-in limit per block (limb_step.smem_optin: "
-                 f"{limb_step.smem_optin(torch.cuda.current_device())} bytes on this card)"
-                 if torch.cuda.is_available() else
-                 "the opt-in limit per block of a Hopper card (limb_step.smem_optin reads it)")
-        raise ValueError(f"PRESET=pbs: the Karatsuba step at PBS_PARAMS (N={PBS_PARAMS.N}, "
-                         f"l={PBS_PARAMS.l}) needs {need} bytes of shared memory per block "
-                         "(one half's leaf table, the tile's digit trees, one sample's "
-                         f"leaves), more than {limit}")
     B = int(argv[0]) if argv else DEFAULT_B
     which = set(argv[1:]) or set(ORDER)
     unknown = sorted(which - set(ORDER))
@@ -83,23 +86,23 @@ def parse(argv) -> tuple[int, tuple[str, ...]]:
     return B, tuple(n for n in ORDER if n in which)
 
 
-def cases(B: int, which, device) -> list:
-    acc0, a_t, tab, _, _ = draw_step(np.random.RandomState(0), B, device)
-    ops = 2 * B * MACS_FULL
-    return [Case(name, lambda a, name=name: karatsuba_probe.step_ablate(a, a_t, tab, P, name),
+def cases(B: int, which, device, p=P) -> list:
+    acc0, a_t, tab, _, _ = draw_step(np.random.RandomState(0), B, device, p)
+    ops = 2 * B * macs(p)
+    return [Case(name, lambda a, name=name: karatsuba_probe.step_ablate(a, a_t, tab, p, name),
                  acc0, ops) for name in which]
 
 
 def run(B: int = DEFAULT_B, which=ORDER, steps: int = _timing.STEPS, reps: int = _timing.REPS,
-        out=print) -> dict[str, float]:
-    """Time ``which`` at batch B on the card and print the attribution;
-    {line name: seconds per step}."""
+        out=print, p=P) -> dict[str, float]:
+    """Time ``which`` at batch B and parameters ``p`` on the card and print
+    the attribution; {line name: seconds per step}."""
     device = _timing.require_cuda()
-    _timing.header(f"Karatsuba step ablations (P4), N={P.N} l={P.l} n={P.n}", B, out)
+    _timing.header(f"Karatsuba step ablations (P4), N={p.N} l={p.l} n={p.n}", B, out)
     out(TB_NOTE)
     out("# inputs: random rows, a~ and acc from numpy seed 0 (the JAX probe's jax.random "
         "TRGSW of 1 is not reproduced; the values do not change the time)")
-    times = _timing.run_cases(cases(B, which, device), steps, reps, out)
+    times = _timing.run_cases(cases(B, which, device, p), steps, reps, out)
     if "full" in times:
         out("\n# component attribution (full - variant):")
         for name in ORDER[1:]:
@@ -110,7 +113,7 @@ def run(B: int = DEFAULT_B, which=ORDER, steps: int = _timing.STEPS, reps: int =
 
 def main(argv=None) -> int:
     B, which = parse(sys.argv[1:] if argv is None else argv)
-    run(B, which)
+    run(B, which, p=preset())
     return 0
 
 

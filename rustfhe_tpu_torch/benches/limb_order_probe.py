@@ -3,11 +3,10 @@
 Counterpart of ``benches/limb_order_probe.py``: the merged limb step (both
 output halves per block) with the limbs recombined after every plane j
 ("j-outer", ``(uint32) part << 8k`` per (j, k)) against once per (half,
-limb) after all planes ("limb-outer", the TPU K4's order), through the
-probe kernel ``limb_probe.step_order`` in the limb step's ``__dp4a`` form
-(both held to K4 word for word), in turns, twice; then K4 itself, the
-int8 ``wgmma`` GEMM, which recombines once per (half, limb) in its
-epilogue.  Same inputs (numpy seed 0) and rate as the JAX probe.
+limb) after all planes ("limb-outer", the TPU K4's order), through
+``limb_probe.step_order``: K4's step, its ``wgmma`` fragment drained into
+the recombination after each plane's K slices or once in the epilogue
+(both held to K4 word for word), in turns, twice; then K4 itself.  Same inputs (numpy seed 0) and rate as the JAX probe.
 
 Usage: python -m rustfhe_tpu_torch.benches.limb_order_probe [B]
 """

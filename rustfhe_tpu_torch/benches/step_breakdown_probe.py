@@ -5,13 +5,12 @@ same inputs (numpy seed 0, drawn in the same order) and the same rates,
 timed by ``_timing.chain``:
 
   full      K6 (``limb_step.cmux_step_split``, the int8 wgmma GEMM) and
-            P6's "full", the same function through the probe kernel in the
-            limb step's __dp4a form (held to K6 word for word)
+            P6's "full", K6's kernels through the probe's library (held to
+            K6 word for word)
   merged    K4 (``limb_step.cmux_step_merged``); also run with "full"
-  nodots    P6 without the products (a digit sum broadcast over N)
-  norot     P6 without the rotation (digits of acc itself)
-            (nodots and norot split the __dp4a form's time, not K4/K6's:
-            chip_smoke.py times K4/K6's three kernels by the profiler)
+  nodots    P6: K6's step with the product replaced by a digit sum
+            broadcast over N
+  norot     P6: K6's step on the digits of acc itself (no rotation)
   dots      P7: the bare int8 dot (B, 6144) @ (6144, 1024) on the tensor
             cores at each tile of ``int8_gemm.TILES``, beside
             ``torch._int_mm`` (cuBLASLt, the library yardstick, not the port)
@@ -80,8 +79,8 @@ def cases(B: int, which, device) -> list:
         return Case(f"{name} (P6)", lambda a: limb_probe.step_variant(a, a_t, tab, P, name),
                     acc0, ops)
 
-    out = [f"# the TPU's batch tile tb has no counterpart: a P6 block holds {limb_step.TB} "
-           "samples, a K4/K6 tile 128"]
+    out = ["# the TPU's batch tile tb has no counterpart: a P6 and K4/K6 block tile holds "
+           "128 samples"]
     if "full" in which:
         out += [Case("full (K6)", k6, acc0, ops), variant("full")]
     if "merged" in which or "full" in which:

@@ -10,9 +10,10 @@ K1 before timing, through ``karatsuba_probe.step_var``:
      on the card the levels' digits of a residue are the bytes of one word,
      summed four lanes per ``__vadd4``);
   c) the digit extract: multiply, shift-subtract, shift/arithmetic-shift;
-  d) two steps per call (unroll2): a block holds one output half and step
-     2's digits need both, so the card runs two launches and the
-     intermediate accumulator goes through device memory;
+  d) two steps per call (unroll2): step 2's digits need every word of step
+     1 (the rotation mixes all positions), so the card runs the two steps
+     one after the other and the intermediate accumulator goes through
+     device memory;
   and, inexact, the rotation skipped (diff = 1).
 
 The JAX script's levels-1 line runs the port's K1 (``cmux_k.cmux_step``,
@@ -89,9 +90,8 @@ def cases(B: int, device) -> list:
                 ops) for name, form in LINES.items()]
     a_t2 = torch.stack([a_t, a_t], dim=1)
     tabs = torch.stack([tab, tab])
-    out.append("# unroll2: no layout keeps the accumulator on chip across two steps in a "
-               f"block's shared memory ({kp.smem_bytes(P)} bytes for one half; both halves' "
-               "tables alone take 221184): two launches per call")
+    out.append("# unroll2: step 2's digits need every word of step 1 (the rotation mixes "
+               "all positions): two steps of four launches per call")
     out.append(Case("k2 leaf_u32 unroll2 (prebuilt)",
                     lambda a: kp.step_var(a, a_t2, tabs, P, unroll=2), acc0, ops,
                     steps_per_call=2))

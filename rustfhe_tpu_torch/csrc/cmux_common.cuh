@@ -1,15 +1,13 @@
 // Device code shared by the blind-rotation kernels: the digit build of one
-// CMux step (the digit kernel of K1/K4/K6 in cmux_step.cuh, K3 in
-// rotate_all_k.cu, and the limb-form probes of limb_common.cuh).  All torus
-// arithmetic is uint32_t (wrapping mod 2^32).
+// CMux step (the digit kernel of K1/K4/K6 and P5/P6 in cmux_step.cuh, K3 in
+// rotate_all_k.cu, and the Karatsuba tree digits of karatsuba_probe.cu).
+// All torus arithmetic is uint32_t (wrapping mod 2^32).
 
 #pragma once
 
 #include <cstdint>
 
 namespace rustfhe {
-
-constexpr int KPT = 8;  // consecutive output coefficients per thread of the limb probes
 
 // Coefficient i of X^a * poly (negacyclic, a in [0, 2N)), with the
 // polynomial read through at(x) for x in [0, N).

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised int8
 // tensor-core kernels: the blocked GEMM of P7/P9 (int8_gemm.cu) and the
-// CMux step's product of K1/K2 and K4/K6 (cmux_step.cuh, in cmux_k.cu and
-// limb_step.cu).
+// CMux step's product of K1/K2, K4/K6 and K5, P5/P6 and the Karatsuba
+// leaves of P1-P4/P8 (cmux_step.cuh, in cmux_k.cu, limb_step.cu,
+// limb_probe.cu and karatsuba_probe.cu).
 //
 //   * a ring of STAGES shared-memory stages, each DEPTH = 128 bytes of K
 //     (one row of the 128-byte swizzle), filled by TMA copies
@@ -14,6 +15,9 @@
 //     PRODUCER_REGS) and CONSUMERS consumer warpgroups (setmaxnreg.inc),
 //     the check that a launch was granted the registers the split assumes,
 //     and the persistent grid's tile order;
+//   * stages that threads build themselves: st.shared, the proxy fence
+//     that makes the writes visible to wgmma, a named barrier, and an
+//     mbarrier phase that expects transaction bytes without an arrival;
 //   * the host's TMA maps (cuTensorMapEncodeTiled, reached through the
 //     runtime's driver entry point: no -lcuda), cached by their arguments.
 
@@ -62,6 +66,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// The transaction bytes of the current phase, without an arrival: the
+// phase then also waits for an mbar_arrive.
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
@@ -89,6 +101,23 @@ __device__ __forceinline__ void ring_init(uint32_t full, uint32_t empty, int con
     mbar_init(empty + 8 * s, consumer_warps);
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Threads that write shared memory for the async proxy (wgmma) to read:
+// st_shared_v4, then fence_proxy_async, then a barrier.
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {

@@ -1,5 +1,6 @@
 // The two-level Karatsuba CMux step in the residue layout, with the
-// measurement variants of its probes, for Hopper (sm_90a).
+// measurement variants of its probes, for Hopper (sm_90a): nine leaf
+// products on the tensor cores.
 //
 // Replaces the five Pallas TPU probe kernels that time the JAX package's
 // production K1 at levels 2 (rustfhe_tpu/engine/pallas_k.py:207
@@ -16,83 +17,136 @@
 // form is out = acc + ExtProd(key, Decompose(X^{a~} * acc - acc)):
 //   * the four residues of each digit plane form T = 9 tree planes
 //     [r0, r2, r0+r2, r1, r3, r1+r3, r0+r1, r2+r3, r0+r1+r2+r3] (int8: the
-//     sums of four digits lie in [-128, 124] at bgbit = 6);
-//   * per output half c, leaf t and limb k,
+//     sums of four digits lie in [-128, 124] at bgbit = 6, the wrappers
+//     check it with karatsuba.check_bound);
+//   * per leaf t, output half c and limb k,
 //       P_tck[n] = sum_j sum_i q_tj[i] * L_tckj[n - i + ns]   (int32)
 //     against the leaf table (engine/karatsuba.py prepare_table), whose
 //     planes are [limbs(-k), limbs(k)] of the key rows' tree planes;
-//   * the limbs recombine with a wrapping << 8k, per leaf (leaf-first,
-//     _karatsuba_accumulate) or after one tree combine per limb
-//     (limb-outer); the tree combine (karatsuba.tree_combine) gives the four
-//     output residues; every combine is uint32, equal mod 2^32 to the JAX
-//     probes' int32 adds.
-// A form changes one part (karatsuba.Step): the rotation (norot: diff = a~;
-// skip: diff = 1), the digit extract (sar, mul, shift give the same digits
-// by other instructions; top gives every level the top digit), the tree
-// sums (int32, or packed: the levels' digits of a residue as the bytes of
-// one word, summed by __vadd4, four byte lanes per instruction, in place of
-// the TPU probe's int16 sums; none: every plane is residue 0), the
-// products (nodots: part = sum_j sum_mb q_tj[mb*tm] + L_tckj[n - mb*tm + ns],
-// the TPU probe's broadcast add against its panel row), the limbs (limb 0
-// only), the combine (residue i = leaf i), the tile (two sub-tiles of 4,
-// serial or grouped), where the tree planes are built (P3, below), or all
-// of it (accio: acc + 1).
+//   * the limbs recombine with a wrapping << 8k, per leaf (leaf-first) or
+//     after one tree combine per limb (limb-outer); the tree combine
+//     (karatsuba.tree_combine, with Z the negacyclic shift by one position
+//     inside a segment) gives the four output residues, all uint32.
 //
-// What bounds it.  Per sample and step 2 halves x 9 leaves x K=4 limbs x
-// 2L x ns^2 int8 products, 0.5625x the 2 x 4 x 2L x N^2 of the limb step
-// (7.08 M __dp4a at DEFAULT_PARAMS, against K6's 12.58 M), against 2N
-// words of accumulator in and out: the card's integer issue of __dp4a
-// bounds it, not memory.  The design:
-//   * a block holds TB = 8 samples and one output half c (c-split, as K6):
-//     the half's leaf table, byte-reversed (221 KB for both halves would
-//     leave no room for the digits), 110,592 B at DEFAULT; the tile's digit
-//     trees, 110,592 B; one sample's nine leaves for the combine, 9,216 B:
-//     230,400 B, one block per SM;
-//   * one group of ns/8 threads per leaf (a warp at DEFAULT, 9 warps), each
-//     thread 8 consecutive leaf outputs x 8 samples: the products are
-//     limb_common.cuh's limb_products at N := ns, once per limb, the same
-//     __dp4a loop as K4-K6;
-//   * the digits are built in the block from acc, through the standard
-//     index (rustfhe::rotated_coeff of coefficient 4m + r), which gives the
-//     words of the TPU's residue select stages, and never touch device memory;
-//   * the combine takes the leaves of one sample at a time through shared
-//     memory: ns threads each give the four outputs at one position.
-// wgmma, TMA and a multi-step kernel are later work.
+// The design: each leaf's product is the limb step's external product at
+// N := ns on tree-plane digits, one int8 GEMM of M = B, K = 2L ns (1536 at
+// DEFAULT_PARAMS) and N = 2 halves x 4 limbs x ns (2048), for nine leaves:
+// 0.5625x K1's 6144 x 8192 GEMM per sample.  A step is four launches:
+//   1. tree_digits_kernel<V>: rotates acc in the residue layout through the
+//      standard index (rustfhe::rotated_coeff of coefficient 4m + r, which
+//      gives the words of karatsuba.rotate_res), takes the rounded
+//      difference and the signed digits, and writes the nine int8 tree
+//      planes (B, 9, 2L, npad), npad = ns rounded up to 128, zeros past ns;
+//   2. limb_panel_kernel<9> (cmux_step.cuh): per leaf t, plane j, half c
+//      and limb k the K-major sliding-window rows Pt[x][r] = L_tckj[x - r]
+//      (K4's limb panel at N := ns, on the leaf table's axis order);
+//   3. cmux_product_kernel<false, 1, Leaves<..>> (cmux_step.cuh): K1's TMA
+//      ring and wgmma m64n256k32 .s32.s8.s8 mainloop, with the leaf as the
+//      slowest dimension of the persistent tile order (one launch); the
+//      epilogue recombines the four limbs in registers and writes the leaf
+//      (B, 9, 2, ns) words.  Every fragment sum is at most 2L ns 128 128
+//      (2^24.6 at DEFAULT, 2^26 at PBS_PARAMS) < 2^31;
+//   4. combine_kernel<V>: the tree combine of the nine leaves at each
+//      position (the previous position for the Z terms), plus acc.
 //
-// P3's two forms move the tree sums from before the block barrier to the
-// leaf that uses them, as the TPU kernel moves build_leaf next to each
-// leaf's dots (the TPU kernel, too, computes the rotation and the digit
-// planes of every residue for the whole tile first).  The block builds the
-// four residues' digits only, into the areas of the leaves that are one
-// residue (0: r0, 1: r2, 3: r1, 4: r3); after the barrier, the group of
-// each sum leaf (2, 5, 6, 7, 8: a warp at DEFAULT) builds its own plane
-// from them, one __vadd4 per word, and passes only a __syncwarp before its
-// __dp4a stream:
-//   * leaf (P3 B, pipelined=False): the whole leaf's planes, then its products;
-//   * pipelined (P3 C, pipelined=True): the leaf's planes in two groups, the
-//     input halves p (planes p*l .. p*l + l - 1).  Group 0 is built first;
-//     group 1 is built in four chunks, one after each limb's products of
-//     group 0 (the TPU kernel builds leaf t+1 between leaf t's dot groups:
-//     here a warp's next work is its own next group), then group 1's
-//     products.  The two groups fill the leaf's one area, so both forms use
-//     the shared memory of the upfront form, 230,400 B at DEFAULT.
+// Where the bytes go, per step at DEFAULT_PARAMS and B=8192 (device memory,
+// each written once and read once): the accumulator in and out 134 MB; the
+// tree digits 13.5 KiB a sample, 113 MB written and read back (2.25x K1's
+// digits); the leaf panels 20.25 MiB; the leaf partials 18 KiB a sample,
+// 151 MB written and read back; ~0.70 GB in all, 0.21 ms at 3.35 TB/s,
+// against the step's 0.234 ms operation bound (2 x 2 x 4 x 2L x 9 x ns^2
+// int8 ops a sample at 1,979 TOP/s).  The combine is materialised because
+// the fused one does not fit K1's tile: a tile of 128 samples x 64
+// positions of one half would hold its positions' nine leaves (288 KiB),
+// or the four output residues (128 KiB) plus the Z terms' halo of the
+// previous position, beside the ring's 193 KiB of the 227 KiB a block has;
+// in registers the four residues take 128 more a consumer thread beside
+// the fragment's 128, of the 232 it has.  Fusing it needs a narrower tile
+// (64 or 128 columns) and a smaller ring; the measured split (PERF.md)
+// says what it would save.
+//
+// Each form (engine/karatsuba_probe.py FORMS; karatsuba.Step) on this design:
+//   rot rotate / norot / skip   kernel 1: diff = X^a~ acc - acc / a~ as a word / 1
+//   extract sar / mul / shift   kernel 1: the same digits by other instructions
+//   extract top                 kernel 1: every level the top digit
+//   planes 32 / 16 / 0          kernel 1: the tree sums in int32 / packed (the
+//                               l levels' digits of a residue as the bytes of one
+//                               word, summed four lanes at a time by __vadd4) /
+//                               none (every plane is residue 0)
+//   nodots                      kernels 1, 2, broadcast_kernel (the two parts
+//                               of karatsuba.leaf_parts' broadcast add: sum_j
+//                               sum_mb L_tckj[n - mb tm + ns] of the table and
+//                               sum_j sum_mb q_tj[mb tm] of the digits), then
+//                               kernel 4 adds them per leaf: no product launch
+//   norecomb (limbs 1)          kernel 3's epilogue keeps limb 0 (LIMB0)
+//   limb-outer (P1, P8)         kernel 3 writes each limb's int32 sum (PER_LIMB),
+//                               kernel 4 combines per limb, then recombines:
+//                               four combines against one recombination in
+//                               registers
+//   nocombine                   kernel 4: output residue i is leaf i
+//   split grouped (P2)          the block tile's two 64-sample sub-tiles taken by
+//                               the two consumer warpgroups together: kernel 3's
+//                               own tile, the same launches as the mul form
+//   split serial (P2)           the sub-tiles in turn (SERIAL): each stage holds
+//                               one sub-tile's 64-row digit box and feeds one
+//                               warpgroup, the panel boxes pass the ring twice
+//   build leaf (P3 B)           kernel 1 writes the four residue leaves (0, 1, 3,
+//                               4) only; kernel 3's producer warpgroup builds each
+//                               sum leaf's digit stage from them (__vadd4) into
+//                               the swizzled stage just before its wgmmas: the
+//                               five sum leaves never reach device memory
+//   build pipelined (P3 C)      the same, the stage's panel boxes requested
+//                               before the build, so their copy runs under it
+//   accio                       acc + 1, one elementwise kernel
+// The TPU forms' VPU/MXU scheduling questions (the digit build beside the
+// dots, the int16 sums) have no counterpart where the digits are built
+// apart from the GEMM; each form keeps its function and applies its
+// variation where the part still exists.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "limb_common.cuh"
+#include "cmux_step.cuh"
+
+namespace rustfhe {
+namespace karatsuba {
+
+// The leaf product (cmux_step.cuh Product): the nine leaf GEMMs in one
+// launch, with its epilogue, its tile order and its builds.  Outside the
+// anonymous namespace: the product kernel it instantiates keeps external
+// linkage (and hidden visibility).
+template <int EPI_, bool SERIAL_, int BUILD_>
+struct LeafProduct : cmux::Product {
+  static constexpr int LEAVES = 9;
+  static constexpr int EPI = EPI_;
+  static constexpr bool SERIAL = SERIAL_;
+  static constexpr int BUILD = BUILD_;
+  // The residue leaves whose digits sum to leaf t's (r0, r2, r1, r3 are
+  // leaves 0, 1, 3, 4); 0 for a residue leaf.
+  __device__ static int sources(int t, int (&src)[4]) {
+    switch (t) {
+      case 2: src[0] = 0; src[1] = 1; return 2;  // r0 + r2
+      case 5: src[0] = 3; src[1] = 4; return 2;  // r1 + r3
+      case 6: src[0] = 0; src[1] = 3; return 2;  // r0 + r1
+      case 7: src[0] = 1; src[1] = 4; return 2;  // r2 + r3
+      case 8: src[0] = 0; src[1] = 1; src[2] = 3; src[3] = 4; return 4;
+      default: return 0;
+    }
+  }
+};
+
+}  // namespace karatsuba
+}  // namespace rustfhe
 
 namespace {
 
-using rustfhe::KPT;
+using namespace rustfhe::cmux;
 using rustfhe::rotated_coeff;
 using rustfhe::rounded_diff;
-using namespace rustfhe::limb;
 
-constexpr int R = 4;  // residues per half (levels 2)
-constexpr int T = 9;  // leaves
-constexpr int MAX_NS = 256;
-constexpr int MAX_BLOCK = T * MAX_NS / KPT;  // 288 threads at N = 1024
+constexpr int R = 4;       // residues per half (levels 2)
+constexpr int TREE = 9;    // leaves
+constexpr int MAX_NS = 512;
 
 // A form's number (engine/karatsuba_probe.py form_code): its bits.
 constexpr int ROT_ROTATE = 0, ROT_NOROT = 1, ROT_SKIP = 2;                     // bits 0-1
@@ -101,7 +155,7 @@ constexpr int PLANES_32 = 0, PLANES_PACKED = 1, PLANES_NONE = 2;               /
 constexpr int NODOTS = 1 << 6, NORECOMB = 1 << 7, LIMB_OUTER = 1 << 8, NOCOMBINE = 1 << 9;
 constexpr int SPLIT_NONE = 0, SPLIT_SERIAL = 1, SPLIT_GROUPED = 2;             // bits 10-11
 constexpr int ACCIO = 1 << 12;
-constexpr int BUILD_UPFRONT = 0, BUILD_LEAF = 1, BUILD_PIPELINED = 2;          // bits 13-14
+constexpr int BUILD_UPFRONT = 0;                                               // bits 13-14
 
 __host__ __device__ constexpr int rot_of(int v) { return v & 3; }
 __host__ __device__ constexpr int ext_of(int v) { return (v >> 2) & 3; }
@@ -112,6 +166,7 @@ constexpr int form(int rot, int ext, int planes, int flags = 0, int split = SPLI
                    int build = BUILD_UPFRONT) {
   return rot | ext << 2 | planes << 4 | flags | split << 10 | build << 13;
 }
+static_assert(BUILD_LEAF == 1 && BUILD_PIPELINED == 2, "bits 13-14 are cmux_step.cuh's builds");
 
 // The forms the entry points run: P4's ablations, P8's variants, P1, P2, P3.
 constexpr int FULL = form(ROT_ROTATE, EXT_SAR, PLANES_32);  // also P8's "sar"
@@ -136,29 +191,12 @@ constexpr int MUL = form(ROT_ROTATE, EXT_MUL, PLANES_32);
   X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_NONE, BUILD_LEAF)) \
   X(form(ROT_ROTATE, EXT_MUL, PLANES_32, 0, SPLIT_NONE, BUILD_PIPELINED))
 
-__host__ __device__ inline size_t leaf_table_bytes(int ns, int two_l) {
-  return (size_t)T * NUM_LIMBS * two_l * 2 * ns;
-}
-__host__ __device__ inline size_t leaf_digit_bytes(int ns, int two_l) {
-  return (size_t)two_l * ns * TB;
-}
-__host__ inline size_t karatsuba_smem_bytes(int ns, int two_l) {
-  return leaf_table_bytes(ns, two_l) + T * leaf_digit_bytes(ns, two_l) + (size_t)T * ns * 4;
-}
-
-// Output half c of the leaf table (2, T, K, 2L, 2ns) int8 -> shared memory,
-// each 2ns-byte plane byte-reversed: plane ((t * K + k) * 2L + j).
-__device__ __forceinline__ void load_leaf_table(uint32_t* tab_s, const uint32_t* __restrict__ tab,
-                                                int c, int two_l, int ns) {
-  const int pw = ns / 2;
-  const int words = T * NUM_LIMBS * two_l * pw;
-  const uint32_t* src = tab + (size_t)c * words;
-  for (int idx = threadIdx.x; idx < words; idx += blockDim.x) {
-    const int p = idx / pw;
-    const int w = idx - p * pw;
-    tab_s[idx] = __byte_perm(src[(size_t)p * pw + (pw - 1 - w)], 0u, 0x0123);
-  }
-}
+// Form V's leaf product: forms that differ elsewhere share one instantiation.
+template <int V>
+using Leaves = rustfhe::karatsuba::LeafProduct<
+    (V & NORECOMB) ? LIMB0 : (V & LIMB_OUTER) ? PER_LIMB : RECOMBINE,
+    split_of(V) == SPLIT_SERIAL, build_of(V)>;
+static_assert(Leaves<0>::LEAVES == TREE, "nine leaves");
 
 // The digit of level lv of the rounded difference u, in the form's extract.
 template <int V>
@@ -180,7 +218,7 @@ __device__ __forceinline__ int32_t extract(uint32_t u, int lv, int bgbit) {
 
 // The nine tree planes of four residues, in the table's leaf order.
 template <class X, class Add>
-__device__ __forceinline__ void tree9(const X (&d)[R], X (&q)[T], Add add) {
+__device__ __forceinline__ void tree9(const X (&d)[R], X (&q)[TREE], Add add) {
   q[0] = d[0];
   q[1] = d[2];
   q[2] = add(d[0], d[2]);
@@ -192,347 +230,169 @@ __device__ __forceinline__ void tree9(const X (&d)[R], X (&q)[T], Add add) {
   q[8] = add(q[6], q[7]);
 }
 
-// The digit trees of samples [s_lo, s_hi) of the tile: byte (j, m, s) of
-// leaf t's area (limb_common.cuh digit_byte at N := ns) holds tree plane t
-// of plane j = p*l + lv at position m; P3's forms write the residues only,
-// into the areas of leaves 0, 3, 1, 4.  Samples past B get zero digits.
+// 1. acc (B, 2N) words in the residue layout; a~ of sample b is
+// a_tilde[b * a_stride]; digits (B, 9, 2L, npad) int8: byte m of plane
+// p * l + lv of leaf t is tree plane t of the level-lv digits of half p's
+// residues at position m, zero for m >= ns.  P3's forms write leaves 0, 1,
+// 3, 4 (the residues) only.  Thread: sample b, half p, position m, all
+// levels: one byte per (leaf, plane), a warp's bytes consecutive.
 template <int V>
-__device__ __forceinline__ void build_digits(int8_t* dig_s, const int32_t* __restrict__ acc_in,
-                                             const int32_t* __restrict__ a_tilde, int a_stride,
-                                             int B, int b0, int s_lo, int s_hi, int N, int l,
-                                             int bgbit, uint32_t mask) {
+__global__ void __launch_bounds__(THREADS)
+tree_digits_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ a_tilde,
+                   int a_stride, int8_t* __restrict__ digits, int B, int N, int l, int bgbit,
+                   uint32_t mask) {
   const int ns = N / R;
-  const size_t leaf = leaf_digit_bytes(ns, 2 * l);
-  const int items = (s_hi - s_lo) * 2 * ns;
-  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-    const int s = s_lo + idx / (2 * ns);
-    const int rem = idx - (s - s_lo) * 2 * ns;
-    const int p = rem / ns;
-    const int m = rem - p * ns;
-    const int b = b0 + s;
-    uint32_t u[R] = {0u, 0u, 0u, 0u};
-    if (b < B) {
-      const int32_t* half = acc_in + ((size_t)b * 2 + p) * N;  // p's four residues
-      const auto at = [half, ns](int x) { return (uint32_t)half[(x & (R - 1)) * ns + (x >> 2)]; };
-      const int32_t a_raw = a_tilde[(size_t)b * a_stride];
-      int a = a_raw % (2 * N);
-      if (a < 0) a += 2 * N;
+  const int npad = Geometry(ns).npad;
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= B * 2 * npad) return;
+  const int m = idx % npad;
+  const int p = idx / npad % 2;
+  const int b = idx / (2 * npad);
+  const bool live = m < ns;
+  uint32_t u[R] = {0u, 0u, 0u, 0u};  // residue r at position m
+  if (live) {
+    const int32_t* half = acc + ((size_t)b * 2 + p) * N;  // p's four residues
+    const auto at = [half, ns](int x) { return (uint32_t)half[(x & (R - 1)) * ns + (x >> 2)]; };
+    const int32_t a_raw = a_tilde[(size_t)b * a_stride];
+    int a = a_raw % (2 * N);
+    if (a < 0) a += 2 * N;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = R * m + r;
-        if constexpr (rot_of(V) == ROT_ROTATE) {
-          u[r] = rounded_diff(rotated_coeff(at, i, a, N), at(i), mask);
-        } else if constexpr (rot_of(V) == ROT_NOROT) {
-          u[r] = rounded_diff((uint32_t)a_raw, 0u, mask);
-        } else {
-          const uint32_t cur = at(i);
-          u[r] = rounded_diff(cur + 1u, cur, mask);
-        }
+    for (int r = 0; r < R; ++r) {
+      const int i = R * m + r;
+      if constexpr (rot_of(V) == ROT_ROTATE) {
+        u[r] = rounded_diff(rotated_coeff(at, i, a, N), at(i), mask);
+      } else if constexpr (rot_of(V) == ROT_NOROT) {
+        u[r] = rounded_diff((uint32_t)a_raw, 0u, mask);
+      } else {
+        const uint32_t cur = at(i);
+        u[r] = rounded_diff(cur + 1u, cur, mask);
       }
     }
-    if constexpr (planes_of(V) == PLANES_PACKED) {
-      // The l levels' digits of residue r as the bytes of one word; __vadd4
-      // sums four byte lanes at once (no lane overflows: |sum| <= 128).
-      uint32_t w[R] = {0u, 0u, 0u, 0u};
-      for (int lv = 0; lv < l; ++lv)
+  }
+  // byte m of (leaf t, plane p l + lv)
+  int8_t* out = digits + ((size_t)b * TREE * 2 * l + p * l) * npad + m;
+  const auto store = [&](int t, int lv, int32_t v) {
+    if (build_of(V) == BUILD_UPFRONT || t == 0 || t == 1 || t == 3 || t == 4)
+      out[((size_t)t * 2 * l + lv) * npad] = live ? (int8_t)v : (int8_t)0;
+  };
+  if constexpr (planes_of(V) == PLANES_PACKED) {
+    // The l levels' digits of a residue as the bytes of one word; __vadd4
+    // sums four byte lanes at once (no lane overflows: |sum| <= 128).
+    uint32_t d[R] = {0u, 0u, 0u, 0u}, w[TREE];
+    for (int lv = 0; lv < l; ++lv)
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          w[r] |= ((uint32_t)extract<V>(u[r], lv, bgbit) & 0xFFu) << (8 * lv);
-      uint32_t q[T];
-      tree9(w, q, [](uint32_t x, uint32_t y) { return __vadd4(x, y); });
-      for (int lv = 0; lv < l; ++lv) {
-        const int byte = digit_byte(p * l + lv, m, s, ns);
+      for (int r = 0; r < R; ++r)
+        d[r] |= ((uint32_t)extract<V>(u[r], lv, bgbit) & 0xFFu) << (8 * lv);
+    tree9(d, w, [](uint32_t x, uint32_t y) { return __vadd4(x, y); });
+    for (int lv = 0; lv < l; ++lv)
 #pragma unroll
-        for (int t = 0; t < T; ++t) dig_s[t * leaf + byte] = (int8_t)(q[t] >> (8 * lv));
+      for (int t = 0; t < TREE; ++t) store(t, lv, (int32_t)(w[t] >> (8 * lv)));
+  } else {
+    for (int lv = 0; lv < l; ++lv) {
+      int32_t d[R], q[TREE];
+#pragma unroll
+      for (int r = 0; r < R; ++r) d[r] = extract<V>(u[r], lv, bgbit);
+      if constexpr (planes_of(V) == PLANES_NONE) {
+#pragma unroll
+        for (int t = 0; t < TREE; ++t) q[t] = d[0];
+      } else {
+        tree9(d, q, [](int32_t x, int32_t y) { return x + y; });
       }
+#pragma unroll
+      for (int t = 0; t < TREE; ++t) store(t, lv, q[t]);
+    }
+  }
+}
+
+// 3'. nodots in place of the product: the broadcast parts of
+// karatsuba.leaf_parts, flat int32: W (2, 9, 4, ns), W[c, t, k, n] =
+// sum_j sum_mb L_tckj[n - mb tm + ns] of the leaf table (2, 9, 4, 2L, 2ns)
+// int8, then D (B, 9), D[b, t] = sum_j sum_mb q_tj[mb tm] of the digits
+// (B, 9, 2L, npad).  Thread: one word.
+__global__ void __launch_bounds__(THREADS)
+broadcast_kernel(const int8_t* __restrict__ table, const int8_t* __restrict__ digits,
+                 int32_t* __restrict__ parts, int B, int ns, int two_l, int tm) {
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  const int words = 2 * TREE * LIMBS * ns;
+  int32_t w = 0;
+  if (idx < words) {
+    const int n = idx % ns;
+    const int8_t* planes = table + (size_t)(idx / ns) * two_l * 2 * ns;  // (c, t, k)
+    for (int j = 0; j < two_l; ++j)
+      for (int i = 0; i < ns; i += tm) w += planes[(size_t)j * 2 * ns + n - i + ns];
+  } else if (idx < words + B * TREE) {
+    const int8_t* planes = digits + (size_t)(idx - words) * two_l * Geometry(ns).npad;  // (b, t)
+    for (int j = 0; j < two_l; ++j)
+      for (int i = 0; i < ns; i += tm) w += planes[(size_t)j * Geometry(ns).npad + i];
+  } else {
+    return;
+  }
+  parts[idx] = w;
+}
+
+// 4. out (B, 2N) = acc + the tree combine of the leaves, in the residue
+// layout.  The leaves: (B, 9, 2, ns) words (RECOMBINE, LIMB0), (B, 9, 2,
+// 4, ns) int32 (PER_LIMB: one combine per limb, then the limbs), or
+// (NODOTS) sum_k (D[b, t] + W[c, t, k, n]) << 8k from the broadcast parts.
+// Thread: sample b, half c, position n: the four output residues there.
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+combine_kernel(const int32_t* __restrict__ acc, const uint32_t* __restrict__ leaves,
+               int32_t* __restrict__ out, int B, int N) {
+  const int ns = N / R;
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= B * 2 * ns) return;
+  const int n = idx % ns;
+  const int c = idx / ns % 2;
+  const int b = idx / (2 * ns);
+  constexpr int PARTS = (V & LIMB_OUTER) ? LIMBS : 1;  // combines
+  const uint32_t* dsum = leaves + 2 * TREE * LIMBS * ns + (size_t)b * TREE;  // NODOTS: D[b]
+  // Leaf t at position x, in combine k (k: the limb, PER_LIMB).
+  const auto L = [&](int k, int t, int x) -> uint32_t {
+    if constexpr ((V & NODOTS) != 0) {
+      uint32_t v = 0u;
+#pragma unroll
+      for (int lt = 0; lt < LIMBS; ++lt)
+        v += (dsum[t] + leaves[((c * TREE + t) * LIMBS + lt) * ns + x]) << (8 * lt);
+      return v;
+    } else if constexpr (PARTS == LIMBS) {
+      return leaves[((((size_t)b * TREE + t) * 2 + c) * LIMBS + k) * ns + x];
     } else {
-      for (int lv = 0; lv < l; ++lv) {
-        int32_t d[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) d[r] = extract<V>(u[r], lv, bgbit);
-        const int byte = digit_byte(p * l + lv, m, s, ns);
-        if constexpr (build_of(V) != BUILD_UPFRONT) {
-#pragma unroll
-          for (int r = 0; r < R; ++r)  // residue r alone is leaf 0, 3, 1, 4
-            dig_s[((r & 1) * 3 + (r >> 1)) * leaf + byte] = (int8_t)d[r];
-          continue;
-        }
-        int32_t q[T];
-        if constexpr (planes_of(V) == PLANES_NONE) {
-#pragma unroll
-          for (int t = 0; t < T; ++t) q[t] = d[0];
-        } else {
-          tree9(d, q, [](int32_t x, int32_t y) { return x + y; });
-        }
-#pragma unroll
-        for (int t = 0; t < T; ++t) dig_s[t * leaf + byte] = (int8_t)q[t];
-      }
-    }
-  }
-}
-
-// The four output residues at position n from the nine leaves of one
-// sample in shared memory (st[t * ns + x]): karatsuba.tree_combine at
-// levels 2, with Z the negacyclic shift by one at leaf size.
-template <int V>
-__device__ __forceinline__ void combine_at(const uint32_t* st, int ns, int n, uint32_t (&o)[R]) {
-  const auto L = [st, ns](int t, int x) { return st[t * ns + x]; };
-  if constexpr ((V & NOCOMBINE) != 0) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) o[i] = L(i, n);
-  } else {
-    const auto Z = [&](int t, int x) { return x > 0 ? L(t, x - 1) : 0u - L(t, ns - 1); };
-    const auto eh = [&](int h, int x) { return L(3 * h, x) + Z(3 * h + 1, x); };
-    const auto oh = [&](int h, int x) { return L(3 * h + 2, x) - L(3 * h, x) - L(3 * h + 1, x); };
-    const uint32_t e0 = eh(0, n), e1 = eh(1, n), e2 = eh(2, n);
-    const uint32_t o0 = oh(0, n), o1 = oh(1, n), o2 = oh(2, n);
-    const uint32_t zo1 = n > 0 ? oh(1, n - 1) : 0u - oh(1, ns - 1);
-    o[0] = e0 + zo1;
-    o[1] = e2 - e0 - e1;
-    o[2] = o0 + e1;
-    o[3] = o2 - o0 - o1;
-  }
-}
-
-// Stage one sample's leaves (this thread's 8 outputs of leaf t) and combine
-// them: threads n < ns get the four residues at position n.  Every thread
-// of the block calls it.
-template <int V>
-__device__ __forceinline__ void stage_combine(uint32_t* st, const uint32_t (&vals)[KPT], int t,
-                                              int k0, int ns, uint32_t (&o)[R]) {
-  uint4* dst = reinterpret_cast<uint4*>(st + t * ns + k0);
-  dst[0] = make_uint4(vals[0], vals[1], vals[2], vals[3]);
-  dst[1] = make_uint4(vals[4], vals[5], vals[6], vals[7]);
-  __syncthreads();
-  if ((int)threadIdx.x < ns) combine_at<V>(st, ns, threadIdx.x, o);
-  __syncthreads();
-}
-
-// One (leaf, limb) part for SUB samples from s0: the products, or the
-// nodots form's broadcast sums.
-template <int V, int SUB>
-__device__ __forceinline__ void leaf_part(const uint32_t* tab_tk, const int8_t* dig_t, int two_l,
-                                          int ns, int k0, int s0, int tm,
-                                          int32_t (&part)[SUB][KPT]) {
-  if constexpr ((V & NODOTS) == 0) {
-#pragma unroll
-    for (int s = 0; s < SUB; ++s)
-#pragma unroll
-      for (int o = 0; o < KPT; ++o) part[s][o] = 0;
-    limb_products<SUB>(tab_tk, reinterpret_cast<const uint32_t*>(dig_t), two_l, ns, k0, part, s0);
-  } else {
-    int32_t dsum[SUB], ksum[KPT];
-#pragma unroll
-    for (int s = 0; s < SUB; ++s) dsum[s] = 0;
-#pragma unroll
-    for (int o = 0; o < KPT; ++o) ksum[o] = 0;
-    const int8_t* tab_b = reinterpret_cast<const int8_t*>(tab_tk);
-    for (int j = 0; j < two_l; ++j) {
-      const int8_t* plane = tab_b + (size_t)j * 2 * ns;  // R[y] = L[2ns - 1 - y]
-      for (int i = 0; i < ns; i += tm) {
-#pragma unroll
-        for (int s = 0; s < SUB; ++s) dsum[s] += dig_t[digit_byte(j, i, s0 + s, ns)];
-#pragma unroll
-        for (int o = 0; o < KPT; ++o) ksum[o] += plane[ns - 1 - (k0 + o) + i];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < SUB; ++s)
-#pragma unroll
-      for (int o = 0; o < KPT; ++o) part[s][o] = dsum[s] + ksum[o];
-  }
-}
-
-// P3: leaves 2, 5, 6, 7, 8 are sums of residues; the others hold one.
-__device__ __forceinline__ bool is_sum_leaf(int t) { return t == 2 || t >= 5; }
-
-// Words [w_lo, w_hi) of sum leaf t's digit area from the residue areas
-// (leaf 0: r0, 1: r2, 3: r1, 4: r3), by the `lanes` threads of its group:
-// __vadd4 adds the four int8 digits of a word at once (no byte overflows:
-// the sums of four digits lie in [-128, 124]).
-__device__ __forceinline__ void build_leaf_words(uint32_t* dig_w, int t, size_t leaf_words,
-                                                 size_t w_lo, size_t w_hi, int lane, int lanes) {
-  const uint32_t* r0 = dig_w;
-  const uint32_t* r2 = dig_w + leaf_words;
-  const uint32_t* r1 = dig_w + 3 * leaf_words;
-  const uint32_t* r3 = dig_w + 4 * leaf_words;
-  uint32_t* dst = dig_w + t * leaf_words;
-  for (size_t w = w_lo + lane; w < w_hi; w += lanes) {
-    uint32_t v;
-    switch (t) {
-      case 2: v = __vadd4(r0[w], r2[w]); break;
-      case 5: v = __vadd4(r1[w], r3[w]); break;
-      case 6: v = __vadd4(r0[w], r1[w]); break;
-      case 7: v = __vadd4(r2[w], r3[w]); break;
-      default: v = __vadd4(__vadd4(r0[w], r1[w]), __vadd4(r2[w], r3[w])); break;  // 8
-    }
-    dst[w] = v;
-  }
-}
-
-// The lanes of leaf t's group in its warp (a group of ns/KPT threads, a
-// power of two that divides 32: launch checks it).
-__device__ __forceinline__ unsigned group_mask(int t, int per_leaf) {
-  return per_leaf >= 32 ? 0xFFFFFFFFu : ((1u << per_leaf) - 1u) << ((t * per_leaf) & 31);
-}
-
-struct Tile {
-  const uint32_t* tab_s;  // the half's leaf table, reversed planes
-  int8_t* dig_s;          // the tile's digit trees
-  uint32_t* st;           // one sample's leaves
-  const int32_t* acc_in;
-  int32_t* out;
-  int B, b0, c, ns, two_l, tm;
-};
-
-// Products, recombination, combine and stores for SUB samples from s0.
-template <int V, int SUB>
-__device__ __forceinline__ void products_and_combine(const Tile& tl, int s0) {
-  const int ns = tl.ns, two_l = tl.two_l;
-  const int per_leaf = ns / KPT;
-  const int t = threadIdx.x / per_leaf;
-  const int k0 = (threadIdx.x - t * per_leaf) * KPT;
-  const uint32_t* tab_t = tl.tab_s + (size_t)t * NUM_LIMBS * two_l * (ns / 2);
-  const int8_t* dig_t = tl.dig_s + t * leaf_digit_bytes(ns, two_l);
-  constexpr int LIMBS = (V & NORECOMB) ? 1 : NUM_LIMBS;
-  const int n = threadIdx.x;
-  const auto store = [&](int s, const uint32_t (&o)[R]) {
-    const int b = tl.b0 + s0 + s;
-    if (n < ns && b < tl.B) {
-      const size_t base = (size_t)b * 2 * R * ns + (size_t)tl.c * R * ns + n;
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        tl.out[base + i * ns] = (int32_t)((uint32_t)tl.acc_in[base + i * ns] + o[i]);
+      return leaves[(((size_t)b * TREE + t) * 2 + c) * ns + x];
     }
   };
-  if constexpr ((V & LIMB_OUTER) == 0) {  // leaf-first: recombine per leaf, combine once
-    uint32_t leaf[SUB][KPT];
+  uint32_t o[R] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int s = 0; s < SUB; ++s)
+  for (int k = 0; k < PARTS; ++k) {
+    uint32_t r[R];
+    if constexpr ((V & NOCOMBINE) != 0) {
 #pragma unroll
-      for (int o = 0; o < KPT; ++o) leaf[s][o] = 0u;
-    constexpr int build = build_of(V);
-    if constexpr (build == BUILD_PIPELINED) {
-      static_assert(LIMBS == NUM_LIMBS && (V & NODOTS) == 0, "P3 C takes the full products");
-      // The products of planes [j0, j0 + planes) for limb k, added to the leaf.
-      const auto products = [&](int j0, int planes, int k) {
-        int32_t part[SUB][KPT];
-#pragma unroll
-        for (int s = 0; s < SUB; ++s)
-#pragma unroll
-          for (int o = 0; o < KPT; ++o) part[s][o] = 0;
-        limb_products<SUB>(tab_t + ((size_t)k * two_l + j0) * (ns / 2),
-                           reinterpret_cast<const uint32_t*>(dig_t) + (size_t)j0 * ns * TB / 4,
-                           planes, ns, k0, part, s0);
-#pragma unroll
-        for (int s = 0; s < SUB; ++s)
-#pragma unroll
-          for (int o = 0; o < KPT; ++o) leaf[s][o] += (uint32_t)part[s][o] << (LIMB_BITS * k);
+      for (int i = 0; i < R; ++i) r[i] = L(k, i, n);
+    } else {
+      // karatsuba.tree_combine at levels 2: E_h = L_3h + Z L_3h+1, O_h =
+      // L_3h+2 - L_3h - L_3h+1; the residues E0 + Z O1, E2 - E0 - E1,
+      // O0 + E1, O2 - O0 - O1, where Z x at position n is x at n - 1 (-x at
+      // ns - 1 for n = 0).
+      const auto Z = [&](int t, int x) { return x > 0 ? L(k, t, x - 1) : 0u - L(k, t, ns - 1); };
+      const auto eh = [&](int h, int x) { return L(k, 3 * h, x) + Z(3 * h + 1, x); };
+      const auto oh = [&](int h, int x) {
+        return L(k, 3 * h + 2, x) - L(k, 3 * h, x) - L(k, 3 * h + 1, x);
       };
-      const int l = two_l / 2, lane = threadIdx.x - t * per_leaf;
-      const unsigned mask = group_mask(t, per_leaf);
-      const bool sum = is_sum_leaf(t);
-      uint32_t* dig_w = reinterpret_cast<uint32_t*>(tl.dig_s);
-      const size_t leaf_words = leaf_digit_bytes(ns, two_l) / 4, group = leaf_words / 2;
-      if (sum) {
-        build_leaf_words(dig_w, t, leaf_words, 0, group, lane, per_leaf);
-        __syncwarp(mask);
-      }
-      for (int k = 0; k < NUM_LIMBS; ++k) {
-        products(0, l, k);
-        if (sum)
-          build_leaf_words(dig_w, t, leaf_words, group + k * group / NUM_LIMBS,
-                           group + (k + 1) * group / NUM_LIMBS, lane, per_leaf);
-      }
-      if (sum) __syncwarp(mask);
-      for (int k = 0; k < NUM_LIMBS; ++k) products(l, l, k);
-    } else {
-      if constexpr (build == BUILD_LEAF) {
-        if (is_sum_leaf(t)) {
-          const size_t leaf_words = leaf_digit_bytes(ns, two_l) / 4;
-          build_leaf_words(reinterpret_cast<uint32_t*>(tl.dig_s), t, leaf_words, 0, leaf_words,
-                           threadIdx.x - t * per_leaf, per_leaf);
-          __syncwarp(group_mask(t, per_leaf));
-        }
-      }
-      for (int k = 0; k < LIMBS; ++k) {
-        int32_t part[SUB][KPT];
-        leaf_part<V, SUB>(tab_t + (size_t)k * two_l * (ns / 2), dig_t, two_l, ns, k0, s0, tl.tm,
-                          part);
-#pragma unroll
-        for (int s = 0; s < SUB; ++s)
-#pragma unroll
-          for (int o = 0; o < KPT; ++o) leaf[s][o] += (uint32_t)part[s][o] << (LIMB_BITS * k);
-      }
+      const uint32_t e0 = eh(0, n), e1 = eh(1, n), e2 = eh(2, n);
+      const uint32_t o0 = oh(0, n), o1 = oh(1, n), o2 = oh(2, n);
+      const uint32_t zo1 = n > 0 ? oh(1, n - 1) : 0u - oh(1, ns - 1);
+      r[0] = e0 + zo1;
+      r[1] = e2 - e0 - e1;
+      r[2] = o0 + e1;
+      r[3] = o2 - o0 - o1;
     }
 #pragma unroll
-    for (int s = 0; s < SUB; ++s) {
-      uint32_t o[R];
-      stage_combine<V>(tl.st, leaf[s], t, k0, ns, o);
-      store(s, o);
-    }
-  } else {  // limb-outer: one combine per limb, then the limbs recombine
-    uint32_t res[SUB][R];
-#pragma unroll
-    for (int s = 0; s < SUB; ++s)
-#pragma unroll
-      for (int i = 0; i < R; ++i) res[s][i] = 0u;
-    for (int k = 0; k < LIMBS; ++k) {
-      int32_t part[SUB][KPT];
-      leaf_part<V, SUB>(tab_t + (size_t)k * two_l * (ns / 2), dig_t, two_l, ns, k0, s0, tl.tm,
-                        part);
-#pragma unroll
-      for (int s = 0; s < SUB; ++s) {
-        uint32_t vals[KPT], o[R];
-#pragma unroll
-        for (int x = 0; x < KPT; ++x) vals[x] = (uint32_t)part[s][x];
-        stage_combine<V>(tl.st, vals, t, k0, ns, o);
-#pragma unroll
-        for (int i = 0; i < R; ++i) res[s][i] += o[i] << (LIMB_BITS * k);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < SUB; ++s) store(s, res[s]);
+    for (int i = 0; i < R; ++i) o[i] += r[i] << (8 * k);
   }
-}
-
-template <int V>
-__global__ void __launch_bounds__(MAX_BLOCK)
-karatsuba_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__ a_tilde,
-                 int a_stride, const uint32_t* __restrict__ table, int32_t* __restrict__ out,
-                 int B, int N, int l, int bgbit, uint32_t mask, int tm) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ns = N / R, two_l = 2 * l;
-  const int b0 = blockIdx.x * TB;
-  uint32_t* tab_s = reinterpret_cast<uint32_t*>(smem);
-  int8_t* dig_s = reinterpret_cast<int8_t*>(smem + leaf_table_bytes(ns, two_l));
-  uint32_t* st = reinterpret_cast<uint32_t*>(smem + leaf_table_bytes(ns, two_l) +
-                                             T * leaf_digit_bytes(ns, two_l));
-  const Tile tl{tab_s, dig_s, st, acc_in, out, B, b0, (int)blockIdx.y, ns, two_l, tm};
-
-  load_leaf_table(tab_s, table, blockIdx.y, two_l, ns);
-  const auto digits = [&](int s_lo, int s_hi) {
-    build_digits<V>(dig_s, acc_in, a_tilde, a_stride, B, b0, s_lo, s_hi, N, l, bgbit, mask);
-  };
-  constexpr int split = split_of(V);
-  if constexpr (split == SPLIT_NONE) {
-    digits(0, TB);
-    __syncthreads();
-    products_and_combine<V, TB>(tl, 0);
-  } else if constexpr (split == SPLIT_SERIAL) {  // digits A, products A, digits B, products B
-    digits(0, TB / 2);
-    __syncthreads();
-    products_and_combine<V, TB / 2>(tl, 0);
-    digits(TB / 2, TB);
-    __syncthreads();
-    products_and_combine<V, TB / 2>(tl, TB / 2);
-  } else {  // grouped: both digit builds first
-    digits(0, TB / 2);
-    digits(TB / 2, TB);
-    __syncthreads();
-    products_and_combine<V, TB / 2>(tl, 0);
-    products_and_combine<V, TB / 2>(tl, TB / 2);
-  }
+  const size_t base = (size_t)b * 2 * N + (size_t)c * R * ns + n;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    out[base + i * ns] = (int32_t)((uint32_t)acc[base + i * ns] + o[i]);
 }
 
 // accio: out = acc + 1, the accumulator's round trip alone.
@@ -543,51 +403,153 @@ __global__ void accio_kernel(const int32_t* __restrict__ acc, int32_t* __restric
     out[i] = (int32_t)((uint32_t)acc[i] + 1u);
 }
 
+// Shapes the step takes: N a power of two with ns = N/4 in [8, MAX_NS],
+// the product's sums exact (shape_ok at N := ns).
+bool step_shape_ok(int B, int N, int l) {
+  return N % R == 0 && N / R <= MAX_NS && shape_ok(B, N / R, 2 * l);
+}
+
 template <int V>
-int launch(const void* acc, const void* a_tilde, int a_stride, const void* table, void* out,
-           int B, int N, int l, int bgbit, unsigned int mask, int tm, void* stream) {
-  static size_t granted[MAX_DEVICES];
+cudaError_t launch_tree_digits(const void* acc, const void* a_tilde, int a_stride, void* digits,
+                               int B, int N, int l, int bgbit, unsigned int mask,
+                               cudaStream_t stream) {
+  if ((uintptr_t)digits % 16 || a_stride < 1) return cudaErrorInvalidValue;
+  tree_digits_kernel<V><<<blocks(B * 2 * Geometry(N / R).npad), THREADS, 0, stream>>>(
+      (const int32_t*)acc, (const int32_t*)a_tilde, a_stride, (int8_t*)digits, B, N, l, bgbit,
+      (uint32_t)mask);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_combine(const void* acc, const void* leaves, void* out, int B, int N,
+                           cudaStream_t stream) {
+  combine_kernel<V><<<blocks(B * 2 * (N / R)), THREADS, 0, stream>>>(
+      (const int32_t*)acc, (const uint32_t*)leaves, (int32_t*)out, B, N);
+  return cudaGetLastError();
+}
+
+// Form V's leaves: the product, or (NODOTS) the broadcast parts.
+template <int V>
+cudaError_t launch_leaves(const void* digits, const void* panel, const void* table, void* leaves,
+                          int B, int N, int two_l, int tm, cudaStream_t stream) {
   const int ns = N / R;
-  if (N % (R * KPT) != 0 || ns > MAX_NS || a_stride < 1) return (int)cudaErrorInvalidValue;
-  if ((V & NODOTS) != 0 && (tm < 1 || ns % tm != 0)) return (int)cudaErrorInvalidValue;
-  if (build_of(V) != BUILD_UPFRONT && 32 % (ns / KPT) != 0)  // a leaf's group within a warp
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = karatsuba_smem_bytes(ns, 2 * l);
-  const cudaError_t e = prepare((const void*)karatsuba_kernel<V>, B, ns, 2 * l, smem, granted);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + TB - 1) / TB, 2);
-  karatsuba_kernel<V><<<grid, T * ns / KPT, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)acc, (const int32_t*)a_tilde, a_stride, (const uint32_t*)table,
-      (int32_t*)out, B, N, l, bgbit, (uint32_t)mask, tm);
-  return (int)cudaGetLastError();
+  if constexpr ((V & NODOTS) != 0) {
+    if (tm < 1 || ns % tm != 0) return cudaErrorInvalidValue;
+    broadcast_kernel<<<blocks(2 * TREE * LIMBS * ns + B * TREE), THREADS, 0, stream>>>(
+        (const int8_t*)table, (const int8_t*)digits, (int32_t*)leaves, B, ns, two_l, tm);
+    return cudaGetLastError();
+  } else {
+    return launch_product<false, 1, Leaves<V>>(digits, panel, nullptr, leaves, B, ns, two_l,
+                                               stream);
+  }
+}
+
+// One step of form V: four launches, into the caller's digit, panel and
+// leaf buffers.
+template <int V>
+int step(const void* acc, const void* a_tilde, int a_stride, const void* table, void* out,
+         void* digits, void* panel, void* leaves, int B, int N, int l, int bgbit,
+         unsigned int mask, int tm, cudaStream_t stream) {
+  if (!step_shape_ok(B, N, l)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = launch_tree_digits<V>(acc, a_tilde, a_stride, digits, B, N, l, bgbit, mask,
+                                        stream);
+  if (e == cudaSuccess) e = launch_limb_panel<TREE>(table, panel, N / R, 2 * l, stream);
+  if (e == cudaSuccess) e = launch_leaves<V>(digits, panel, table, leaves, B, N, 2 * l, tm, stream);
+  if (e == cudaSuccess) e = launch_combine<V>(acc, leaves, out, B, N, stream);
+  return (int)e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// One Karatsuba step of the form numbered `code` (engine/karatsuba_probe.py form_code);
-// returns the cudaError_t of its launch (0 = launched), cudaErrorInvalidValue
-// for a form the library does not carry.  acc, out (B, 2N) words in the
-// residue layout; a~ of sample b is a_tilde[b * a_stride], in [0, 2N);
-// table (2, 9, 4, 2L, N/2) int8; tm: the nodots form's digit spacing.
+// Every entry returns the cudaError_t of its launches (0 = launched);
+// cudaErrorInvalidValue, launching nothing, for a form the library does not
+// carry or a shape it does not take.  acc, out (B, 2N) words in the residue
+// layout; a~ of sample b is a_tilde[b * a_stride], in [0, 2N); table (2, 9,
+// 4, 2L, N/2) int8, 4-byte aligned; digits (B, 9, 2L, npad) int8, panel
+// (9, 2L, 2, 4, rows, 128) int8 and leaves (B, 9, 2, N/4) words ((B, 9, 2,
+// 4, N/4) int32 for the limb-outer form, the broadcast parts (2, 9, 4,
+// N/4) then (B, 9) int32 for nodots), all 16-byte aligned
+// (engine/karatsuba_probe.py buffers); tm: the nodots form's digit spacing.
+
+// One Karatsuba step of the form numbered `code` (engine/karatsuba_probe.py form_code).
 int rustfhe_karatsuba_step(const void* acc, const void* a_tilde, int a_stride, const void* table,
-                           void* out, int B, int N, int l, int bgbit, unsigned int mask, int code,
-                           int tm, void* stream) {
+                           void* out, void* digits, void* panel, void* leaves, int B, int N,
+                           int l, int bgbit, unsigned int mask, int code, int tm, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   switch (code) {
-#define RUSTFHE_CASE(v) \
-  case v:               \
-    return launch<v>(acc, a_tilde, a_stride, table, out, B, N, l, bgbit, mask, tm, stream);
+#define RUSTFHE_CASE(v)                                                                      \
+  case v:                                                                                    \
+    return step<v>(acc, a_tilde, a_stride, table, out, digits, panel, leaves, B, N, l, bgbit, \
+                   mask, tm, st);
     RUSTFHE_KARATSUBA_FORMS(RUSTFHE_CASE)
 #undef RUSTFHE_CASE
     case ACCIO: {
       if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
       const size_t words = (size_t)B * 2 * N;
-      const size_t blocks = (words + 255) / 256;
-      accio_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, (cudaStream_t)stream>>>(
+      const size_t grid = (words + 255) / 256;
+      accio_kernel<<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0, st>>>(
           (const int32_t*)acc, (int32_t*)out, words);
       return (int)cudaGetLastError();
     }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The pieces alone, for their checks and times: the tree digits of form
+// `code`, the leaf panels, the leaves of form `code` (its product, on
+// digits whose residue leaves 0, 1, 3, 4 P3's forms read to build the
+// others; or nodots' broadcast parts from the table), and the combine of
+// form `code`.
+int rustfhe_karatsuba_tree_digits(const void* acc, const void* a_tilde, void* digits, int B,
+                                  int N, int l, int bgbit, unsigned int mask, int code,
+                                  void* stream) {
+  if (!step_shape_ok(B, N, l)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+#define RUSTFHE_CASE(v) \
+  case v:               \
+    return (int)launch_tree_digits<v>(acc, a_tilde, 1, digits, B, N, l, bgbit, mask, st);
+    RUSTFHE_KARATSUBA_FORMS(RUSTFHE_CASE)
+#undef RUSTFHE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int rustfhe_karatsuba_leaf_panel(const void* table, void* panel, int N, int two_l, void* stream) {
+  if (two_l % 2 || !step_shape_ok(1, N, two_l / 2)) return (int)cudaErrorInvalidValue;
+  return (int)launch_limb_panel<TREE>(table, panel, N / R, two_l, (cudaStream_t)stream);
+}
+
+int rustfhe_karatsuba_leaf_product(const void* digits, const void* panel, const void* table,
+                                   void* leaves, int B, int N, int two_l, int code, int tm,
+                                   void* stream) {
+  if (two_l % 2 || !step_shape_ok(B, N, two_l / 2)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+#define RUSTFHE_CASE(v) \
+  case v:               \
+    return (int)launch_leaves<v>(digits, panel, table, leaves, B, N, two_l, tm, st);
+    RUSTFHE_KARATSUBA_FORMS(RUSTFHE_CASE)
+#undef RUSTFHE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int rustfhe_karatsuba_combine(const void* acc, const void* leaves, void* out, int B, int N, int l,
+                              int code, void* stream) {
+  if (!step_shape_ok(B, N, l)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (code) {
+#define RUSTFHE_CASE(v) \
+  case v:               \
+    return (int)launch_combine<v>(acc, leaves, out, B, N, st);
+    RUSTFHE_KARATSUBA_FORMS(RUSTFHE_CASE)
+#undef RUSTFHE_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -25,7 +25,8 @@
 // 0.02 ms at 3.35 TB/s.  Only warpgroup MMA reaches the int8 rate, so K4
 // and K6 are K1's step (cmux_k.cu) on the limb table: one int8 wgmma GEMM
 // in three launches, from one call:
-//   1. limb_panel_kernel: per plane j, half c and limb t, the K-major panel
+//   1. limb_panel_kernel<1> (cmux_step.cuh): per plane j, half c and limb
+//      t, the K-major panel
 //        Pt[x][r] = L_jct[x - r],  x in [x0, 2N), r in [0, 128),
 //      zero for r >= N: K1's key panel (cmux_step.cuh), cut from the
 //      table's bytes with no limb split (the table holds the limbs that
@@ -68,66 +69,6 @@
 namespace {
 
 using namespace rustfhe::cmux;
-
-// 1. table: (2L, 2, LIMBS, 2N) int8, read as words (4-byte aligned);
-// panel: (2L, 2, LIMBS, rows, DEPTH) int8 with panel[p, x - x0, r] =
-// table[p, x - r] (r < N, x < 2N) for p = (j * 2 + c) * LIMBS + t, and zeros
-// elsewhere.  Thread: CHUNK bytes of one row x of one panel p: the table's
-// bytes x - r0 - 15 .. x - r0, reversed.
-__global__ void __launch_bounds__(THREADS)
-limb_panel_kernel(const uint32_t* __restrict__ table, int8_t* __restrict__ panel, int N,
-                  int two_l) {
-  const Geometry g(N);
-  constexpr int chunks = DEPTH / CHUNK;
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= two_l * 2 * LIMBS * g.rows * chunks) return;
-  const int r0 = idx % chunks * CHUNK;
-  const int xl = idx / chunks % g.rows;
-  const int p = idx / (chunks * g.rows);
-  const int x = g.x0 + xl;
-  const uint32_t* T = table + (size_t)p * (N / 2);  // a plane: 2N bytes
-  uint32_t v[CHUNK / 4];
-  if (r0 + CHUNK <= N && x < 2 * N) {
-    // Every byte live: s = x - r0 - 15 >= x0 - N + 1 >= 1 and s + 15 < 2N.
-    // W[i], the word at byte s + 4i, from the aligned words a[] (the fifth
-    // only when s is not aligned: it then holds byte s + 15); panel word k
-    // is W[3 - k] byte-reversed.
-    const int s = x - r0 - (CHUNK - 1);
-    const int w = s >> 2, sh = 8 * (s & 3);
-    uint32_t a[5];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = T[w + i];
-    a[4] = sh ? T[w + 4] : 0u;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      v[k] = __byte_perm(__funnelshift_r(a[3 - k], a[4 - k], sh), 0u, 0x0123);
-  } else {
-    // The edges (N < 128, rows past 2N): byte by byte, zeros where r >= N
-    // or x >= 2N (x - r >= 1 wherever both hold).
-    const uint8_t* Tb = reinterpret_cast<const uint8_t*>(T);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t word = 0u;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int r = r0 + 4 * k + b;
-        if (r < N && x < 2 * N) word |= (uint32_t)Tb[x - r] << (8 * b);
-      }
-      v[k] = word;
-    }
-  }
-  *reinterpret_cast<uint4*>(panel + ((size_t)p * g.rows + xl) * DEPTH + r0) =
-      make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-cudaError_t launch_limb_panel(const void* table, void* panel, int N, int two_l,
-                              cudaStream_t stream) {
-  if ((uintptr_t)table % 4 || (uintptr_t)panel % 16) return cudaErrorMisalignedAddress;
-  const int threads = two_l * 2 * LIMBS * Geometry(N).rows * (DEPTH / CHUNK);
-  limb_panel_kernel<<<blocks(threads), THREADS, 0, stream>>>((const uint32_t*)table,
-                                                             (int8_t*)panel, N, two_l);
-  return cudaGetLastError();
-}
 
 // K4 (HALVES 2) and K6 (HALVES 1): the three launches of one step, into the
 // caller's digit and panel buffers.

@@ -43,6 +43,10 @@ SLICE = 128  # bytes of K per stage of the product's TMA ring
 LIMBS = 4  # balanced signed 8-bit limbs of a key word
 COEFFS = 64  # output coefficients of one limb in a block tile: a panel box's rows
 MIN_N, MAX_N = 8, 2048
+# The product's shared memory at any shape (csrc/cmux_step.cuh SMEM): 1 KiB of
+# alignment, a 4-stage ring of a 128 x SLICE digit box and four COEFFS x SLICE
+# panel boxes, 8 barriers.
+SMEM_BYTES = 1024 + 4 * (128 * SLICE + 4 * COEFFS * SLICE) + 8 * 8
 
 
 @functools.lru_cache(maxsize=1)
@@ -287,16 +291,12 @@ def step_digits(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEParams) ->
     return digits
 
 
-def panel_product_plain(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor | None,
-                        params: TFHEParams) -> torch.Tensor:
-    """The product as the kernel computes it, from the panels: for each
-    plane j and 128-byte slice kb, the digits of the slice against panel
-    rows k + N - 128 kb - x0, int32 sums per (half, limb) (float64, exact:
-    below 2^31), then sum_t << 8t mod 2^32, plus ``acc`` unless it is None
-    (K2's function).
-    ``digits`` int8 (B, 2L, npad); ``panel`` as ``key_panel``; returns
-    int32 (B, 2, N)."""
-    N = params.N
+def panel_parts_plain(digits: torch.Tensor, panel: torch.Tensor, N: int) -> torch.Tensor:
+    """The product's int32 sums per (half, limb) as the kernel forms them,
+    from the panels, before the recombination: for each plane j and
+    128-byte slice kb, the digits of the slice against panel rows k + N -
+    128 kb - x0 (float64, exact: below 2^31).  ``digits`` int8 (B, 2L,
+    npad); ``panel`` as ``key_panel``; returns int64 (B, 2, LIMBS, N)."""
     npad, x0, _ = geometry(N)
     B, two_l = digits.shape[0], digits.shape[1]
     k = torch.arange(N, device=digits.device)
@@ -307,9 +307,17 @@ def panel_product_plain(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Te
             # (2, LIMBS, N, SLICE): the key tile of every coefficient over slice kb
             w = panel[j].index_select(2, k + N - SLICE * kb - x0).to(torch.float64)
             parts += torch.einsum("br,ctkr->bctk", d[:, j, SLICE * kb: SLICE * (kb + 1)], w)
-    parts = parts.to(torch.int64)
-    out = sum(parts[:, :, t] << (8 * t) for t in range(LIMBS))
-    out = wrap(out)
+    return parts.to(torch.int64)
+
+
+def panel_product_plain(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor | None,
+                        params: TFHEParams) -> torch.Tensor:
+    """The product as the kernel computes it, from the panels: the sums of
+    ``panel_parts_plain``, then sum_t << 8t mod 2^32, plus ``acc`` unless it
+    is None (K2's function).  ``digits`` int8 (B, 2L, npad); ``panel`` as
+    ``key_panel``; returns int32 (B, 2, N)."""
+    parts = panel_parts_plain(digits, panel, params.N)
+    out = wrap(sum(parts[:, :, t] << (8 * t) for t in range(LIMBS)))
     return out if acc is None else acc + out
 
 

@@ -294,15 +294,11 @@ def leaf_parts(dig: torch.Tensor, table: torch.Tensor, v: Step, tm: int) -> torc
     return torch.stack(parts, dim=1).to(torch.int64).reshape(B, T, 2, K, ns)
 
 
-def step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
-               params: TFHEParams, v: Step = Step(), tm: int = 128) -> torch.Tensor:
-    """The Karatsuba step ``v`` in the residue layout: ``acc`` int32
-    (B, 2N), ``a_tilde`` int32 (B,) in [0, 2N), ``table`` int8 (2, T, K,
-    2L, 2ns) (``prepare_table``).  The production form is acc +
-    ExtProd(key, Decompose(X^{a~} * acc - acc)) in the residue layout."""
-    if v.accio:
-        return acc + 1
-    part = leaf_parts(step_digits(acc, a_tilde, params, v), table, v, tm)
+def combine_parts(acc: torch.Tensor, part: torch.Tensor, v: Step) -> torch.Tensor:
+    """acc plus the step's output from its (leaf, limb) parts ``part`` int64
+    (B, T, 2, K', ns), K' >= ``v.limbs``: the limbs recombine per leaf,
+    then one tree combine (leaf-first), or one combine per limb, then the
+    limbs (limb-outer), or output residue i is leaf i (no combine)."""
     part = part[:, :, :, : v.limbs]
     shifts = [LIMB_BITS * k for k in range(v.limbs)]
     if not v.combine:
@@ -317,3 +313,15 @@ def step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
             outs = [o + (r << sh) for o, r in zip(outs, res)]
     flat = torch.stack(outs, dim=2).reshape(acc.shape)  # (B, c, i, ns) -> (B, 2N)
     return wrap(acc.to(torch.int64) + flat)
+
+
+def step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
+               params: TFHEParams, v: Step = Step(), tm: int = 128) -> torch.Tensor:
+    """The Karatsuba step ``v`` in the residue layout: ``acc`` int32
+    (B, 2N), ``a_tilde`` int32 (B,) in [0, 2N), ``table`` int8 (2, T, K,
+    2L, 2ns) (``prepare_table``).  The production form is acc +
+    ExtProd(key, Decompose(X^{a~} * acc - acc)) in the residue layout."""
+    if v.accio:
+        return acc + 1
+    part = leaf_parts(step_digits(acc, a_tilde, params, v), table, v, tm)
+    return combine_parts(acc, part, v)

@@ -4,8 +4,8 @@ Counterpart of ``rustfhe_tpu/engine/pallas_step.py``, the JAX engine
 ``"pallas"``: K4 replaces ``fused_cmux_step_merged`` (pallas_step.py:363),
 K6 ``fused_cmux_step`` (pallas_step.py:267) and K5
 ``fused_external_product`` (pallas_step.py:158).  The kernels are CUDA C++
-for sm_90a in ``csrc/limb_step.cu`` (with ``csrc/cmux_step.cuh``,
-``csrc/hopper_common.cuh`` and ``csrc/limb_common.cuh``), built with nvcc
+for sm_90a in ``csrc/limb_step.cu`` (with ``csrc/cmux_step.cuh`` and
+``csrc/hopper_common.cuh``), built with nvcc
 into a shared library with a plain C interface on first use (``build``)
 and called through ctypes.  They read the step's doubled int8 limb table
 of ``plain.prepare_trgsw_limbs``, (2L, 2, 4, 2N).
@@ -48,7 +48,6 @@ from . import build, cmux_k, plain
 from .cmux_k import SLICE, _check_tensor, _dispatch
 from .plain import NUM_LIMBS
 
-TB = 8  # samples per block of the probes P5/P6, as csrc/limb_common.cuh
 MERGED_COEFFS = cmux_k.COEFFS // 2  # coefficients of one limb in K4's block tile
 
 
@@ -75,14 +74,6 @@ def _check(err: int, what: str) -> None:
     cmux_k._check(cmux_k.load_library(), err, what)
 
 
-def smem_bytes(params: TFHEParams, halves: int) -> int:
-    """Shared memory of one block of the probes P5 (``halves`` 2) and P6
-    (1): ``halves`` output halves of the limb table (2L planes of K limbs
-    of 2N bytes each) and the tile's digits."""
-    two_l, N = 2 * params.l, params.N
-    return halves * NUM_LIMBS * two_l * 2 * N + TB * two_l * N
-
-
 @functools.lru_cache(maxsize=None)
 def smem_optin(device_index: int) -> int:
     """The card's opt-in limit of shared memory per block, in bytes."""
@@ -102,15 +93,6 @@ def check_bound(params: TFHEParams) -> None:
         raise ValueError(f"per-limb sums reach 2L*N*half_bg*128 = {bound} >= 2^31 at "
                          f"N={params.N}, l={params.l}, bgbit={params.bgbit}: outside the "
                          "limb engine's exact int32 range")
-
-
-def _check_smem(device: torch.device, params: TFHEParams, halves: int, what: str) -> None:
-    need = smem_bytes(params, halves)
-    limit = smem_optin(device.index if device.index is not None else torch.cuda.current_device())
-    if need > limit:
-        raise ValueError(f"{what} needs {need} bytes of shared memory per block at "
-                         f"N={params.N}, l={params.l}, over the card's opt-in limit of "
-                         f"{limit} bytes")
 
 
 def _check_step(acc, a_tilde, table, params: TFHEParams) -> None:

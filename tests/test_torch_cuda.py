@@ -518,11 +518,15 @@ def test_limb_step_kernels_refuse_what_they_do_not_take(cuda):
             assert step.launches == before, tag
 
 
-@pytest.mark.parametrize("B", [1, 13])  # 13 samples: a ragged last tile
+@pytest.mark.parametrize("B", [1, 13, 33])  # 13, 33: ragged last tiles
 @pytest.mark.parametrize("name", ["FAST_PARAMS", "DEFAULT_PARAMS"])
 def test_limb_probe_kernels_match_plain(cuda, name, B):
+    # P6's variants and P5's orders (K6's and K4's kernels with one part
+    # changed) against their plain versions, and the pieces that are the
+    # probes' own: the digits without rotation, P5's drain product, P6's
+    # nodots kernel.  One launch count per step.
     p = getattr(params, name)
-    rows, acc, ai, _ = _case(42, 13, p)
+    rows, acc, ai, _ = _case(42, 33, p)
     acc, ai = acc[:B], ai[:B]
     table = plain.prepare_trgsw_limbs(_u32.from_numpy(rows))
     t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
@@ -541,6 +545,15 @@ def test_limb_probe_kernels_match_plain(cuda, name, B):
         got = limb_probe.step_order(c_acc, c_ai, c_tab, p, order)
         assert limb_probe.step_order.launches == before + 1
         assert torch.equal(got.cpu(), want), order
+    norot = limb_probe.step_digits(c_acc, c_ai, p, rotate=False)
+    assert torch.equal(norot.cpu(), limb_probe.step_digits_plain(t_acc, t_ai, p, rotate=False))
+    digits = cmux_k.step_digits(c_acc, c_ai, p)
+    panel = limb_step.limb_panel(c_tab, p)
+    assert torch.equal(limb_probe.drain_product(digits, panel, c_acc, p).cpu(),
+                       limb_step.merged_product_plain(digits.cpu(), panel.cpu(), t_acc, p))
+    for tm in (128, 256):
+        assert torch.equal(limb_probe.nodots(digits, c_acc, p, tm).cpu(),
+                           limb_probe.nodots_plain(digits.cpu(), t_acc, p, tm))
 
 
 @pytest.mark.parametrize("tile", list(int8_gemm.TILES))
@@ -583,12 +596,16 @@ def test_int8_gemm_kernel_at_the_exactness_edge(cuda, tile):
     assert bool((got == K * 16384).all())
 
 
-@pytest.mark.parametrize("B", [13, 8192])  # 13 samples: a ragged last tile
-def test_karatsuba_kernels_match_plain_and_k1(cuda, B):
-    # Every form of P4, P8, P1 and P2 against its plain version (on the card),
-    # on a table mapped from random JAX-layout bytes; the exact forms on a
-    # table from rows against K1 through the scan layout.
-    p = params.DEFAULT_PARAMS
+@pytest.mark.parametrize("name,B", [("DEFAULT_PARAMS", 1), ("DEFAULT_PARAMS", 13),
+                                    ("DEFAULT_PARAMS", 33), ("DEFAULT_PARAMS", 8192),
+                                    ("PBS_PARAMS", 13)])  # 13, 33: ragged last tiles
+def test_karatsuba_kernels_match_plain_and_k1(cuda, name, B):
+    # Every form of P4, P8, P1, P2 and P3 against its plain version (on the
+    # card), on a table mapped from random JAX-layout bytes; the exact forms
+    # on a table from rows against K1 through the scan layout; each piece
+    # (tree digits, leaf panels, leaves, combine) of every form against its
+    # plain version.  One launch count per step.
+    p = getattr(params, name)
     rows, acc, ai, _ = _case(44, B, p)
     rs = np.random.RandomState(45)
     qd = torch.from_numpy(rs.randint(-128, 128, size=(2, 2 * p.l * 4 * 9, p.N // 2)).astype(np.int8))
@@ -607,7 +624,22 @@ def test_karatsuba_kernels_match_plain_and_k1(cuda, B):
             assert torch.equal(got, karatsuba.step_plain(flat, a, tab, p, form)), (probe, label)
             if exact_only:
                 assert torch.equal(karatsuba.scan_exit(got), k1), (probe, label)
-    # two steps per call: two launches, equal to two single steps
+    # the pieces, form by form (the leaves on every leaf's digits)
+    panel = karatsuba_probe.leaf_panel(tab, p)
+    assert torch.equal(panel, karatsuba_probe.leaf_panel_plain(tab, p))
+    full = karatsuba_probe.tree_digits_plain(flat, a, p)
+    for form in karatsuba_probe.FORMS - {karatsuba_probe.ABLATIONS["accio"]}:
+        dig = karatsuba_probe.tree_digits(flat, a, p, form)
+        want = karatsuba_probe.tree_digits_plain(flat, a, p, form)
+        if form.build != "upfront":  # the residue leaves alone
+            dig, want = (x[:, list(karatsuba_probe.RESIDUE_LEAVES)] for x in (dig, want))
+        assert torch.equal(dig, want), form
+        dig = karatsuba_probe.tree_digits_plain(flat, a, p, form)
+        leaves = karatsuba_probe.leaves(dig, panel, tab, p, form)
+        assert torch.equal(leaves, karatsuba_probe.leaves_plain(dig, panel, tab, p, form)), form
+        assert torch.equal(karatsuba_probe.combine(flat, leaves, p, form),
+                           karatsuba_probe.combine_plain(flat, leaves, p, form)), form
+    # two steps per call: two steps counted, equal to two single steps
     a2 = torch.stack([a, a.flip(0)], dim=1)
     tabs = torch.stack([tab, karatsuba.table_from_qd(qd).to(cuda)])
     before = karatsuba_probe.step_var.launches
@@ -622,17 +654,22 @@ def test_karatsuba_kernels_match_plain_and_k1(cuda, B):
 
 
 def test_karatsuba_kernel_refuses_what_it_does_not_carry(cuda):
-    p = params.PBS_PARAMS  # N=2048: past the kernel's leaf size and its shared memory
+    # N=4096: a leaf size of 1024, past the kernels' 512 (PBS_PARAMS, N=2048,
+    # runs since the tensor-core redesign: test_karatsuba_kernels_match_plain_and_k1)
+    p = params.DEFAULT_PARAMS.replace(N=4096)
     acc = torch.zeros((1, 2 * p.N), dtype=torch.int32, device=cuda)
     ai = torch.zeros((1,), dtype=torch.int32, device=cuda)
     tab = torch.zeros(karatsuba.table_shape(p), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="N a multiple of 32 up to 1024"):
+    before = karatsuba_probe.step_k2.launches
+    with pytest.raises(ValueError, match="power of two in \\[32, 2048\\]"):
         karatsuba_probe.step_k2(acc, ai, tab, p)
+    assert karatsuba_probe.step_k2.launches == before
 
 
 @pytest.mark.parametrize("N", [64, 256, 512])
 def test_coissue_forms_at_small_leaves(cuda, N):
-    # P3's groups of ns/8 threads: 2, 8 and 16 lanes of a warp
+    # leaf sizes below one 128-byte slice (ns = 16, 64) and at one (128):
+    # the producer's builds on zero-padded digit planes
     p = params.DEFAULT_PARAMS.replace(N=N)
     rows, acc, ai, _ = _case(46, 13, p)
     flat = karatsuba.scan_enter(_u32.from_numpy(acc))

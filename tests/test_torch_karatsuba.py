@@ -1,5 +1,6 @@
 """The port's Karatsuba step (``engine/karatsuba.py``), its probe wrappers
-P4, P8, P1, P2, P3 (``engine/karatsuba_probe.py``) and their entry points
+P4, P8, P1, P2, P3 (``engine/karatsuba_probe.py``), the pieces of their
+kernels (tree digits, leaf panels, leaves, combine) and their entry points
 (``rustfhe_tpu_torch/benches``), against the JAX package.
 
 Everything here is word for word (tolerance zero).  The residue layout,
@@ -7,7 +8,9 @@ the tree, the rotation and the leaf table are held to
 ``rustfhe_tpu/engine/pallas_k.py``; the plain step to
 ``fused_cmux_step_k(levels=2)`` in interpret mode and to the port's K1
 through ``scan_exit``; every wrapper's plain version, form by form, to
-the JAX probe's own Pallas kernel in interpret mode.  The probe scripts of
+the JAX probe's own Pallas kernel in interpret mode, and so is the
+composition of the pieces' plain versions, which equals ``step_plain`` for
+every form at N = 64, 256, 1024.  The probe scripts of
 ``benches/`` are loaded as they are: ``sys.argv`` is set, ``PRESET`` unset
 and the module's ``P``, ``B`` and ``TB`` set (``monkeypatch`` restores
 them), and ``pl.pallas_call`` runs in interpret mode.  The fast cases run
@@ -36,7 +39,7 @@ from rustfhe_tpu.params import DEFAULT_PARAMS as J_DEFAULT
 from rustfhe_tpu_torch import _u32, params, poly
 from rustfhe_tpu_torch.benches import (coissue2_probe, coissue_probe, k2_floor_probe,
                                        karatsuba2_probe, vpu_reduce_probe)
-from rustfhe_tpu_torch.engine import cmux_k, plain
+from rustfhe_tpu_torch.engine import cmux_k, limb_step, plain
 from rustfhe_tpu_torch.engine import karatsuba as ka
 from rustfhe_tpu_torch.engine import karatsuba_probe as kp
 
@@ -84,6 +87,16 @@ def _inputs(seed, N, l, b=B, a_cols=1):
     ai[:4, 0] = [0, 1, N, 2 * N - 1]
     qd = rs.randint(-128, 128, size=(2, 2 * l * 4 * 9, N // 2)).astype(np.int8)
     return rows, acc, ai, qd
+
+
+def _composed(acc, a_tilde, table, p, form, tm=kp.TM):
+    """The four pieces' plain versions in the kernels' order: tree digits,
+    leaf panels, leaves, combine."""
+    if form.accio:
+        return kp.step_ablate(acc, a_tilde, table, p, "accio", tm)
+    digits = kp.tree_digits_plain(acc, a_tilde, p, form)
+    leaves = kp.leaves_plain(digits, kp.leaf_panel_plain(table, p), table, p, form, tm)
+    return kp.combine_plain(acc, leaves, p, form)
 
 
 def _t(acc, ai, qd):
@@ -212,6 +225,8 @@ def _check_p4(monkeypatch, N, l, variant, tm=128):
     got = kp.step_ablate(*_t(acc, ai[:, 0], qd), _p(N, l), variant, tm)
     assert kp.step_ablate.launches == before  # the plain version launches nothing
     assert np.array_equal(_u32.to_numpy(got), want), variant
+    composed = _composed(*_t(acc, ai[:, 0], qd), _p(N, l), kp.ABLATIONS[variant], tm)
+    assert np.array_equal(_u32.to_numpy(composed), want), variant
 
 
 @pytest.mark.parametrize("variant", list(kp.ABLATIONS))
@@ -244,6 +259,9 @@ def _check_p8(monkeypatch, N, l, name):
         want = mod.step_var(jnp.asarray(acc), jnp.asarray(ai[:, 0]), panels, params=jp, tb=TB,
                             **kw)
         got = kp.step_var(t_acc, t_ai[:, 0].contiguous(), table, _p(N, l), **kp.VAR_FORMS[name])
+        composed = _composed(t_acc, t_ai[:, 0].contiguous(), table, _p(N, l),
+                             kp.var_form(**kp.VAR_FORMS[name]))
+        assert np.array_equal(_u32.to_numpy(composed), np.asarray(want)), name
     assert np.array_equal(_u32.to_numpy(got), np.asarray(want)), name
 
 
@@ -259,6 +277,8 @@ def _check_p1(monkeypatch, N, l):
                        tm=128)
     got = kp.step_k2(*_t(acc, ai[:, 0], qd), _p(N, l))
     assert np.array_equal(_u32.to_numpy(got), np.asarray(want))
+    composed = _composed(*_t(acc, ai[:, 0], qd), _p(N, l), kp.K2_FORM)
+    assert np.array_equal(_u32.to_numpy(composed), np.asarray(want))
     # P1 is P8's limb-outer form
     assert torch.equal(got, kp.step_var(*_t(acc, ai[:, 0], qd), _p(N, l), leaf_combine=False))
 
@@ -273,6 +293,9 @@ def _check_p2(monkeypatch, N, l, grouped):
     want = mod.make_split(_panels(qd, N), jnp.asarray(ai[:, 0]), TB, grouped)(jnp.asarray(acc))
     got = kp.step_split(*_t(acc, ai[:, 0], qd), _p(N, l), grouped)
     assert np.array_equal(_u32.to_numpy(got), np.asarray(want))
+    form = ka.Step(extract="mul", split=kp.SPLITS[grouped])
+    assert np.array_equal(_u32.to_numpy(_composed(*_t(acc, ai[:, 0], qd), _p(N, l), form)),
+                          np.asarray(want))
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -290,6 +313,9 @@ def _check_p3(monkeypatch, N, l, pipelined, tm=128, b=B):
     got = kp.step_coissue(*_t(acc, ai[:, 0], qd), _p(N, l), pipelined)
     assert kp.step_coissue.launches == before  # the plain version launches nothing
     assert np.array_equal(_u32.to_numpy(got), np.asarray(want))
+    form = kp.COISSUE_FORMS[kp.BUILDS[pipelined]]
+    assert np.array_equal(_u32.to_numpy(_composed(*_t(acc, ai[:, 0], qd), _p(N, l), form, tm)),
+                          np.asarray(want))
     # B and C compute P8's leaf-first multiply-extract step (its baseline A)
     assert torch.equal(got, kp.step_var(*_t(acc, ai[:, 0], qd), _p(N, l)))
 
@@ -343,6 +369,72 @@ def test_nodots_depends_on_tm_as_specified():
 
 
 # --------------------------------------------------------------------- #
+# The pieces of the kernels: their plain versions, composed, are step_plain
+# --------------------------------------------------------------------- #
+PIECE_FORMS = [(f"{probe}-{label}", form) for probe, label, _, _, form in kp.calls()]
+
+
+@pytest.mark.parametrize("N", [64, 256, 1024])
+@pytest.mark.parametrize("name,form", PIECE_FORMS, ids=[n for n, _ in PIECE_FORMS])
+def test_pieces_compose_to_step_plain(name, form, N):
+    # tree digits -> leaf panels -> leaves -> combine, every form; on the CPU
+    # each wrapper runs the plain version (and launches nothing)
+    p = _p(N, 3)
+    _, acc, ai, qd = _inputs(16, N, 3, b=5)
+    t_acc, t_ai, table = _t(acc, ai[:, 0], qd)
+    tm = min(kp.TM, N // 4)
+    want = ka.step_plain(t_acc, t_ai, table, p, form, tm)
+    assert torch.equal(_composed(t_acc, t_ai, table, p, form, tm), want), name
+    if not form.accio:  # the wrappers of the pieces, on the CPU
+        digits = kp.tree_digits(t_acc, t_ai, p, form)
+        leaves = kp.leaves(digits, kp.leaf_panel(table, p), table, p, form, tm)
+        assert torch.equal(kp.combine(t_acc, leaves, p, form), want), name
+
+
+@pytest.mark.parametrize("N,l", [(64, 3), (256, 3), (1024, 3), (2048, 4)])
+def test_leaf_pieces_match_the_step_parts(N, l):
+    # the tree digits are karatsuba.step_digits' (zeros past ns); each leaf's
+    # panel is K4's limb panel of that leaf's table at N := ns; the product
+    # through the panels, per limb, is karatsuba.leaf_parts' circulant
+    # product, and recombined it is their sum << 8k mod 2^32
+    p = _p(N, l)
+    _, acc, ai, qd = _inputs(17, N, l, b=4)
+    t_acc, t_ai, table = _t(acc, ai[:, 0], qd)
+    ns = N // 4
+    form = ka.Step()
+    digits = kp.tree_digits_plain(t_acc, t_ai, p, form)
+    assert digits.dtype == torch.int8 and digits.shape == kp.digit_shape(p, 4)
+    assert torch.equal(digits[..., :ns].to(torch.int64), ka.step_digits(t_acc, t_ai, p, form))
+    assert not digits[..., ns:].any()
+    panel = kp.leaf_panel_plain(table, p)
+    assert panel.shape == kp.panel_shape(p)
+    for t in (0, 8):
+        leaf_table = table[:, t].permute(2, 0, 1, 3).contiguous()  # (2L, 2, K, 2ns)
+        assert torch.equal(panel[t], limb_step.limb_panel_plain(leaf_table, p.replace(N=ns)))
+    parts = ka.leaf_parts(digits[..., :ns].to(torch.int64), table, form, 128)  # (B, T, 2, K, ns)
+    per_limb = kp.leaves_plain(digits, panel, table, p, kp.K2_FORM)
+    assert per_limb.dtype == torch.int32 and torch.equal(per_limb.to(torch.int64), parts)
+    rec = kp.leaves_plain(digits, panel, table, p, form)
+    assert torch.equal(_u32.as_u32_int64(rec),
+                       sum(parts[:, :, :, k] << (8 * k) for k in range(4)) & 0xFFFFFFFF)
+    limb0 = kp.leaves_plain(digits, panel, table, p, kp.ABLATIONS["norecomb"])
+    assert torch.equal(limb0.to(torch.int64), parts[:, :, :, 0])
+
+
+def test_build_forms_read_the_residue_leaves_only():
+    # P3's sum leaves are __vadd4 sums of the residue leaves (no byte lane
+    # overflows at bgbit = 6): the producer's build gives the upfront planes
+    p = _p(256, 3)
+    _, acc, ai, qd = _inputs(18, 256, 3, b=4)
+    t_acc, t_ai, _ = _t(acc, ai[:, 0], qd)
+    d = kp.tree_digits_plain(t_acc, t_ai, p, kp.COISSUE_FORMS["leaf"]).to(torch.int64)
+    r0, r2, r1, r3 = (d[:, t] for t in kp.RESIDUE_LEAVES)
+    for t, want in ((2, r0 + r2), (5, r1 + r3), (6, r0 + r1), (7, r2 + r3),
+                    (8, r0 + r1 + r2 + r3)):
+        assert torch.equal(d[:, t], want) and int(want.abs().max()) <= 128, t
+
+
+# --------------------------------------------------------------------- #
 # The wrappers check their operands
 # --------------------------------------------------------------------- #
 def test_wrapper_checks():
@@ -377,6 +469,21 @@ def test_wrapper_checks():
         ka.check_bound(params.FAST_PARAMS)
     with pytest.raises(ValueError, match="int8"):
         kp.step_k2(t_acc, t_ai, table, params.FAST_PARAMS.replace(N=N, l=l))
+    # the pieces: shapes, the forms they carry, tm
+    digits = kp.tree_digits(t_acc, t_ai, p)
+    panel = kp.leaf_panel(table, p)
+    with pytest.raises(ValueError, match="no pieces"):
+        kp.tree_digits(t_acc, t_ai, p, kp.ABLATIONS["accio"])
+    with pytest.raises(ValueError, match="must have shape"):
+        kp.leaves(digits[:, :4].contiguous(), panel, table, p)
+    with pytest.raises(ValueError, match="must have shape"):
+        kp.combine(t_acc, kp.leaves(digits, panel, table, p, tm=32), p, kp.K2_FORM)
+    with pytest.raises(ValueError, match="must divide"):
+        kp.leaves(digits, panel, table, p, kp.ABLATIONS["nodots"], tm=24)
+    with pytest.raises(TypeError):
+        kp.leaf_panel(table.to(torch.int32), p)
+    with pytest.raises(ValueError, match="power of two"):
+        kp.check_shape(_p(16, 3))
 
 
 def test_form_codes_are_distinct_and_exactness_is_labelled():
@@ -389,8 +496,26 @@ def test_form_codes_are_distinct_and_exactness_is_labelled():
 
 
 def test_smem_budget_at_default_params():
-    # one half's leaf table + the tile's digit trees + one sample's leaves
-    assert kp.smem_bytes(params.DEFAULT_PARAMS) == 110592 + 110592 + 9216 <= 232448
+    # The leaf product is K1's product kernel: its shared memory is K1's ring
+    # at any shape, 1 KiB of alignment, 4 stages of a 128 x 128 B digit box
+    # and four 64 x 128 B panel boxes (each a multiple of the 1024-byte
+    # swizzle atom), 8 barriers.
+    D, PBS = params.DEFAULT_PARAMS, params.PBS_PARAMS
+    assert cmux_k.SMEM_BYTES == 1024 + 4 * (16384 + 4 * 8192) + 64 == 197696 <= 232448
+    assert 128 * 128 % 1024 == 64 * 128 % 1024 == 0
+    # the bytes a step moves at DEFAULT: tree digits 13.5 KiB a sample, leaf
+    # panels 20.25 MiB (rows [x0, 2ns) = [128, 512)), leaves 18 KiB a sample
+    assert kp.digit_shape(D, 1) == (1, 9, 6, 256) and 9 * 6 * 256 == 13824
+    assert kp.panel_shape(D) == (9, 6, 2, 4, 384, 128)
+    assert int(np.prod(kp.panel_shape(D))) == 21233664 == 20.25 * 2**20
+    assert kp.leaf_shape(D, 1, ka.Step()) == (1, 9, 2, 256) and 4 * 9 * 2 * 256 == 18432
+    assert kp.leaf_shape(D, 1, kp.K2_FORM) == (1, 9, 2, 4, 256)  # limb-outer: per limb
+    assert kp.leaf_shape(D, 7, kp.ABLATIONS["nodots"]) == (2 * 9 * 4 * 256 + 7 * 9,)  # W, D
+    # PBS_PARAMS (ns = 512, l = 4): four 128-byte slices a plane, rows [128, 1024)
+    assert kp.digit_shape(PBS, 1) == (1, 9, 8, 512)
+    assert kp.panel_shape(PBS) == (9, 8, 2, 4, 896, 128)
+    # leaf sizes below one slice: the digit planes pad to 128 bytes
+    assert kp.digit_shape(_p(64, 3), 2) == (2, 9, 6, 128)
 
 
 # --------------------------------------------------------------------- #
@@ -408,9 +533,20 @@ def test_entry_points_parse_the_jax_scripts_arguments(monkeypatch):
 
 
 def test_k2_floor_probe_refuses_pbs(monkeypatch):
+    # Since the tensor-core redesign PRESET=pbs no longer refuses: the probe
+    # runs at PBS_PARAMS (N=2048, l=4), as the JAX probe does; here its
+    # plain version, on the CPU.
     monkeypatch.setenv("PRESET", "pbs")
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        k2_floor_probe.parse([])
+    assert k2_floor_probe.parse([]) == (8192, tuple(kp.ABLATIONS))
+    p = k2_floor_probe.preset()
+    assert p == params.PBS_PARAMS
+    (case,) = k2_floor_probe.cases(3, ("full",), torch.device("cpu"), p)
+    acc0, a_t, tab, key, std = k2_floor_probe.draw_step(np.random.RandomState(0), 3,
+                                                        torch.device("cpu"), p)
+    got = case.step(case.x0)
+    assert torch.equal(case.x0, acc0) and got.shape == (3, 2 * p.N)
+    assert torch.equal(ka.scan_exit(got), cmux_k.cmux_step_plain(std, a_t, key, p))
+    assert case.ops == 2 * 3 * k2_floor_probe.macs(p)
 
 
 def test_entry_points_refuse_without_a_card(monkeypatch):
@@ -439,8 +575,8 @@ def test_entry_point_cases_run_their_plain_versions():
     notes = [x for x in karatsuba2_probe.cases(16, cpu) if isinstance(x, str)]
     assert any("tm=256" in n and "no Hopper counterpart" in n for n in notes)
     split = [x for x in coissue_probe.cases(16, cpu) if not isinstance(x, str)]
-    assert [c.name for c in split][:3] == ["baseline (Karatsuba step)", "split-serial (2x4)",
-                                          "split-grouped (2x4)"]
+    assert [c.name for c in split][:3] == ["baseline (Karatsuba step)", "split-serial (2x64)",
+                                          "split-grouped (2x64)"]
     assert all(torch.equal(c.step(c.x0), split[0].step(split[0].x0)) for c in split)
     co = coissue2_probe.cases(16, cpu)
     assert [c.name[:2] for c in co] == ["A:", "B:", "C:"]

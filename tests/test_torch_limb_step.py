@@ -321,5 +321,8 @@ def test_exactness_bound_check_raises():
         limb_step.cmux_step_merged(acc, ai, table, p)
     with pytest.raises(ValueError, match="2\\^31"):
         limb_step.external_product(torch.zeros((1, 2 * p.l, p.N), dtype=torch.int8), table, p)
-    assert limb_step.smem_bytes(params.FAST_PARAMS, 2) == 2 * 4 * 4 * 2048 + 8 * 4 * 1024
-    assert limb_step.smem_bytes(params.DEFAULT_PARAMS, 2) == 96 * 1024 + 48 * 1024
+    # P5/P6 run K4/K6's kernels: the product's ring at any shape, the limb
+    # panels 7.5 MiB at FAST_PARAMS and 11.25 MiB at DEFAULT_PARAMS
+    assert cmux_k.SMEM_BYTES == 1024 + 4 * (128 * 128 + 4 * 64 * 128) + 64 == 197696
+    assert np.prod(cmux_k.panel_shape(params.FAST_PARAMS)) == 7.5 * 2**20
+    assert np.prod(cmux_k.panel_shape(params.DEFAULT_PARAMS)) == 11.25 * 2**20

@@ -3,8 +3,10 @@ GEMM P7/P9 (``engine/int8_gemm.py``), the map from the JAX package's limb
 table (``plain.limb_table_from_qd``) and the probes' entry points
 (``rustfhe_tpu_torch/benches``).
 
-On the CPU the wrappers run the kernels' plain versions; these are held
-word for word (tolerance zero) to the JAX probes' own Pallas kernels in
+On the CPU the wrappers run the kernels' plain versions; these, and the
+composition of the variants' pieces (K4/K6's limb panel and digits, the
+digits without rotation, the products, the nodots part), are held word
+for word (tolerance zero) to the JAX probes' own Pallas kernels in
 interpret mode.  The probe scripts of ``benches/`` are loaded as they are:
 they read the batch from ``sys.argv`` when imported, so ``sys.argv`` is
 set first, and ``pl.pallas_call`` is patched to interpret mode for the
@@ -34,7 +36,7 @@ from rustfhe_tpu.engine.pallas_step import PallasEngine, build_panels, fused_ext
 from rustfhe_tpu.params import DEFAULT_PARAMS as J_DEFAULT
 from rustfhe_tpu_torch import _u32, params
 from rustfhe_tpu_torch.benches import limb_order_probe, matmul_probe, step_breakdown_probe
-from rustfhe_tpu_torch.engine import int8_gemm, limb_probe, limb_step, plain
+from rustfhe_tpu_torch.engine import cmux_k, int8_gemm, limb_probe, limb_step, plain
 
 BENCHES = pathlib.Path(__file__).resolve().parents[1] / "benches"
 B = 16  # the probes' batch here: two tiles of tb=8
@@ -87,6 +89,28 @@ def _port(acc, ai, qd):
 
 def _p(N):
     return params.DEFAULT_PARAMS.replace(N=N)
+
+
+def _variant_pieces(acc, a_tilde, table, p, variant, tm=limb_probe.TM):
+    """P6's kernels' pieces in their order, plain: the limb panel, the
+    digits (of acc itself for norot), then K6's product or the nodots
+    part."""
+    rotate, dots = limb_probe.VARIANTS[variant]
+    panel = limb_step.limb_panel_plain(table, p)
+    digits = limb_probe.step_digits(acc, a_tilde, p, rotate)
+    if dots:
+        return cmux_k.panel_product_plain(digits, panel, acc, p)
+    return limb_probe.nodots(digits, acc, p, tm)
+
+
+def _order_pieces(acc, a_tilde, table, p, order):
+    """P5's kernels' pieces in their order, plain: the limb panel, the
+    digits, then K4's product, drained per plane (j-outer) or once."""
+    panel = limb_step.limb_panel(table, p)
+    digits = cmux_k.step_digits(acc, a_tilde, p)
+    if limb_probe.ORDERS[order]:
+        return limb_probe.drain_product(digits, panel, acc, p)
+    return limb_step.merged_product(digits, panel, acc, p)
 
 
 # --------------------------------------------------------------------- #
@@ -149,6 +173,8 @@ def _check_variants(monkeypatch, N, variants):
         got = limb_probe.step_variant(t_acc, t_ai, table, _p(N), variant)
         assert limb_probe.step_variant.launches == before  # the plain version launches nothing
         assert np.array_equal(_u32.to_numpy(got), want), variant
+        pieces = _variant_pieces(t_acc, t_ai, table, _p(N), variant)
+        assert np.array_equal(_u32.to_numpy(pieces), want), variant
         if variant == "full":  # = K6
             assert torch.equal(got, limb_step.cmux_step_split(t_acc, t_ai, table, _p(N)))
 
@@ -171,6 +197,8 @@ def _check_orders(monkeypatch, N, orders):
         got = limb_probe.step_order(t_acc, t_ai, table, _p(N), order)
         assert np.array_equal(_u32.to_numpy(got), want), order
         assert torch.equal(got, k4)
+        pieces = _order_pieces(t_acc, t_ai, table, _p(N), order)
+        assert np.array_equal(_u32.to_numpy(pieces), want), order
 
 
 @pytest.mark.parametrize("order", ["j-outer", "limb-outer"])
@@ -182,6 +210,39 @@ def test_step_order_matches_make_step(order, interpret, monkeypatch):
 def test_probes_match_jax_at_n1024(interpret, monkeypatch):
     _check_variants(monkeypatch, 1024, list(limb_probe.VARIANTS))
     _check_orders(monkeypatch, 1024, list(limb_probe.ORDERS))
+
+
+@pytest.mark.parametrize("N", [64, 256, 1024])
+def test_probe_pieces_compose_to_the_plain_steps(N):
+    # every P6 variant and P5 order: the pieces' plain versions, composed in
+    # the kernels' order, equal the variant's plain step
+    acc, ai, qd = _step_inputs(11, N, b=5)
+    t_acc, t_ai, table = _port(acc, ai, qd)
+    p = _p(N)
+    tm = min(limb_probe.TM, N)
+    for variant, (rotate, dots) in limb_probe.VARIANTS.items():
+        want = limb_probe.variant_step_plain(t_acc, t_ai, table, p, rotate, dots, tm)
+        assert torch.equal(_variant_pieces(t_acc, t_ai, table, p, variant, tm), want), variant
+    k4 = limb_step.cmux_step_plain(t_acc, t_ai, table, p)
+    for order in limb_probe.ORDERS:
+        assert torch.equal(_order_pieces(t_acc, t_ai, table, p, order), k4), order
+
+
+def test_norot_digits_are_the_digits_of_acc():
+    # step_digits_kernel<false>'s plain version: acc's own decomposition,
+    # padded to one 128-byte slice at N < 128
+    from rustfhe_tpu_torch.trgsw import decompose_trlwe
+
+    for N in (64, 256):
+        acc, ai, _ = _step_inputs(12, N, b=4)
+        t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+        p = _p(N)
+        got = limb_probe.step_digits(t_acc, t_ai, p, rotate=False)
+        assert got.shape == (4, 2 * p.l, max(N, 128)) and got.dtype == torch.int8
+        assert torch.equal(got[..., :N], decompose_trlwe(t_acc, p).to(torch.int8))
+        assert not got[..., N:].any()
+        assert torch.equal(limb_probe.step_digits(t_acc, t_ai, p),
+                           cmux_k.step_digits_plain(t_acc, t_ai, p))
 
 
 def test_nodots_depends_on_tm_as_specified():
