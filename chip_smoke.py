@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's batched gate bootstrap, its interactive console, its
 limb engine, its generic engines, its measurement probes, its
-encrypted-integer path and its programmable bootstrapping with the radix
-integers once on a CUDA card.
+encrypted-integer path, its programmable bootstrapping with the radix
+integers and its seeded uploads once on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -115,7 +115,10 @@ Phases, one line each:
      pipelined) against the production step and the "matmul" engine
      through the scan layout, and their times in turns beside the upfront
      form (A) and K1; P10 (the Nussbaumer primitives) against its plain
-     version and the host reference at S = 0, 1, 17, 63, and its time;
+     version and the host reference at S = 0, 1, 17, 63 on the probe's
+     (128, 2048) tile, on 13 rows and at the transform's size (24576,
+     2048), and its device time beside ``out.copy_(x)``'s and the plain
+     version's at the probe's tile and the transform's size;
      then the two entry points (coissue2_probe, nussbaumer_primitives_probe)
      at their defaults, each with the launch counts of its own run;
  12. the generic-engine path at DEFAULT_PARAMS: ``TFHE.new(...,
@@ -159,12 +162,20 @@ Phases, one line each:
      PBS key (steps 0, 1 and n-1 from the B=16384 batch's first
      accumulators, a test vector per row) against its plain version, its
      step times at B=4096 and 16384 beside the bound, and K3 on the real
-     latency key at B=1 against the K1 loop, with its time per step.
+     latency key at B=1 against the K1 loop, with its time per step;
+ 15. seeded uploads on phase 4's DEFAULT context and phase 14's PBS
+     context: the threefry expansion on the card against the CPU's and
+     against mask words pinned from JAX, at n=635 and n=714; the mixed
+     truth-table batch from seeded uploads through K1 on a cloud-only
+     context, a seeded ``FheUint`` 8-bit + and a seeded ``RadixUint`` add
+     at PBS_PARAMS at 256 lanes, expanded cloud-only, every output
+     decrypted; an npz round trip with the file sizes; the expansion's
+     time and allocator peak at 131072 x 635 mask words.
 
 Then one JSON line of kernels (each with its time, its bound on the card
 and, where one PyTorch call computes the same function, that call's time;
-K1's and K3's launches count phase 14's beside the main path's and the
-console's),
+K1's launches count phases 14's and 15's beside the main path's, K3's
+phase 14's beside the console's; P10's times are at the transform's size),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
@@ -180,6 +191,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -462,23 +474,25 @@ def one_pass(fn, p, kernel=cmux_k.cmux_step):
     return out
 
 
-def mixed_batch(ctx, p):
+def mixed_batch(ctx, p, encrypt=None):
     """bench.py's mixed truth-table batch of MIXED gates: (segments (op, x
     bits, y bits, pre), the whole pre-combined batch, the MUX combinations,
-    the expected bit of every lane)."""
+    the expected bit of every lane).  ``encrypt`` (bits -> ciphertexts)
+    defaults to ``ctx.encrypt``."""
+    encrypt = encrypt or ctx.encrypt
     seg = MIXED // 8
     segs = []  # (op, x bits, y bits, pre)
     for op in ("nand", "and", "or", "xor"):
         bx = np.tile([0, 1, 0, 1], seg // 4 + 1)[:seg]
         by = np.tile([0, 0, 1, 1], seg // 4 + 1)[:seg]
-        segs.append((op, bx, by, gates.precombine(op, ctx.encrypt(bx), ctx.encrypt(by),
+        segs.append((op, bx, by, gates.precombine(op, encrypt(bx), encrypt(by),
                                                   params=p)))
     bx = np.tile([0, 1], seg // 2 + 1)[:seg]
-    cx = ctx.encrypt(bx)
+    cx = encrypt(bx)
     segs.append(("not", bx, bx, gates.precombine("not", cx, params=p)))
     combos = np.array([[c, a, b] for c in (0, 1) for a in (0, 1) for b in (0, 1)])
     mx = np.tile(combos, (seg // 8 + 1, 1))[:seg]
-    c_ct, i0_ct, i1_ct = (ctx.encrypt(mx[:, k]) for k in range(3))
+    c_ct, i0_ct, i1_ct = (encrypt(mx[:, k]) for k in range(3))
     segs.append(("mux_a", mx[:, 0], mx[:, 2], gates.precombine("and", c_ct, i1_ct, params=p)))
     segs.append(("mux_b", mx[:, 0], mx[:, 1], gates.precombine("andn", c_ct, i0_ct, params=p)))
     pre = torch.cat([s[3] for s in segs])
@@ -1650,28 +1664,51 @@ def phase_coissue(dev, rs, card):
 
 def phase_nuss_primitives(dev, card):
     """P10 against its plain version and the host reference at every roll
-    of NUSS_ROLLS, on the probe's (128, 2048) tile; its time in turns."""
-    x0 = nussbaumer_primitives_probe.draw()
-    x = _u32.from_numpy(x0, dev)
+    of NUSS_ROLLS, on the probe's (128, 2048) tile, on 13 rows (a ragged
+    count) and at the transform's size (24576, 2048); then its device time
+    (profiler) beside ``out.copy_(x)``'s on the same tensors at the probe's
+    tile and the transform's size, and the kernel and plain version in
+    turns by CUDA events.  Returns the largest error and (kernel ms, plain
+    ms, bytes) at the transform's size."""
+    probe = nussbaumer_primitives_probe
     err = 0
-    for s in NUSS_ROLLS:
-        got = nuss_primitives.nuss_primitives(x, s)
-        err = max(err, exact(f"P10 S={s} vs plain", got, nuss_primitives.nuss_primitives_plain(x, s)))
-        host = nussbaumer_primitives_probe.butterfly_host(
-            nussbaumer_primitives_probe.block_neg_roll_host(x0, s))
-        exact(f"P10 S={s} vs host", got, _u32.from_numpy(host))
-    fns = {"plain": lambda: nuss_primitives.nuss_primitives_plain(x, nuss_primitives.ROLL),
-           "kernel": lambda: nuss_primitives.nuss_primitives(x, nuss_primitives.ROLL)}
-    ev = turns(fns, 200)
-    # Back to back, a call's event time is the host's issue time (the
-    # wrapper's checks and ctypes): the device time comes from the profiler.
-    dev_ms = {k: profiled_ms(fn, 50) for k, fn in fns.items()}
+    for rows in (probe.TB, 13, probe.TRANSFORM_ROWS):
+        x0 = probe.draw(rows)
+        x = _u32.from_numpy(x0, dev)
+        for s in NUSS_ROLLS:
+            got = nuss_primitives.nuss_primitives(x, s)
+            err = max(err, exact(f"P10 {tuple(x.shape)} S={s} vs plain", got,
+                                 nuss_primitives.nuss_primitives_plain(x, s)))
+            host = probe.butterfly_host(probe.block_neg_roll_host(x0, s))
+            exact(f"P10 {tuple(x.shape)} S={s} vs host", got, _u32.from_numpy(host))
+    times = {}
+    for rows, width in probe.SHAPES:
+        x = _u32.from_numpy(probe.draw(rows), dev)
+        y = torch.empty_like(x)
+        big = rows > probe.TB
+        ev = turns({"plain": lambda: nuss_primitives.nuss_primitives_plain(x, nuss_primitives.ROLL),
+                    "kernel": lambda: nuss_primitives.nuss_primitives(x, nuss_primitives.ROLL)},
+                   20 if big else 200)
+        # Back to back at 2 MiB, a call's event time is the host's issue time
+        # (the wrapper's checks and ctypes): the device time comes from the
+        # profiler.  The plain version's launches at 402.7 MB outlast their
+        # issue, so there its event time is its device time.
+        k_ms = probe.device_ms(lambda: nuss_primitives.nuss_primitives(x, nuss_primitives.ROLL))[0]
+        c_ms = probe.device_ms(lambda: y.copy_(x))[0]
+        nbytes = x.numel() * 4 * 2
+        b_ms = bound(0.0, nbytes)[0]
+        times[rows] = (k_ms, ev["plain"], nbytes)
+        log("nuss", f"P10 {tuple(x.shape)}, S={nuss_primitives.ROLL}, on {card}, us per call: "
+            f"device time (profiler) kernel {k_ms * 1e3:.2f}, out.copy_(x) {c_ms * 1e3:.2f}; "
+            f"bound {b_ms * 1e3:.2f} ({nbytes / 1e6:.1f} MB at 3.35 TB/s): the kernel at "
+            f"{b_ms / k_ms:.1%}, the copy at {b_ms / c_ms:.1%}; CUDA events in turns kernel "
+            f"{ev['kernel'] * 1e3:.2f}, plain {ev['plain'] * 1e3:.2f}"
+            + ("" if big else " (the host's issue time)"))
+        del x, y
     log("nuss", f"P10 bit-exact against its plain version and the host reference at S="
-        f"{', '.join(map(str, NUSS_ROLLS))}; {tuple(x.shape)} on {card}, us per call: device "
-        f"time (profiler) kernel {dev_ms['kernel'] * 1e3:.2f}, plain {dev_ms['plain'] * 1e3:.2f}; "
-        f"CUDA events over back-to-back calls kernel {ev['kernel'] * 1e3:.2f}, plain "
-        f"{ev['plain'] * 1e3:.2f}")
-    return err, (dev_ms["kernel"], dev_ms["plain"]), x.numel() * 4 * 2
+        f"{', '.join(map(str, NUSS_ROLLS))} on ({probe.TB}, {probe.W}), (13, {probe.W}) and "
+        f"({probe.TRANSFORM_ROWS}, {probe.W})")
+    return err, times[probe.TRANSFORM_ROWS]
 
 
 PROFILE_TRIES = 3  # now and then a profiler session records no launch, or only some
@@ -1723,10 +1760,11 @@ def phase_coissue_entry_points(card):
     if got != want:
         raise AssertionError(f"coissue2_probe launched {got}, expected {want}")
     nuss_primitives.reset_counters()
-    nussbaumer_primitives_probe.run(out=functools.partial(log, "nuss"))
+    res = nussbaumer_primitives_probe.run(out=functools.partial(log, "nuss"))
     p10 = nuss_primitives.nuss_primitives.launches
-    if p10 != 1 + nussbaumer_primitives_probe.ITERS:
-        raise AssertionError(f"nussbaumer_primitives_probe launched P10 {p10} times")
+    if p10 != res["launches"]:
+        raise AssertionError(f"nussbaumer_primitives_probe launched P10 {p10} times in "
+                             f"{res['launches']} calls")
     log("coissue", f"entry points at their defaults on {card}: coissue2_probe {got}, "
         f"nussbaumer_primitives_probe P10 {p10}")
     return got["P3"], p10
@@ -2398,6 +2436,134 @@ def phase_pbs_kernels(ctx, lat, pre, tables, dev, card):
     return err, err3
 
 
+# --------------------------------------------------------------------- #
+# 15. Seeded ciphertexts: the threefry expansion on the card
+# --------------------------------------------------------------------- #
+# The mask words JAX draws from the seed (1, 2) for 5 bodies (jax 0.9.0,
+# jax_threefry_partitionable): row 0's first four, row 4's last four and
+# the sum of all mod 2^32, at DEFAULT_PARAMS' and PBS_PARAMS' n; the same
+# words as tests/test_torch_seeded.py, which holds them to JAX.
+PINNED_SEED = (1, 2)
+PINNED_MASK = {
+    635: ((0xAECE9DD7, 0x6BFF9E1C, 0x7DC7F1B1, 0x0A49EB5F),
+          (0xDFD6BF01, 0x6490C046, 0x4C270E27, 0x1BBBD63B), 0xA3FA4106),
+    714: ((0xAECE9DD7, 0x6BFF9E1C, 0x7DC7F1B1, 0x0A49EB5F),
+          (0x45777175, 0xA3A4A928, 0x2C007A48, 0xFB28C83E), 0xDFF4689F),
+}
+EXPAND_BATCH = 131072  # the port bench's batch: B x n mask words to expand
+
+
+def check_seeded_expansion(c, dev) -> None:
+    """At ``c``'s n: the pinned JAX mask words expanded on the card, and a
+    seeded upload of MIXED bits expanded on the card against the CPU's
+    expansion of the same (seed, bodies), word for word."""
+    n = c.params.n
+    a = _u32.to_numpy(tlwe.expand_seeded(np.asarray(PINNED_SEED, np.uint32),
+                                         torch.zeros(5, dtype=torch.int32, device=dev), n))[:, 1:]
+    got = (tuple(int(v) for v in a[0, :4]), tuple(int(v) for v in a[4, -4:]),
+           int(a.astype(np.uint64).sum()) & 0xFFFFFFFF)
+    if got != PINNED_MASK[n]:
+        raise AssertionError(f"seeded: the card's mask words at n={n} are not JAX's")
+    seed, body = c.encrypt_seeded(np.arange(MIXED) % 2)
+    card_ct = c.cloud_only().expand_seeded((seed, body))
+    if card_ct.device != dev:
+        raise AssertionError(f"seeded: the expansion ran on {card_ct.device}, not {dev}")
+    exact(f"seeded expansion at n={n}, card vs CPU", card_ct,
+          tlwe.expand_seeded(seed.cpu(), body.cpu(), n))
+
+
+def phase_seeded(ctx, pbs_ctx, dev, card):
+    """Seeded uploads on phase 4's DEFAULT context and phase 14's PBS
+    context: the expansion on the card against the CPU's and JAX's pinned
+    words; the mixed truth-table batch from seeded uploads through K1 on a
+    cloud-only context; a seeded FheUint 8-bit + and a seeded RadixUint
+    add at PBS_PARAMS at INT_PAIRS lanes, each expanded cloud-only and
+    decrypted; a save/load round trip; the expansion's time and allocator
+    peak at EXPAND_BATCH x n.  Returns K1's launches in this phase."""
+    from rustfhe_tpu_torch import FheUint
+    from rustfhe_tpu_torch.utils import serialization as ser
+
+    p = DEFAULT_PARAMS
+    t15 = time.perf_counter()
+    for c in (ctx, pbs_ctx):
+        check_seeded_expansion(c, dev)
+    log("seeded", f"the threefry expansion on {dev} equals the CPU's word for word at n={p.n} "
+        f"and n={PBS_PARAMS.n} ({MIXED} bodies), and JAX's pinned mask words of the seed "
+        f"{PINNED_SEED}")
+
+    cmux_k.reset_counters()
+    cloud, pcloud = ctx.cloud_only(), pbs_ctx.cloud_only()
+    _, pre, _, want = mixed_batch(ctx, p, lambda bits: cloud.expand_seeded(
+        ctx.encrypt_seeded(bits)))
+    out = one_pass(lambda: cloud.bootstrap_raw(pre), p)
+    check_bits("seeded mixed batch", ctx.decrypt(out).cpu().numpy(), want)
+    rs = np.random.RandomState(SEED + 15)
+    av, bv = (rs.randint(0, 256, INT_PAIRS, dtype=np.uint64) for _ in range(2))
+
+    def uint_add():
+        a, b = (FheUint.expand_seeded(cloud, FheUint.encrypt_seeded(ctx, v, 8)) for v in (av, bv))
+        return FheUint(ctx, (a + b).bits).decrypt()
+
+    def radix_add():
+        a, b = (radix.RadixUint.expand_seeded(pcloud, radix.RadixUint.encrypt_seeded(pbs_ctx, v, 4))
+                for v in (av, bv))
+        return radix.RadixUint(pbs_ctx, (a + b).digits).decrypt()
+
+    txt = []
+    for name, q, fn in (("FheUint 8-bit +", p, uint_add),
+                        ("RadixUint add at PBS_PARAMS", PBS_PARAMS, radix_add)):
+        before = cmux_k.cmux_step.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1 = cmux_k.cmux_step.launches - before
+        if k1 == 0 or k1 % q.n:
+            raise AssertionError(f"seeded: {name} launched K1 {k1} times (n = {q.n} a level)")
+        check_bits(f"seeded {name}", got, (av + bv) & np.uint64(255))
+        txt.append(f"a seeded {name} at {INT_PAIRS} lanes {ms:.1f} ms ({k1 // q.n} levels)")
+    k1 = cmux_k.cmux_step.launches
+    log("seeded", f"cloud-only on {card}: the mixed batch of {MIXED} gates from seeded uploads "
+        f"through K1, every output right; {'; '.join(txt)} (upload, expansion, the op and the "
+        f"decryption), every value right; K1 launched {k1} times")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seeded = ctx.encrypt_seeded(np.arange(MIXED) % 2)
+        paths = [os.path.join(tmp, f) for f in ("seeded.npz", "full.npz")]
+        ser.save_seeded_ciphertexts(paths[0], seeded, p)
+        ser.save_ciphertexts(paths[1], ctx.expand_seeded(seeded), p)
+        cts, params = ser.load_seeded_ciphertexts(paths[0], device=dev)
+        if params != p:
+            raise AssertionError("seeded: the npz round trip changed the parameters")
+        exact("seeded npz round trip", cts, ctx.expand_seeded(seeded))
+        sizes = [os.path.getsize(f) for f in paths]
+    log("seeded", f"npz round trip of {MIXED} ciphertexts: {sizes[0]} bytes seeded, {sizes[1]} "
+        f"expanded, {sizes[1] / sizes[0]:.1f}x")
+
+    b = torch.zeros(EXPAND_BATCH, dtype=torch.int32, device=dev)
+    seed = torch.tensor(PINNED_SEED, dtype=torch.int32, device=dev)
+    tlwe.expand_seeded(seed, b, p.n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ct = tlwe.expand_seeded(seed, b, p.n)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del ct
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    words = EXPAND_BATCH * p.n
+    log("seeded", f"expansion of {EXPAND_BATCH} x {p.n} = {words / 1e6:.1f} M mask words on "
+        f"{card}: " + ", ".join(f"{t:.2f}" for t in ms) + f" ms (host clock around synchronised "
+        f"work), {words / min(ms) / 1e6:.2f} G words/s; allocator peak {peak / 2**30:.3f} GiB "
+        f"above the bodies ({words * 4 / 2**30:.3f} GiB of output)")
+    log("seeded", f"phase 15 in {time.perf_counter() - t15:.1f} s")
+    return k1
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -2505,7 +2671,7 @@ def main() -> int:
     # launch counts of each run
     p3_err, p3_t = phase_coissue(dev, rs, card)
     kara_errs["P3"] = max(kara_errs["P3"], p3_err)
-    p10_err, p10_t, p10_bytes = phase_nuss_primitives(dev, card)
+    p10_err, (p10_ms, p10_plain_ms, p10_bytes) = phase_nuss_primitives(dev, card)
     kara["P3"], p10_launches = phase_coissue_entry_points(card)
 
     # 12. the generic-engine path at DEFAULT_PARAMS, with the launch counts
@@ -2516,7 +2682,6 @@ def main() -> int:
     # 13. the encrypted-integer path on phase 4's context, with the launch
     # counts of its run only; then K3 against the K1 loop; then the bench
     phase_integers(ctx, p, dev, card)
-    del ctx
 
     # 14. PBS and the radix integers at PBS_PARAMS, with the launch counts
     # of its run only; then K1 and K3 on the real PBS keys
@@ -2524,8 +2689,13 @@ def main() -> int:
     pbs_ctx, pbs_lat, k1_pbs, k3_pbs, pbs_pre, pbs_tables = phase_pbs(dev, card)
     k1_err, k3_err = phase_pbs_kernels(pbs_ctx, pbs_lat, pbs_pre, pbs_tables, dev, card)
     errs["k1"], errs["k3"] = max(errs["k1"], k1_err), max(errs["k3"], k3_err)
-    del pbs_ctx, pbs_lat, pbs_pre
+    del pbs_lat, pbs_pre
     log("pbs", f"phase 14 in {time.perf_counter() - t14:.1f} s")
+
+    # 15. seeded uploads on phase 4's and phase 14's contexts, with the
+    # launch counts of their run only
+    k1_seeded = phase_seeded(ctx, pbs_ctx, dev, card)
+    del ctx, pbs_ctx
 
     F = FAST_PARAMS
     fast_t = limb_times["FAST"]
@@ -2536,7 +2706,7 @@ def main() -> int:
     b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
         ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
-         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"] + k1_pbs,
+         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"] + k1_pbs + k1_seeded,
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
         ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
@@ -2596,7 +2766,7 @@ def main() -> int:
                      kara_errs[probe], kara_t[label], kara_t["plain"],
                      (step_ops(p, kara_b), kara_bytes), None))
     rows.append(("nuss_primitives", NUSS_SOURCE, "benches/nussbaumer_primitives_probe.py:57",
-                 p10_launches, p10_err, *p10_t, (0.0, p10_bytes), None))
+                 p10_launches, p10_err, p10_ms, p10_plain_ms, (0.0, p10_bytes), None))
     kernels = []
     for name, source, where, n, err, ms, plain_ms, (ops, nbytes), lib_ms in rows:
         bound_ms, bound_by = bound(ops, nbytes)

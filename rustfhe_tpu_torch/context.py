@@ -1,11 +1,12 @@
 """High-level TFHE context: the user-facing object API.
 
 Counterpart of ``rustfhe_tpu/context.py`` (keygen, the latency mode, the
-key cache, encrypt/decrypt, the gate set, the typed-integer and radix
-constructors and the programmable-bootstrapping methods; the seeded and
-public-key methods are not ported yet).  Randomness comes from
-one ``torch.Generator`` on the context's device, used for keygen and then
-for every encryption.
+key cache, encrypt/decrypt and the seeded upload, the gate set, the
+typed-integer and radix constructors and the programmable-bootstrapping
+methods; the public-key methods are not ported yet).  Randomness comes
+from one ``torch.Generator`` on the context's device, used for keygen and
+then for every encryption; a seeded upload's mask comes from threefry
+(``utils/threefry.py``) under a key drawn from that generator.
 """
 
 from __future__ import annotations
@@ -104,6 +105,22 @@ class TFHE:
         if self.sk is None:
             raise ValueError("cloud-only context cannot decrypt")
         return tlwe.decrypt_binary(cts, self.sk.lv0)
+
+    def encrypt_seeded(self, bits) -> tuple[torch.Tensor, torch.Tensor]:
+        """Compressed client->server form: ``(seed (2,) int32 words,
+        bodies)``, (n+1)x smaller than ``encrypt`` on the wire; any party
+        (a cloud-only context too) expands it with ``expand_seeded``, in
+        this package or the JAX one (tlwe.encrypt_binary_seeded)."""
+        if self.sk is None:
+            raise ValueError("cloud-only context cannot encrypt")
+        return tlwe.encrypt_binary_seeded(self.gen, self.sk.lv0, self._bits(bits), self.params)
+
+    def expand_seeded(self, seeded) -> torch.Tensor:
+        """(seed, bodies) -> the full TLWE batch on the context's device;
+        public, works cloud-only.  A (seed, bodies) pair of the JAX package
+        (numpy uint32) expands to its ciphertext word for word."""
+        seed, b = seeded
+        return tlwe.expand_seeded(seed, b, self.params.n, self.device)
 
     def trivial(self, bits) -> torch.Tensor:
         """Noiseless ciphertexts of constants."""

@@ -9,9 +9,11 @@ wrapping mod 2^32.  These are the in-block twiddle and the radix-2 stage
 of the transform-domain engine (``engine/transform.py``).
 
 The kernel is CUDA C++ for sm_90a in ``csrc/nuss_primitives.cu``, built
-with nvcc on first use and called through ctypes.  ``nuss_primitives``
-dispatches on the device of its tensor: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.
+with nvcc on first use and called through ctypes: a warp owns whole block
+pairs (16-byte loads and stores, the roll and the butterfly by warp
+shuffles), so it moves each word once, as its byte bound counts.
+``nuss_primitives`` dispatches on the device of its tensor: a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises.
 ``nuss_primitives.launches`` counts the kernel launches, and nothing else.
 """
 
@@ -67,6 +69,8 @@ def nuss_primitives(x: torch.Tensor, s: int = ROLL) -> torch.Tensor:
     _check_args(x, s)
     if not _dispatch(x.device):
         return nuss_primitives_plain(x, s)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel loads 16 bytes a lane)")
     lib = load_library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -19,8 +19,9 @@ integer's ``bits`` may be shared with another integer (``extend`` and a
 zero shift return the operand itself), so no op updates bits in place.
 
 ``from_pbs_int`` bridges a PBS-domain integer (``pbs.py``) into the bit
-world.  Not ported yet: the seeded and public-key constructors (they wait
-for the PRNG and the public key).
+world.  ``encrypt_seeded``/``expand_seeded`` carry an integer's bit planes
+as (seed, bodies) (``tlwe.encrypt_torus_seeded``).  Not ported yet: the
+public-key constructor (it waits for the public key).
 """
 
 from __future__ import annotations
@@ -67,6 +68,18 @@ class FheUint:
         """Noiseless ciphertexts of plaintext constants: the evaluator-side
         way to mix plaintexts in."""
         return cls(ctx, ctx.trivial(cls._to_bits(values, width)))
+
+    @classmethod
+    def encrypt_seeded(cls, ctx, values, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Compressed client->server upload of integers: (seed, bodies) over
+        the (..., width) bit planes, (n+1)x smaller than ``encrypt``;
+        rebuild with ``expand_seeded`` (public: the server or any
+        cloud-only context can do it)."""
+        return ctx.encrypt_seeded(cls._to_bits(values, width))
+
+    @classmethod
+    def expand_seeded(cls, ctx, seeded) -> "FheUint":
+        return cls(ctx, ctx.expand_seeded(seeded))
 
     @staticmethod
     def _to_bits(values, width: int) -> np.ndarray:

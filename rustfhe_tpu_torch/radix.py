@@ -44,8 +44,10 @@ input (three bootstrap outputs summed, then the modulus switch) has a
 
 No op writes into a tensor it was given: every result is a new tensor
 (torch's in-place ops would change an operand that JAX's arrays never
-change).  The seeded constructors wait for the port's threefry PRNG
-(ROADMAP Queue 1 item G) and raise.
+change).  ``encrypt_seeded``/``expand_seeded`` carry the digit
+ciphertexts as (seed, bodies); ``encrypt_seeded`` raises ValueError on a
+context without a secret key, where the JAX package's has no guard of its
+own (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -157,17 +159,19 @@ class RadixUint:
                                      ctx.params.n))
 
     @classmethod
-    def encrypt_seeded(cls, ctx, values, ndigits: int):
-        """The compressed upload of the JAX package: (seed, bodies) over the
-        digit ciphertexts.  It needs the JAX package's threefry stream,
-        which the port does not have yet (ROADMAP Queue 1 item G)."""
-        raise NotImplementedError("RadixUint.encrypt_seeded waits for the port's threefry "
-                                  "PRNG and seeded ciphertexts (ROADMAP Queue 1 item G)")
+    def encrypt_seeded(cls, ctx, values, ndigits: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Compressed upload of radix integers: (seed, bodies) over the
+        (..., ndigits) digit ciphertexts, (n+1)x smaller than ``encrypt``;
+        rebuild with ``expand_seeded`` (public)."""
+        if ctx.sk is None or ctx.gen is None:
+            raise ValueError("cloud-only context cannot encrypt")
+        digs = cls._to_digits(values, ndigits)
+        return tlwe.encrypt_torus_seeded(ctx.gen, ctx.sk.lv0,
+                                         _pbs.encode_int(digs, SPACE).to(ctx.device), ctx.params)
 
     @classmethod
     def expand_seeded(cls, ctx, seeded) -> "RadixUint":
-        raise NotImplementedError("RadixUint.expand_seeded waits for the port's threefry "
-                                  "PRNG and seeded ciphertexts (ROADMAP Queue 1 item G)")
+        return cls(ctx, ctx.expand_seeded(seeded))
 
     def decrypt(self) -> np.ndarray:
         if self.ctx.sk is None:

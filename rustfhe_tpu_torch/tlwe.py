@@ -10,8 +10,9 @@ from __future__ import annotations
 import torch
 
 from . import torus
-from ._u32 import s32, wrap
+from ._u32 import from_numpy, s32, wrap
 from .params import TFHEParams
+from .utils import threefry
 from .utils.rng import gaussian_torus, uniform_torus
 
 
@@ -85,3 +86,44 @@ def encrypt_binary(gen: torch.Generator, s: torch.Tensor, bits: torch.Tensor,
 
 def decrypt_binary(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torus.torus_to_binary(phase(ct, s))
+
+
+def encrypt_torus_seeded(gen: torch.Generator, s: torch.Tensor, m: torch.Tensor,
+                         params: TFHEParams, key=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded (compressed) encryption: ``(seed (2,) int32 words, bodies)``.
+
+    The mask is ``threefry.random_bits(seed, m.shape + (n,))``, the words
+    the JAX package's ``encrypt_torus_seeded`` draws, so a ciphertext
+    travels as (seed, b), (n+1)x smaller, and any party re-derives the mask
+    with ``expand_seeded``, in either package.  The threefry key comes from
+    ``gen`` (two words), or is given as ``key`` ((2,) words) so that the
+    (seed, mask) pair of a key can be held to JAX's.  Only the MASK subkey
+    ``split(key)[0]`` is published: the mask is public in a normal
+    ciphertext anyway.  Publishing the key would publish its noise subkey;
+    in the JAX package that recomputes every Gaussian sample e_i, and since
+    m_i = +-2^29 is even, (b_i - e_i) mod 2 = <a_i mod 2, s> gives the
+    binary secret key by GF(2) elimination from ~n seeded bits.  Here the
+    noise comes from ``gen`` as in ``encrypt_torus``, so bodies decrypt
+    right but are not JAX's words."""
+    n = s.shape[-1]
+    if key is None:
+        key = uniform_torus(gen, (2,), s.device)
+    seed = threefry.split(threefry.key_words(key, s.device))[0]
+    a = threefry.random_bits(seed, m.shape + (n,))
+    e = gaussian_torus(gen, m.shape, params.alpha_lv0, s.device)
+    return seed, _dot_key(a, s) + e + m
+
+
+def encrypt_binary_seeded(gen: torch.Generator, s: torch.Tensor, bits: torch.Tensor,
+                          params: TFHEParams, key=None) -> tuple[torch.Tensor, torch.Tensor]:
+    return encrypt_torus_seeded(gen, s, torus.binary_to_torus(bits), params, key)
+
+
+def expand_seeded(seed, b, n: int, device=None) -> torch.Tensor:
+    """(seed, bodies) -> the full TLWE batch ``(..., n+1)`` on ``device``
+    (the bodies' own by default); public.  ``seed`` is the (2,) mask subkey
+    that ``encrypt_torus_seeded`` published, ``b`` the int32 bodies; either
+    may be numpy uint32 words (from the JAX package or a file)."""
+    b = b.to(device) if isinstance(b, torch.Tensor) else from_numpy(b, device)
+    a = threefry.random_bits(threefry.key_words(seed, b.device), b.shape + (n,))
+    return torch.cat([b[..., None], a], dim=-1)

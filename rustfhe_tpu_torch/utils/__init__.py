@@ -1,1 +1,2 @@
-"""Sampling helpers (counterpart of ``rustfhe_tpu/utils``)."""
+"""Sampling helpers, threefry, the noise model and (de)serialization
+(counterpart of ``rustfhe_tpu/utils``)."""

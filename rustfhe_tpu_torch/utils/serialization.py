@@ -6,7 +6,8 @@ format, so that files cross between the two packages: a JSON header
 then raw uint32 arrays.  Keys are stored raw (``bk`` (n, 2L, 2, N), ``ksk``
 (N, iks_l, T, n+1), ``lv0``/``lv1``), not in a prepared form; preparation
 runs again on load, on the device and for the engine asked for, so one
-file serves every engine.
+file serves every engine.  A seeded batch is stored as (seed, bodies) with
+one more field, ``prng``, that names the generator of its mask.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import numpy as np
 import torch
 
 from .. import keys as _keys
+from .. import tlwe
 from .._device import resolve_device
 from .._u32 import from_numpy, to_numpy
 from ..keys import CloudKey, SecretKey
 from ..params import TFHEParams
+from .threefry import PRNG
 
 _PARAM_FIELDS = ("n", "N", "alpha_lv0", "alpha_lv1", "bgbit", "l", "iks_basebit", "iks_l")
 
@@ -140,4 +143,33 @@ def load_ciphertexts(path: str, device="cuda") -> tuple[torch.Tensor, TFHEParams
     with np.load(path) as z:
         params = _parse_header(z["header"])
         cts = from_numpy(z["cts"], device)
+    return cts, params
+
+
+def save_seeded_ciphertexts(path: str, seeded, params: TFHEParams) -> None:
+    """Store a seeded TLWE batch (``tlwe.encrypt_binary_seeded``): (seed
+    (2,) uint32, bodies), (n+1)x smaller than the expanded form
+    ``save_ciphertexts`` writes (636x at the production n=635), and
+    ``prng``, the name of the mask's generator.  The JAX package's loader
+    reads the same keys and ignores ``prng``."""
+    seed, b = seeded
+    np.savez_compressed(path, header=_params_header(params), seed=_words(seed), body=_words(b),
+                        prng=np.array(PRNG))
+
+
+def load_seeded_ciphertexts(path: str, device="cuda") -> tuple[torch.Tensor, TFHEParams]:
+    """Load and EXPAND a seeded batch to full ``(..., n+1)`` ciphertexts on
+    ``device`` (expansion is public: the mask comes from the stored seed).
+    A file without ``prng``, as the JAX package writes it, was drawn with
+    its threefry under ``jax_threefry_partitionable``, the default: it is
+    read as ``threefry2x32-partitionable``.  A file that names another
+    generator raises ValueError."""
+    device = resolve_device(device)
+    with np.load(path) as z:
+        prng = str(z["prng"]) if "prng" in z.files else PRNG
+        if prng != PRNG:
+            raise ValueError(f"{path}: the mask was drawn with {prng!r}; this package expands "
+                             f"{PRNG!r} only")
+        params = _parse_header(z["header"])
+        cts = tlwe.expand_seeded(z["seed"], z["body"], params.n, device)
     return cts, params

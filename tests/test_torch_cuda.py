@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K6 (and K4/K6's pieces) and the probes P1-P10
 against their plain versions, and the generic engines "matmul" and "matmul_bf16" against
 their CPU products, on the card; the integer, PBS and radix paths on K1
-and K3 (a test vector per row at PBS_PARAMS) against the CPU and the K1 loop.
+and K3 (a test vector per row at PBS_PARAMS) against the CPU and the K1 loop;
+the seeded expansion (threefry) on the card against the CPU's.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -689,6 +690,46 @@ def test_nuss_primitives_kernel_matches_plain(cuda, s):
     got = nuss_primitives.nuss_primitives(x.to(cuda), s)
     assert nuss_primitives.nuss_primitives.launches == before + 1
     assert torch.equal(got.cpu(), nuss_primitives.nuss_primitives_plain(x, s))
+
+
+@pytest.mark.parametrize("rows", [13, 24576])  # a ragged count; the transform's size
+def test_nuss_primitives_kernel_at_the_transform_size_and_ragged_rows(cuda, rows):
+    rs = np.random.RandomState(50)
+    x = _u32.from_numpy(rs.randint(0, 2**32, size=(rows, 2048), dtype=np.uint64), cuda)
+    for s in (0, 1, 17, 63):
+        before = nuss_primitives.nuss_primitives.launches
+        got = nuss_primitives.nuss_primitives(x, s)
+        assert nuss_primitives.nuss_primitives.launches == before + 1
+        assert torch.equal(got, nuss_primitives.nuss_primitives_plain(x, s)), s
+    misaligned = x.reshape(-1)[1: 1 + 2048].view(1, 2048)  # 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        nuss_primitives.nuss_primitives(misaligned)
+
+
+def test_seeded_expansion_on_card_equals_cpu(cuda):
+    from rustfhe_tpu_torch import tlwe
+    from rustfhe_tpu_torch.utils import threefry
+
+    key = np.array([0xFFFFFFFF, 0x80000000], np.uint32)
+    for shape in [(), (5, 635), (33, 1025)]:
+        got = threefry.random_bits(key, shape, cuda)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), threefry.random_bits(key, shape))
+    assert torch.equal(threefry.split(threefry.key_words(key, cuda), 3).cpu(),
+                       threefry.split(key, 3))
+    assert torch.equal(threefry.fold_in(threefry.key_words(key, cuda), 7).cpu(),
+                       threefry.fold_in(key, 7))
+    rs = np.random.RandomState(51)
+    body = _u32.from_numpy(rs.randint(0, 2**32, size=(4096,), dtype=np.uint64))
+    for n in (params.DEFAULT_PARAMS.n, params.PBS_PARAMS.n):
+        got = tlwe.expand_seeded(key, body, n, cuda)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), tlwe.expand_seeded(key, body, n))
+    ctx = TFHE.new(0, params.TEST_PARAMS, device=cuda)
+    bits = rs.randint(0, 2, 64)
+    x = ctx.cloud_only().expand_seeded(ctx.encrypt_seeded(bits))
+    assert x.device.type == "cuda"
+    assert np.array_equal(ctx.decrypt(x).cpu().numpy(), bits)
 
 
 @pytest.mark.parametrize("name,B", [("matmul", 13), ("matmul", 256), ("matmul_bf16", 13)])

@@ -500,10 +500,11 @@ def test_context_radix_constructors_and_seeded(pair):
         cloud.encrypt_radix(A, ND)
     with pytest.raises(ValueError, match="cloud-only"):
         RadixUint(cloud, s.digits).decrypt()
-    for fn in (lambda: RadixUint.encrypt_seeded(ctx, A, ND),
-               lambda: RadixUint.expand_seeded(ctx, None)):
-        with pytest.raises(NotImplementedError, match="item G"):
-            fn()
+    seeded = RadixUint.encrypt_seeded(ctx, A, ND)
+    np.testing.assert_array_equal(RadixUint(ctx, RadixUint.expand_seeded(cloud, seeded).digits)
+                                  .decrypt(), A)
+    with pytest.raises(ValueError, match="cloud-only"):
+        RadixUint.encrypt_seeded(cloud, A, ND)
     with pytest.raises(ValueError):
         RadixUint(ctx, torch.zeros(3, dtype=torch.int32))
 
