@@ -2,7 +2,8 @@
 """Drive the port's batched gate bootstrap, its interactive console, its
 limb engine, its generic engines, its measurement probes, its
 encrypted-integer path, its programmable bootstrapping with the radix
-integers and its seeded uploads once on a CUDA card.
+integers, its seeded uploads, its scale-out path and its hybrid keys once
+on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -170,12 +171,30 @@ Phases, one line each:
      context, a seeded ``FheUint`` 8-bit + and a seeded ``RadixUint`` add
      at PBS_PARAMS at 256 lanes, expanded cloud-only, every output
      decrypted; an npz round trip with the file sizes; the expansion's
-     time and allocator peak at 131072 x 635 mask words.
+     time and allocator peak at 131072 x 635 mask words;
+ 16. the scale-out path and hybrid keys: a world of one process on NCCL
+     and a (1, 1) mesh on the card, at DEFAULT_PARAMS on phase 4's keys:
+     the six sharded gates (``parallel.sharded_gate_fn``) under the model
+     all_reduce key switch and the all_to_all key switch at B=4096, each
+     equal word for word to the context's gate; ``sharded_bootstrap_fn``
+     in turns with the unsharded pass; ``tp_gate_fn`` on "matmul" at
+     B=1024 equal to the K1 path (635 P9 launches); ``sharded_pbs_fn`` at
+     PBS_PARAMS on phase 14's context equal to ``pbs_many``; a
+     ``GateSession`` with its own keygen (an 8-bit ``FheUint`` add at 256
+     lanes on K1, and at batch 1 in latency mode on K3); the
+     degree-sharded product at N=1024 equal to the "nuss" engine; then
+     ``cloud_key_hybrid`` with and without full panels on phase 4's key:
+     the timed batch equal to the K1 loop, the panel kernel's launches a
+     pass (318 and 0, against 635), the panels' bytes, the allocator's
+     peak, and the passes in turns with the standard key's.
 
 Then one JSON line of kernels (each with its time, its bound on the card
 and, where one PyTorch call computes the same function, that call's time;
-K1's launches count phases 14's and 15's beside the main path's, K3's
-phase 14's beside the console's; P10's times are at the transform's size),
+K1's launches count phases 14's, 15's and 16's beside the main path's
+(with 16's steps on prebuilt panels), K2's the engine probes of phase 16's
+sessions, K3's phases 14's and 16's beside the console's, P9's phase 16's
+tensor-parallel pass beside its entry point's; P10's times are at the
+transform's size),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
@@ -2564,6 +2583,252 @@ def phase_seeded(ctx, pbs_ctx, dev, card):
     return k1
 
 
+# --------------------------------------------------------------------- #
+# 16. The scale-out path (parallel/) and hybrid keys
+# --------------------------------------------------------------------- #
+PARALLEL_GATES = ("nand", "and", "or", "xor", "not", "mux")
+TP_BATCH = 1024  # the tensor-parallel "matmul" gate's batch
+SHARDED_PBS = (4096, 4, 2)  # rows, space, t of the sharded multi-output PBS
+DEGREE_BATCH = 64  # digit rows of the degree-sharded product at N=1024
+
+
+def host_ms(fn) -> tuple[object, float]:
+    """(result, ms) of ``fn`` on the host clock around synchronised work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def host_turns(fns: dict, rounds: int = 1) -> dict:
+    """Host-clock ms of each function in turns (a, b, ..., ..., b, a),
+    ``rounds`` times; the mean of each."""
+    order = (list(fns) + list(fns)[::-1]) * rounds
+    acc = {k: [] for k in fns}
+    for k in order:
+        acc[k].append(host_ms(fns[k])[1])
+    return {k: sum(v) / len(v) for k, v in acc.items()}
+
+
+def counts() -> dict:
+    """The launch counts phase 16 reads."""
+    return {"k1": cmux_k.cmux_step.launches, "k1_panel": cmux_k.cmux_step_panel.launches,
+            "key_panel": cmux_k.key_panel.launches, "k2": cmux_k.external_product.launches,
+            "k3": rotate_all_k.rotate_all.launches, "p9": int8_gemm.int8_matmul.launches}
+
+
+def delta(before: dict) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def expect(what: str, got: dict, **want) -> None:
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def expect_levels(what: str, d: dict, kernel: str, n: int) -> int:
+    """The levels an op ran on ``kernel`` alone ("k1": n launches a level;
+    "k3": one a level), from its launch counts ``d``."""
+    other = "k3" if kernel == "k1" else "k1"
+    per = n if kernel == "k1" else 1
+    if d[kernel] == 0 or d[other] or d[kernel] % per:
+        raise AssertionError(f"{what}: launches {d}, expected levels on {kernel} alone")
+    return d[kernel] // per
+
+
+def phase_parallel(ctx, pbs_ctx, dev, card):
+    """The scale-out path on a world of one process (NCCL) and a (1, 1)
+    mesh on the card, at DEFAULT_PARAMS on phase 4's keys and timed batch:
+    the six sharded gates under both key switches, the sharded bootstrap
+    in turns with the unsharded pass, the tensor-parallel "matmul" gate,
+    the sharded PBS at PBS_PARAMS on phase 14's context, a GateSession with
+    its own keygen (FheUint adds on K1 and, in latency mode, on K3), and
+    the degree-sharded product; then hybrid keys with and without full
+    panels.  Returns the phase's launch counts."""
+    from rustfhe_tpu_torch import FheUint
+    from rustfhe_tpu_torch.keys import cloud_key_hybrid
+    from rustfhe_tpu_torch.parallel import (make_mesh, multihost, shard_cloud_key,
+                                            shard_cloud_key_tp, sharded_bootstrap_fn,
+                                            sharded_gate_fn, sharded_pbs_fn, tp_gate_fn)
+    from rustfhe_tpu_torch.parallel.degree_sharded import (
+        degree_sharded_external_product_fn, shard_transform_panels)
+
+    p = DEFAULT_PARAMS
+    t16 = time.perf_counter()
+    start = counts()
+    rs = np.random.RandomState(SEED + 16)
+    multihost.initialize(device=dev)
+    try:
+        mesh = make_mesh()
+        _, ms = host_ms(lambda: torch.distributed.all_reduce(torch.zeros(1, device=dev)))
+        log("parallel", f"world of {torch.distributed.get_world_size()} on "
+            f"{torch.distributed.get_backend()}, mesh {tuple(mesh.mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {mesh.device_type}; the first collective (the "
+            f"communicator's setup) {ms:.1f} ms")
+
+        # The six gates under both key switches, against the context's gates.
+        bits = rs.randint(0, 2, size=(3, BATCH))
+        cts = [ctx.encrypt(b) for b in bits]
+        args = {"not": cts[:1], "mux": cts}
+        ref = {kind: getattr(ctx, kind if kind in ("nand", "xor", "mux") else kind + "_")(
+            *args.get(kind, cts[:2])) for kind in PARALLEL_GATES}
+        x, y, z = bits
+        truth = dict(TRUTH, mux=lambda x_, y_: np.where(x_ == 1, z, y_))
+        for kind in PARALLEL_GATES:
+            check_bits(f"parallel {kind}", ctx.decrypt(ref[kind]).cpu().numpy(),
+                       truth[kind](x, y))
+        times = {}
+        for ks, axis in (("psum", "model"), ("all_to_all", "data")):
+            ck = shard_cloud_key(ctx.ck, mesh, axis=axis)
+            for kind in PARALLEL_GATES:
+                fn = sharded_gate_fn(mesh, p, kind=kind, key_switch=ks)
+                before = counts()
+                out, times[ks, kind] = host_ms(
+                    lambda: fn(ck.bk, ck.ksk, *args.get(kind, cts[:2])))
+                passes = 2 if kind == "mux" else 1  # MUX: the two ANDs as one batch, the OR
+                expect(f"sharded {kind} ({ks})", delta(before), k1=passes * p.n)
+                exact(f"sharded {kind} ({ks})", out, ref[kind])
+        log("parallel", f"all six gates at B={BATCH} under the model all_reduce key switch and "
+            f"the all_to_all key switch equal the context's unsharded gates word for word (K1 "
+            f"{p.n} launches a pass); ms: " + ", ".join(
+                f"{kind} {times['psum', kind]:.1f}/{times['all_to_all', kind]:.1f}"
+                for kind in PARALLEL_GATES) + f" (psum/all_to_all, host clock) on {card}")
+
+        # The sharded bootstrap in turns with the unsharded pass.
+        pre = gates.precombine("nand", cts[0], cts[1], params=p)
+        ck = shard_cloud_key(ctx.ck, mesh)
+        boot = sharded_bootstrap_fn(mesh, p)
+        exact("sharded_bootstrap_fn", one_pass(lambda: boot(ck.bk, ck.ksk, pre), p), ref["nand"])
+        before = counts()
+        t = host_turns({"unsharded": lambda: ctx.bootstrap_raw(pre),
+                        "sharded": lambda: boot(ck.bk, ck.ksk, pre)}, rounds=2)
+        expect("sharded bootstrap in turns", delta(before), k1=8 * p.n)
+        log("parallel", f"sharded_bootstrap_fn at B={BATCH}: {t['sharded']:.1f} ms a pass "
+            f"against {t['unsharded']:.1f} ms unsharded ({t['unsharded'] / t['sharded']:.1%} of "
+            f"the unsharded gates/s; in turns, 4 passes each, host clock), K1 {p.n} launches "
+            f"a pass, on {card}")
+
+        # The tensor-parallel "matmul" gate on phase 4's raw keys.
+        table = get_engine("matmul").prepare_trgsw(ctx.ck.bk[..., p.N:], p)
+        ck_tp = shard_cloud_key_tp(CloudKey(GenericBK(table, "matmul"), ctx.ck.ksk), mesh)
+        tp = tp_gate_fn(mesh, p, "nand")
+        a, b = cts[0][:TP_BATCH], cts[1][:TP_BATCH]
+        before = counts()
+        out, ms = host_ms(lambda: tp(ck_tp.bk, ck_tp.ksk, a, b))
+        expect("tp_gate_fn", delta(before), p9=p.n, k1=0)
+        exact("tp_gate_fn (matmul) vs the K1 path", out, ref["nand"][:TP_BATCH])
+        log("parallel", f"tp_gate_fn on \"matmul\" at B={TP_BATCH} (2L = {2 * p.l} rows on "
+            f"one model rank): equal to the K1 path word for word, {p.n} P9 launches, "
+            f"{ms:.1f} ms (host clock) on {card}")
+        del table, ck_tp
+
+        # The sharded multi-output PBS at PBS_PARAMS on phase 14's context.
+        q = PBS_PARAMS
+        rows, space, tt = SHARDED_PBS
+        xs = rs.randint(0, space, size=rows)
+        tables = rs.randint(0, space, size=(tt, space))
+        ct = pbs_ctx.encrypt_int(xs, space)
+        want = pbs.pbs_many(pbs_ctx.ck, ct, tables, space=space, params=q)
+        pck = shard_cloud_key(pbs_ctx.ck, mesh)
+        before = counts()
+        out, ms = host_ms(lambda: sharded_pbs_fn(mesh, q, space=space)(pck.bk, pck.ksk, ct,
+                                                                        tables))
+        expect("sharded_pbs_fn", delta(before), k1=q.n)
+        exact("sharded_pbs_fn vs pbs_many", out, want)
+        dec = pbs_ctx.decrypt_int(out, space).cpu().numpy()
+        for j in range(tt):
+            check_bits(f"sharded pbs lookup {j}", dec[:, j], tables[j][xs])
+        log("parallel", f"sharded_pbs_fn at PBS_PARAMS, B={rows}, space {space}, t={tt}: equal "
+            f"to pbs_many word for word, every lookup right, {ms:.1f} ms, K1 {q.n} launches, "
+            f"on {card}")
+        del pck, want, out, ct
+
+        # GateSession: its own keygen, FheUint adds on K1 and on K3.
+        av, bv = (rs.randint(0, 256, INT_PAIRS, dtype=np.uint64) for _ in range(2))
+        for latency in (False, True):
+            lanes = 1 if latency else INT_PAIRS
+            sess, ms_keys = host_ms(lambda: multihost.GateSession(
+                SEED + 16, p, latency_mode=latency, device=dev))
+            a, b = (FheUint.encrypt(sess, v[:lanes], 8) for v in (av, bv))
+            before = counts()
+            got, ms = host_ms(lambda: (a + b).decrypt())
+            d = delta(before)
+            check_bits(f"GateSession FheUint add (latency {latency})", got,
+                       (av[:lanes] + bv[:lanes]) & np.uint64(255))
+            kernel = "k3" if latency else "k1"
+            levels = expect_levels(f"GateSession (latency {latency})", d, kernel, p.n)
+            log("parallel", f"GateSession(latency_mode={latency}) at DEFAULT_PARAMS on {dev}: "
+                f"engine {sess.engine_name}, keygen and engine probe {ms_keys:.1f} ms; an 8-bit "
+                f"FheUint add at {lanes} lane(s): {ms:.1f} ms, {levels} levels on "
+                f"{kernel.upper()}, every value right, on {card}")
+            del sess, a, b
+
+        # The degree-sharded product at N=1024 against the "nuss" engine.
+        nuss = get_engine("nuss")
+        key_rows = words(rs, (2 * p.l, 2, p.N), dev)
+        digits = torch.from_numpy(rs.randint(-p.half_bg, p.half_bg, size=(
+            DEGREE_BATCH, 2 * p.l, p.N)).astype(np.int32)).to(dev)
+        panels, ms_panels = host_ms(lambda: nuss.prepare_trgsw(key_rows, p))
+        want, ms_nuss = host_ms(lambda: nuss.external_product_digits(panels, digits, p))
+        fn = degree_sharded_external_product_fn(mesh, p)
+        got, ms = host_ms(lambda: fn(shard_transform_panels(panels, mesh), digits))
+        exact("degree-sharded product vs nuss", got, want)
+        exact("nuss vs the oracle", want.cpu(),
+              oracle.external_product(key_rows.cpu(), digits.cpu()))
+        log("parallel", f"degree-sharded product at N={p.N}, {DEGREE_BATCH} digit rows: equal "
+            f"to the nuss engine and the oracle word for word; {ms:.1f} ms against "
+            f"{ms_nuss:.1f} ms unsharded (host clock; the panels built host-side in "
+            f"{ms_panels:.0f} ms) on {card}")
+    finally:
+        multihost.shutdown()
+
+    # Hybrid keys on phase 4's key, with and without full panels.
+    pre = gates.precombine("nand", cts[0], cts[1], params=p)
+    hybrid = {}
+    for full in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = counts()
+        hk, ms = host_ms(lambda: cloud_key_hybrid(ctx.ck, p, full_panels=full))
+        expect(f"hybrid build (full {full})", delta(before),
+               key_panel=p.n if full else p.n // 2)
+        hb = hk.bk
+        nbytes = sum(t.numel() * t.element_size() for t in (hb.prep_even, hb.panels_odd,
+                                                             hb.prep_tail) if t.dtype == torch.int8)
+        before = counts()
+        out = gates.hom_bootstrap(hk, pre, params=p)
+        torch.cuda.synchronize()
+        expect(f"hybrid pass (full {full})", delta(before),
+               k1=0 if full else p.n // 2 + p.n % 2, k1_panel=p.n if full else p.n // 2)
+        exact(f"hybrid pass (full {full}) vs the K1 loop", out, ref["nand"])
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        hybrid[full] = hk
+        log("hybrid", f"cloud_key_hybrid(full_panels={full}) on phase 4's key: {nbytes / 1e9:.3f} "
+            f"GB of prebuilt panels, built in {ms:.1f} ms; one pass at B={BATCH} equals the K1 "
+            f"loop word for word with {p.n // 2 + p.n % 2 if not full else 0} key_panel launches "
+            f"(the standard key: {p.n}) and {p.n if full else p.n // 2} panel steps; allocator "
+            f"peak {peak / 2**30:.3f} GiB above the keys and inputs, on {card}")
+    before = counts()
+    t = host_turns({"standard": lambda: gates.hom_bootstrap(ctx.ck, pre, params=p),
+                    "hybrid": lambda: gates.hom_bootstrap(hybrid[False], pre, params=p),
+                    "full": lambda: gates.hom_bootstrap(hybrid[True], pre, params=p)},
+                   rounds=3)
+    expect("hybrid turns", delta(before), k1=6 * (p.n + p.n // 2 + p.n % 2),
+           k1_panel=6 * (p.n // 2 + p.n))
+    log("hybrid", f"passes at B={BATCH} in turns (6 each, host clock): standard key "
+        f"{t['standard']:.1f} ms, hybrid {t['hybrid']:.1f} ms, full panels {t['full']:.1f} ms "
+        f"on {card}")
+    del hybrid
+    torch.cuda.empty_cache()
+    d = delta(start)
+    log("parallel", f"phase 16 in {time.perf_counter() - t16:.1f} s; launches {d}")
+    return d
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -2695,6 +2960,10 @@ def main() -> int:
     # 15. seeded uploads on phase 4's and phase 14's contexts, with the
     # launch counts of their run only
     k1_seeded = phase_seeded(ctx, pbs_ctx, dev, card)
+
+    # 16. the scale-out path (parallel/) and hybrid keys on phase 4's and
+    # phase 14's contexts, with the launch counts of their run only
+    par = phase_parallel(ctx, pbs_ctx, dev, card)
     del ctx, pbs_ctx
 
     F = FAST_PARAMS
@@ -2706,14 +2975,16 @@ def main() -> int:
     b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
         ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
-         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", launches["k1"] + k1_pbs + k1_seeded,
+         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295",
+         launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"],
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
         ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
-         launches["k2"], errs["k2"], *times["k2"],
+         launches["k2"] + par["k2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
         ("rotate_all_k: rotate_all_kernel<TILES> (mma.sync s8, one cluster per sample)",
-         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"] + k3_pbs, errs["k3"],
+         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"] + k3_pbs + par["k3"],
+         errs["k3"],
          k3_times[1][0], k3_times[1][2], k3_work(p, 1), None),
         ("limb_cmux_step_merged: limb_panel_kernel + step_digits_kernel + "
          "cmux_product_kernel<true, 2>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",
@@ -2741,7 +3012,8 @@ def main() -> int:
     for key, where in (("p7", "benches/step_breakdown_probe.py:175"),
                        ("p9", "benches/pallas_matmul_probe.py:56")):
         M, K, N = GEMM_SHAPES[key]
-        rows.append((f"int8_gemm ({key.upper()})", GEMM_SOURCE, where, probes[key], errs[key],
+        rows.append((f"int8_gemm ({key.upper()})", GEMM_SOURCE, where,
+                     probes[key] + (par["p9"] if key == "p9" else 0), errs[key],
                      min(gemm_t[key][tile] for tile in int8_gemm.TILES), gemm_t[key]["plain"],
                      (2.0 * M * K * N, M * K + K * N + 4 * M * N), gemm_t[key]["torch._int_mm"]))
     kara_bytes = step_bytes(p, kara_b, int(np.prod(karatsuba.table_shape(p))))  # the leaf table

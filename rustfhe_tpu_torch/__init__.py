@@ -15,7 +15,9 @@ evaluator with its standard cells, on which the typed encrypted integers
 ``FheUint`` / ``FheInt`` (``ints.py``) run; programmable bootstrapping
 (``pbs.py``, gated by the noise model of ``utils/noise.py``) carries the
 radix integers ``RadixUint`` / ``RadixInt`` (``radix.py``) at
-``PBS_PARAMS``; ``bench.py`` is the batched HomNAND benchmark and
+``PBS_PARAMS``; ``parallel/`` is the scale-out path over
+``torch.distributed`` (sharded gates, bootstrap and PBS, ``GateSession``);
+``bench.py`` is the batched HomNAND benchmark and
 ``examples/radix_bench.py`` the PBS and radix one.
 """
 

@@ -25,11 +25,16 @@ Before any timing it asserts, on the device it runs on:
 
 Environment knobs: ``BENCH_PARAMS`` = default | n2048 | pbs | fast | test,
 ``BENCH_BATCH`` (131072), ``BENCH_ITERS`` (3), ``BENCH_GATES`` = all | nand
-(the mixed-batch and adder checks on or off).  It runs on the CUDA card,
-and on the CPU only when ``RUSTFHE_FORCE_CPU`` is set; with neither, it
-raises.  ``BENCH_HYBRID=1`` and ``BENCH_SHARDED=1`` of the JAX bench need
-modules the port does not have yet (hybrid keys, ROADMAP Queue 1 item I;
-the sharded gate path, item J) and raise.
+(the mixed-batch and adder checks on or off).  ``BENCH_HYBRID=1``: the
+hybrid key (``keys.cloud_key_hybrid``: the odd steps' panels prebuilt) for
+every check and the timed pass.  ``BENCH_SHARDED=1``: after the timed
+passes, the same batch through ``parallel.sharded_bootstrap_fn`` on a
+(1, 1) mesh of a world of this process alone (NCCL on the card, gloo on
+the CPU), asserted equal word for word to the unsharded output before it
+is timed, with its gates/s as a share of the unsharded figure on stderr;
+the JSON line stays the unsharded number, as in the JAX bench.  It runs
+on the CUDA card, and on the CPU only when ``RUSTFHE_FORCE_CPU`` is set;
+with neither, it raises.
 """
 
 from __future__ import annotations
@@ -158,17 +163,43 @@ def check_adder(ctx) -> float:
     return seconds
 
 
+def bench_sharded(ctx, pre, want, gps: float, iters: int, card: str) -> None:
+    """The timed batch through ``sharded_bootstrap_fn`` on a (1, 1) mesh of
+    a world of this process alone: equal word for word to the unsharded
+    output ``want``, then timed; its gates/s beside the unsharded ``gps``."""
+    from .parallel import make_mesh, multihost, shard_cloud_key, sharded_bootstrap_fn
+
+    multihost.initialize(device=ctx.device)
+    try:
+        mesh = make_mesh()
+        ck = shard_cloud_key(ctx.ck, mesh)
+        fn = sharded_bootstrap_fn(mesh, ctx.params, ctx.engine_name)
+        t0 = time.perf_counter()
+        out = fn(ck.bk, ck.ksk, pre)
+        _sync(ctx.device)
+        log(f"# first sharded run: {time.perf_counter() - t0:.2f}s (mesh data=1, model=1, "
+            f"engine {ctx.engine_name})")
+        assert torch.equal(out, want), "sharded output differs from unsharded"
+        log(f"# correctness[sharded]: equal word for word to the unsharded output "
+            f"({pre.shape[0]} gates)")
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(ck.bk, ck.ksk, pre)
+            _sync(ctx.device)
+            times.append(time.perf_counter() - t0)
+        sgps = pre.shape[0] / min(times)
+        log(f"# sharded per-batch: {min(times) * 1e3:.1f} ms -> {sgps:,.1f} gates/s "
+            f"({sgps / gps * 100:.1f}% of unsharded) on {card}")
+    finally:
+        multihost.shutdown()
+
+
 def main() -> None:
     from . import gates
     from .context import TFHE
     from .params import DEFAULT_PARAMS, FAST_PARAMS, N2048_PARAMS, PBS_PARAMS, TEST_PARAMS
 
-    if os.environ.get("BENCH_HYBRID", "0") == "1":
-        raise NotImplementedError("BENCH_HYBRID=1: hybrid keys are not ported yet "
-                                  "(ROADMAP Queue 1 item I)")
-    if os.environ.get("BENCH_SHARDED", "0") == "1":
-        raise NotImplementedError("BENCH_SHARDED=1: the sharded gate path is not ported yet "
-                                  "(ROADMAP Queue 1 item J)")
     p = {
         "default": DEFAULT_PARAMS,
         "n2048": N2048_PARAMS,
@@ -187,6 +218,18 @@ def main() -> None:
     ctx = TFHE.new(0, p, device=device)
     _sync(device)
     log(f"# engine: {ctx.engine_name}; keygen {time.perf_counter() - t0:.2f}s")
+    if os.environ.get("BENCH_HYBRID", "0") == "1":
+        # Hybrid keys: the odd steps' panels prebuilt; every check below
+        # and the timed pass then run the hybrid rotation.
+        from .keys import cloud_key_hybrid
+
+        t0 = time.perf_counter()
+        ck = cloud_key_hybrid(ctx.ck, p, ctx.engine_name)
+        _sync(device)
+        log(f"# hybrid key (odd-step panels prebuilt): {time.perf_counter() - t0:.2f}s"
+            if ck is not ctx.ck else f"# engine {ctx.engine_name} has no hybrid form: "
+            "the standard key")
+        ctx.ck = ck
 
     if check_all:
         check_mixed(ctx, batch)
@@ -218,6 +261,8 @@ def main() -> None:
     gps = batch / best
     log(f"# per-batch: {best * 1e3:.1f} ms ({batch} gates) -> {gps:,.1f} gates/s on {card} "
         f"(runs: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms)")
+    if os.environ.get("BENCH_SHARDED", "0") == "1":
+        bench_sharded(ctx, pre_nand, run(), gps, iters, card)
     print(json.dumps({"metric": METRIC, "value": round(gps, 1), "unit": "gates/s",
                       "vs_baseline": round(gps / BASELINE_GATES_PER_SEC, 1)}))
 

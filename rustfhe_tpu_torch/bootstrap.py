@@ -29,10 +29,19 @@ A limb key (``keys.LimbBK``) runs the limb engine, the JAX engine
 step, of K6 with ``merge_c`` False, or, with ``fuse_step`` False, the
 rotation, difference and decomposition in torch and one launch of K5.
 
+A hybrid key (``keys.HybridBK``) runs the JAX package's hybrid branch
+(``rustfhe_tpu/bootstrap.py:77-100``): n//2 pairs, each the even step (K1,
+or with ``full_panels`` K1 on its prebuilt panel) then the odd step on its
+prebuilt panel (``cmux_k.cmux_step_panel``: no panel kernel), then the
+tail step when n is odd.  JAX fuses a pair into one launch; the port does
+not (``cmux_k.cmux_step_panel``).  A hybrid key never takes K3.
+
 A generic key (``keys.GenericBK``) runs the JAX package's per-step branch
 (``rustfhe_tpu/bootstrap.py:108-116``): rotation, difference and
 decomposition in torch, then the engine's ``external_product_digits``
-("matmul": one launch of the int8 GEMM per step).
+("matmul": one launch of the int8 GEMM per step).  The key names its
+engine, or carries an engine instance (the tensor-parallel engines of
+``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -42,9 +51,9 @@ import torch
 from . import poly, trlwe
 from ._u32 import srl
 from .decomp import decompose_unsigned
-from .engine import cmux_k, get_engine, limb_step, rotate_all_k
+from .engine import cmux_k, limb_step, resolve_engine, rotate_all_k
 from .engine.plain import key_switch_digits
-from .keys import CloudKey, GenericBK, LatencyBK, LimbBK
+from .keys import CloudKey, GenericBK, HybridBK, LatencyBK, LimbBK
 from .trgsw import decompose_trlwe
 from .params import TFHEParams
 
@@ -78,20 +87,32 @@ def _limb_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: LimbBK,
     return acc
 
 
+def _hybrid_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: HybridBK,
+                   params: TFHEParams) -> torch.Tensor:
+    step = cmux_k.cmux_step_panel if bk.full_panels else cmux_k.cmux_step
+    npairs = bk.panels_odd.shape[0]
+    for i in range(npairs):
+        acc = step(acc, a_steps[2 * i], bk.prep_even[i], params)
+        acc = cmux_k.cmux_step_panel(acc, a_steps[2 * i + 1], bk.panels_odd[i], params)
+    for j in range(bk.prep_tail.shape[0]):
+        acc = step(acc, a_steps[2 * npairs + j], bk.prep_tail[j], params)
+    return acc
+
+
 def _generic_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: GenericBK,
                     params: TFHEParams) -> torch.Tensor:
-    eng = get_engine(bk.engine)
+    eng = resolve_engine(bk.engine)
     for i in range(params.n):
         diff = poly.rotate(acc, a_steps[i][:, None]) - acc
         acc = acc + eng.external_product_digits(bk.table[i], decompose_trlwe(diff, params), params)
     return acc
 
 
-def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | GenericBK,
+def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | HybridBK | LimbBK | GenericBK,
                  testvec: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """Rotate ``testvec (..., 2, N)`` by the encrypted phase of lv0 TLWE
     ``ct (..., n+1)``; ``bk`` is the prepared key (n, 2L, 2, 2N), or it as
-    a latency key, or a limb key, or a generic engine's key.  The leading
+    a latency key or a hybrid key, or a limb key, or a generic engine's key.  The leading
     axes of ``testvec`` broadcast against those of ``ct``, as in
     ``rustfhe_tpu/bootstrap.py:32-37``: a (2, N) vector serves every row
     without a copy, and a vector per row (programmable bootstrapping with
@@ -107,6 +128,8 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | Gener
         return _limb_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
     if isinstance(bk, GenericBK):
         return _generic_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
+    if isinstance(bk, HybridBK):
+        return _hybrid_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
     if isinstance(bk, LatencyBK):
         if acc.shape[0] <= rotate_all_k.MAX_BATCH and rotate_all_k.takes(params):
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
@@ -118,7 +141,7 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | LimbBK | Gener
 
 
 def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor,
-                                 bk: torch.Tensor | LatencyBK | LimbBK | GenericBK,
+                                 bk: torch.Tensor | LatencyBK | HybridBK | LimbBK | GenericBK,
                                  params: TFHEParams) -> torch.Tensor:
     """lv0 TLWE -> lv1 TLWE encrypting mu * sign."""
     mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=ct.device)

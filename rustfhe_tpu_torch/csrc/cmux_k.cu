@@ -134,6 +134,21 @@ int rustfhe_cmux_step_k(const void* acc, const void* a_tilde, const void* key, v
   return (int)e;
 }
 
+// K1 on the caller's prebuilt panel (a hybrid key's step, keys.cloud_key_hybrid): the digits
+// and the product, without key_panel_kernel.  The JAX package fuses a hybrid key's pair of steps
+// into one launch (cmux_step_pair, pallas_k.py:721); here the odd step's digits read the whole
+// accumulator that the even step's product tiles write across blocks, so fusing would need a
+// grid-wide barrier to save one accumulator round trip, and a pair stays two calls.
+int rustfhe_cmux_step_panel(const void* acc, const void* a_tilde, const void* panel, void* out,
+                            void* digits, int B, int N, int l, int bgbit, unsigned int mask,
+                            void* stream) {
+  if (!shape_ok(B, N, 2 * l)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = launch_digits(acc, a_tilde, digits, B, N, l, bgbit, mask, st);
+  if (e == cudaSuccess) e = launch_product<true, 1>(digits, panel, acc, out, B, N, 2 * l, st);
+  return (int)e;
+}
+
 // K2: the panel, then the product of the caller's digits without the add.
 int rustfhe_external_product_k(const void* digits, const void* key, void* out, void* panel, int B,
                                int N, int two_l, void* stream) {

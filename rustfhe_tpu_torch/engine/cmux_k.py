@@ -20,9 +20,11 @@ steps of a rotation; the library keeps their TMA maps by address.
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
 kernel or raises.  There is no fallback from a failed launch to the plain
-version.  ``cmux_step.launches`` counts steps (three kernel launches each)
-and ``external_product.launches`` K2's calls (two each); nothing else
-counts.
+version.  ``cmux_step.launches`` counts steps (three kernel launches each),
+``cmux_step_panel.launches`` steps on a prebuilt panel (two each: the
+digits and the product), ``external_product.launches`` K2's calls (two
+each) and ``key_panel.launches`` the panel kernel launched alone (a hybrid
+key's build); nothing else counts.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ def load_library() -> ctypes.CDLL:
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     for name, args in (
             ("rustfhe_cmux_step_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
+            ("rustfhe_cmux_step_panel", [vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
             ("rustfhe_external_product_k", [vp, vp, vp, vp, ci, ci, ci, vp]),
             ("rustfhe_key_panel", [vp, vp, ci, ci, vp]),
             ("rustfhe_step_digits", [vp, vp, vp, ci, ci, ci, ci, cu, vp]),
@@ -198,6 +201,47 @@ cmux_step.launches = 0
 
 
 # --------------------------------------------------------------------- #
+# K1 on a prebuilt panel: the hybrid key's steps (keys.cloud_key_hybrid)
+# --------------------------------------------------------------------- #
+def cmux_step_panel_plain(acc: torch.Tensor, a_tilde: torch.Tensor, panel: torch.Tensor,
+                          params: TFHEParams) -> torch.Tensor:
+    """``cmux_step_plain``'s function with the step's key given as its
+    panels (``key_panel``): the digits, then the product from the panels
+    (``panel_product_plain``)."""
+    return panel_product_plain(step_digits_plain(acc, a_tilde, params), panel, acc, params)
+
+
+def cmux_step_panel(acc: torch.Tensor, a_tilde: torch.Tensor, panel: torch.Tensor,
+                    params: TFHEParams) -> torch.Tensor:
+    """One blind-rotate step on the step's prebuilt key panels ``panel``
+    int8 (2L, 2, LIMBS, rows, SLICE) (``key_panel``): K1's digit and
+    product kernels without its panel kernel, two launches.  The JAX
+    package runs a hybrid key's pair of steps as one launch
+    (``cmux_step_pair``, K1 with ``unroll=2``); here the odd step's digits
+    read the whole accumulator that the even step's product tiles write
+    across blocks, so a fused pair would need a grid-wide barrier to save
+    one accumulator round trip, and the two steps stay two calls."""
+    B = acc.shape[0]
+    N, two_l = params.N, 2 * params.l
+    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    _check_tensor("panel", panel, torch.int8, panel_shape(params), acc.device)
+    if not _dispatch(acc.device):
+        return cmux_step_panel_plain(acc, a_tilde, panel, params)
+    check_shape(N, two_l)
+    stream = _stream(acc.device)
+    digits = _step_buffer("digits", (B, two_l, geometry(N)[0]), acc.device, stream)
+    out = torch.empty_like(acc)
+    _launch("cmux_step_panel", load_library().rustfhe_cmux_step_panel, acc, a_tilde, panel, out,
+            digits, B, N, params.l, params.bgbit, params.decomp_mask, stream=stream)
+    cmux_step_panel.launches += 1
+    return out
+
+
+cmux_step_panel.launches = 0
+
+
+# --------------------------------------------------------------------- #
 # K2: external product of precomputed digits
 # --------------------------------------------------------------------- #
 # K2's plain version: the float64 GEMM of engine/plain.py.
@@ -252,17 +296,26 @@ def key_panel_plain(key: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     return limbs.permute(0, 1, 4, 2, 3).contiguous()
 
 
-def key_panel(key: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+def key_panel(key: torch.Tensor, params: TFHEParams,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """The key panels of ``key`` (``key_panel_plain``'s function), on the
-    key's device."""
+    key's device, into ``out`` when it is given (a hybrid key's slot)."""
     N, two_l = params.N, 2 * params.l
     _check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), key.device)
+    if out is not None:
+        _check_tensor("out", out, torch.int8, panel_shape(params), key.device)
     if not _dispatch(key.device):
-        return key_panel_plain(key, params)
+        panel = key_panel_plain(key, params)
+        return panel if out is None else out.copy_(panel)
     check_shape(N, two_l)
-    panel = torch.empty(panel_shape(params), dtype=torch.int8, device=key.device)
+    panel = torch.empty(panel_shape(params), dtype=torch.int8,
+                        device=key.device) if out is None else out
     _launch("key_panel", load_library().rustfhe_key_panel, key, panel, N, two_l)
+    key_panel.launches += 1
     return panel
+
+
+key_panel.launches = 0
 
 
 def step_digits_plain(acc: torch.Tensor, a_tilde: torch.Tensor,
@@ -340,5 +393,5 @@ def panel_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
 
 
 def reset_counters() -> None:
-    for fn in (cmux_step, external_product):
+    for fn in (cmux_step, cmux_step_panel, external_product, key_panel):
         fn.launches = 0

@@ -73,11 +73,24 @@ class FFT64Engine:
         """``prepared`` complex128 ``(2L, 2, K, N+1)``; ``digits`` integers
         ``(..., 2L, N)`` -> int32 ``(..., 2, N)``."""
         check_bound(params)
+        return self.round_recombine(self.conv_partial(prepared, digits, params))
+
+    def conv_partial(self, prepared: torch.Tensor, digits: torch.Tensor,
+                     params: TFHEParams) -> torch.Tensor:
+        """The per-limb float64 convolution sums before rounding: ``prepared``
+        complex128 ``(R, 2, K, N+1)``, ``digits`` ``(..., R, N)`` for any R
+        rows (2L, or a tensor-parallel shard of them) -> float64 ``(..., 2,
+        K, N)``.  Each is an integer up to the FFT's error, so partials over
+        row shards may be summed before ``round_recombine`` (the JAX
+        engine's ``_conv_partial``)."""
         N = params.N
-        df = torch.fft.rfft(digits.to(torch.float64), n=2 * N, dim=-1)  # (..., 2L, N+1)
+        df = torch.fft.rfft(digits.to(torch.float64), n=2 * N, dim=-1)  # (..., R, N+1)
         prod = torch.einsum("...jf,jckf->...ckf", df, prepared)
-        full = torch.fft.irfft(prod, n=2 * N, dim=-1)[..., :N]
-        return recombine(wrap(full.round()), CONV_LIMB_BITS)
+        return torch.fft.irfft(prod, n=2 * N, dim=-1)[..., :N]
+
+    def round_recombine(self, part: torch.Tensor) -> torch.Tensor:
+        """float64 limb sums ``(..., 2, K, N)`` -> int32 words ``(..., 2, N)``."""
+        return recombine(wrap(part.round()), CONV_LIMB_BITS)
 
     def prepare_ksk(self, ksk_raw: torch.Tensor, params: TFHEParams) -> torch.Tensor:
         return self._ks.prepare_ksk(ksk_raw, params)

@@ -146,13 +146,22 @@ class MatmulEngine:
                                 params: TFHEParams) -> torch.Tensor:
         """``prepared`` int8 ``(2L, 2, K, 2N)``; ``digits`` integers
         ``(..., 2L, N)`` -> int32 ``(..., 2, N)``."""
+        return recombine(self.limb_sums(prepared, digits, params), self.limb_bits)
+
+    def limb_sums(self, prepared: torch.Tensor, digits: torch.Tensor,
+                  params: TFHEParams) -> torch.Tensor:
+        """The product's exact int32 sums per limb before ``recombine``:
+        ``prepared`` int8 ``(R, 2, K, 2N)`` and ``digits`` ``(..., R, N)``
+        for any R rows (2L, or a tensor-parallel shard of them) -> int32
+        ``(..., 2, K, N)``, each at most the module docstring's bound, so
+        sums over row shards add exactly in int32 (the JAX
+        ``_TPMatmulEngine``'s psum)."""
         N = params.N
         lead = digits.shape[:-2]
         rows = digits.shape[-2]
         d = digits.flip(-1).reshape(-1, rows * N)
         out = self.product(d, circulant(prepared))
-        out = out.reshape(lead + (2, self.num_limbs, N))
-        return recombine(out, self.limb_bits)
+        return out.reshape(lead + (2, self.num_limbs, N))
 
     # ------------------------------------------------------------------ #
     # Identity key switch

@@ -170,9 +170,18 @@ def key_switch_digits(ksk: torch.Tensor, digits: torch.Tensor,
     (2^44.9), PBS_PARAMS 15 * 8192 (2^47.9).
     """
     lead = digits.shape[:-2]
-    d = digits.reshape(-1, params.N * params.iks_l)
+    out = key_switch_partial(ksk, digits.reshape(-1, params.N * params.iks_l), params)
+    return wrap(out).reshape(lead + (ksk.shape[-1],))
+
+
+def key_switch_partial(ksk: torch.Tensor, d: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The unreduced sum of ``key_switch_digits`` over the (i, l) rows that
+    ``ksk`` (T-1, R, n+1) holds: ``d`` (M, R) are the digits of those rows.
+    float64 (M, n+1), an exact integer below 2^53 (the bound above holds
+    for any subset of the rows), so partial sums over row shards add
+    exactly before the one reduction mod 2^32 (``parallel.sharded``)."""
     out = None
     for t in range(1, params.iks_t):
         part = (d == t).to(torch.float64) @ ksk[t - 1]
         out = part if out is None else out + part
-    return wrap(out).reshape(lead + (ksk.shape[-1],))
+    return out

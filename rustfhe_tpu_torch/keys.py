@@ -21,6 +21,13 @@ The latency-mode key (``cloud_key_latency``, counterpart of
 A limb or generic key has no latency form: ``cloud_key_latency`` returns
 it as it is, as the JAX package does for engines without panel tables.
 
+The hybrid key (``cloud_key_hybrid``, counterpart of the JAX function of
+the same name) holds the odd steps' K1 key panels prebuilt
+(``engine.cmux_k.key_panel``), so that ``bootstrap.blind_rotate`` runs
+those steps without the panel kernel; ``full_panels`` prebuilds every
+step's.  Its memory is checked against the card's before the build
+(``guard_panel_memory``).
+
 ``from_jax_keys`` takes the numpy uint32 arrays of the JAX package's
 ``gen_secret_key`` / ``gen_cloud_key_raw``: raw keys are the whole
 "weights carried across" step, so the two packages can be compared on one
@@ -29,6 +36,7 @@ key set.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -37,7 +45,8 @@ import torch
 
 from . import tlwe, trgsw
 from ._u32 import from_numpy
-from .engine import GENERIC, LimbEngine, MatmulEngine, NussTransformEngine, resolve_engine
+from .engine import (GENERIC, CmuxKEngine, LimbEngine, MatmulEngine, NussTransformEngine,
+                     cmux_k, resolve_engine)
 from .engine.plain import prepare_ksk, prepare_trgsw, prepare_trgsw_limbs
 from .params import TFHEParams
 from .utils.rng import binary_array
@@ -78,21 +87,45 @@ class LimbBK:
 @dataclass(eq=False)
 class GenericBK:
     """A bootstrapping key for a generic engine (``engine``: ``"matmul"``,
-    ``"matmul_bf16"`` or ``"fft64"``): its ``prepare_trgsw`` table of
-    every TRGSW (``table``, (n, ...)), which ``bootstrap.blind_rotate``
-    hands to the engine's external product on every step.  The engine
-    travels with the key, as ``LimbBK``'s options do."""
+    ``"matmul_bf16"`` or ``"fft64"``, or an engine instance with their
+    ``external_product_digits``, as ``parallel.sharded``'s tensor-parallel
+    engines are): its ``prepare_trgsw`` table of every TRGSW (``table``,
+    (n, ...)), which ``bootstrap.blind_rotate`` hands to the engine's
+    external product on every step.  The engine travels with the key, as
+    ``LimbBK``'s options do."""
 
     table: torch.Tensor
-    engine: str
+    engine: object
+
+
+@dataclass(eq=False)
+class HybridBK:
+    """A bootstrapping key in hybrid form (``cloud_key_hybrid``): the
+    rotation runs n//2 pairs of steps, then the n % 2 tail steps.
+
+    * ``prep_even`` (n//2, ...): the even steps' doubled tables int32
+      (n//2, 2L, 2, 2N), whose panels K1 builds per step, or with
+      ``full_panels`` their panels int8 (n//2, *``cmux_k.panel_shape``);
+    * ``panels_odd`` (n//2, *``cmux_k.panel_shape``) int8: the odd steps'
+      panels, prebuilt;
+    * ``prep_tail`` (n % 2, ...): the tail step as ``prep_even`` holds its
+      steps.
+
+    A step on a panel is ``cmux_k.cmux_step_panel``; a table step is K1's
+    ``cmux_step``.  A hybrid key never takes K3."""
+
+    prep_even: torch.Tensor
+    panels_odd: torch.Tensor
+    prep_tail: torch.Tensor
+    full_panels: bool = False
 
 
 class CloudKey(NamedTuple):
     """bk: doubled TRGSW tables int32 (n, 2L, 2, 2N), or those tables as a
-    ``LatencyBK``, or a ``LimbBK``, or a ``GenericBK``; ksk: float64 (T-1,
-    N*iks_l, n+1)."""
+    ``LatencyBK``, or a ``HybridBK``, or a ``LimbBK``, or a ``GenericBK``;
+    ksk: float64 (T-1, N*iks_l, n+1)."""
 
-    bk: torch.Tensor | LatencyBK | LimbBK | GenericBK
+    bk: torch.Tensor | LatencyBK | HybridBK | LimbBK | GenericBK
     ksk: torch.Tensor
 
 
@@ -153,9 +186,85 @@ def cloud_key_latency(ck: CloudKey) -> CloudKey:
     (``_guard_panel_hbm``) has nothing to guard here.  A limb key has no
     latency form and is returned unchanged, as JAX returns the keys of
     engines without panel tables; so is a generic key."""
-    if isinstance(ck.bk, (LatencyBK, LimbBK, GenericBK)):
+    if isinstance(ck.bk, (LatencyBK, HybridBK, LimbBK, GenericBK)):
         return ck
     return CloudKey(bk=LatencyBK(ck.bk), ksk=ck.ksk)
+
+
+def card_memory_bytes(device) -> int | None:
+    """The card's total memory in bytes (``torch.cuda.mem_get_info``), or
+    None on the CPU, where no limit is known."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def panels_nbytes(params: TFHEParams, full_panels: bool = False) -> int:
+    """The bytes of a hybrid key's prebuilt panels: the n//2 odd steps', or
+    with ``full_panels`` all n steps' (11.8 MB a step at DEFAULT_PARAMS,
+    32.5 MB at PBS_PARAMS)."""
+    steps = params.n if full_panels else params.n // 2
+    return steps * math.prod(cmux_k.panel_shape(params))
+
+
+def guard_panel_memory(need: int, params: TFHEParams, what: str, limit: int | None) -> None:
+    """Raise MemoryError before a panel build that cannot fit: ``need``
+    bytes above 92 % of ``limit`` (the JAX ``_guard_panel_hbm``'s fit
+    check).  With no limit known (None), nothing is blocked.  JAX's second
+    rule, one large panel key per process, guards XLA's uncompacted device
+    memory; torch's caching allocator reuses a freed key's blocks for the
+    next one, so the port does not carry that rule."""
+    if limit is None or need <= 0.92 * limit:
+        return
+    gib = 1024.0**3
+    raise MemoryError(
+        f"{what} needs ~{need / gib:.1f} GiB of panel tables at N={params.N}, "
+        f"n={params.n}, but the device has only {limit / gib:.1f} GiB: there is no "
+        "latency/panel mode at this parameter set; use the standard per-step key, or "
+        "cloud_key_hybrid(full_panels=False) if the half-size table fits.")
+
+
+def cloud_key_hybrid(ck: CloudKey, params: TFHEParams, engine="cmux_k",
+                     full_panels: bool = False,
+                     device_bytes_limit: int | None = None) -> CloudKey:
+    """The hybrid cloud key (``HybridBK``): the odd steps' K1 key panels
+    built once here (``cmux_k.key_panel``, one launch a step), the even
+    steps' tables kept, so that a rotation launches the panel kernel on
+    half its steps.  ``full_panels`` prebuilds the even and tail steps'
+    panels too: no panel kernel in the rotation at all, for twice the
+    memory (DEFAULT_PARAMS: 3.74 GB, full 7.49 GB; PBS_PARAMS: 11.6 GB,
+    full 23.2 GB).
+
+    ``engine`` without a pair step (``"limb"``, the generic engines) gets
+    the key back unchanged, as JAX returns it, and so does a key that is
+    already hybrid or not a K1 table.  A latency key's tables are taken
+    as they are: a hybrid key never takes K3.  Raises MemoryError before
+    any allocation when the panels cannot fit ``device_bytes_limit``
+    (default: the key's card, ``card_memory_bytes``)."""
+    if not isinstance(resolve_engine(engine), CmuxKEngine):
+        return ck
+    bk = ck.bk.bk if isinstance(ck.bk, LatencyBK) else ck.bk
+    if not isinstance(bk, torch.Tensor):
+        return ck
+    limit = (device_bytes_limit if device_bytes_limit is not None
+             else card_memory_bytes(bk.device))
+    guard_panel_memory(panels_nbytes(params, full_panels), params, "cloud_key_hybrid", limit)
+    npairs = bk.shape[0] // 2
+
+    def panels(tables: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((tables.shape[0],) + cmux_k.panel_shape(params), dtype=torch.int8,
+                          device=tables.device)
+        for i in range(tables.shape[0]):
+            cmux_k.key_panel(tables[i], params, out=out[i])
+        return out
+
+    even, tail = bk[0: 2 * npairs: 2], bk[2 * npairs:]
+    if full_panels:
+        even, tail = panels(even), panels(tail)
+    hb = HybridBK(prep_even=even, panels_odd=panels(bk[1: 2 * npairs: 2]), prep_tail=tail,
+                  full_panels=full_panels)
+    return CloudKey(bk=hb, ksk=ck.ksk)
 
 
 def gen_keys(gen: torch.Generator, params: TFHEParams, device,

@@ -917,3 +917,46 @@ def test_pbs_params_context_on_card(cuda):
     assert rotate_all_k.rotate_all.launches == k3 + 1
     assert torch.equal(got.digits, x.shift_left(1).digits)
     np.testing.assert_array_equal(got.decrypt(), [0x6A])
+
+
+@pytest.mark.parametrize("B", [1, 13, 4096])
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_cmux_step_panel_matches_plain(cuda, name, B):
+    """K1's step on a prebuilt panel (the hybrid key's steps: digits and
+    product, no panel kernel) = cmux_step_plain on the step's table, with
+    one count a call and no key_panel launch."""
+    p = getattr(params, name)
+    rows, acc, ai, _ = _case(41, B, p)
+    rows[0, 0, :2] = [0x80808080, 0xFFFFFFFF]
+    key = plain.prepare_trgsw(_u32.from_numpy(rows))
+    want = cmux_k.cmux_step_plain(_u32.from_numpy(acc), torch.from_numpy(ai), key, p)
+    panel = cmux_k.key_panel(key.to(cuda), p)
+    before = (cmux_k.cmux_step_panel.launches, cmux_k.key_panel.launches)
+    got = cmux_k.cmux_step_panel(_u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda),
+                                 panel, p)
+    assert (cmux_k.cmux_step_panel.launches, cmux_k.key_panel.launches) == (before[0] + 1,
+                                                                           before[1])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_hybrid_rotation_equals_the_k1_loop(cuda, full):
+    """A hybrid key's blind rotation at DEFAULT_PARAMS (n = 635: 317 pairs
+    and the tail) = the K1 loop on the standard key, word for word; the
+    panel kernel runs on the 318 even and tail steps (none with full
+    panels), the panel step on the others."""
+    from rustfhe_tpu_torch import bootstrap, keys, trlwe
+
+    p = params.DEFAULT_PARAMS
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    _, ck = keys.gen_keys(gen, p, cuda)
+    hk = keys.cloud_key_hybrid(ck, p, full_panels=full)
+    rs = np.random.RandomState(44)
+    ct = _u32.from_numpy(rs.randint(0, 2**32, size=(64, p.n + 1), dtype=np.uint64), cuda)
+    tv = trlwe.trivial(torch.full((p.N,), p.mu, dtype=torch.int32, device=cuda))
+    want = bootstrap.blind_rotate(ct, ck.bk, tv, p)
+    k1, kp = cmux_k.cmux_step.launches, cmux_k.cmux_step_panel.launches
+    got = bootstrap.blind_rotate(ct, hk.bk, tv, p)
+    assert cmux_k.cmux_step.launches - k1 == (0 if full else p.n // 2 + p.n % 2)
+    assert cmux_k.cmux_step_panel.launches - kp == (p.n if full else p.n // 2)
+    assert torch.equal(got, want)
