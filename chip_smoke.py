@@ -2,8 +2,8 @@
 """Drive the port's batched gate bootstrap, its interactive console, its
 limb engine, its generic engines, its measurement probes, its
 encrypted-integer path, its programmable bootstrapping with the radix
-integers, its seeded uploads, its scale-out path and its hybrid keys once
-on a CUDA card.
+integers, its seeded uploads, its scale-out path, its hybrid keys, its
+public-key encryption and its example scripts once on a CUDA card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -186,15 +186,25 @@ Phases, one line each:
      ``cloud_key_hybrid`` with and without full panels on phase 4's key:
      the timed batch equal to the K1 loop, the panel kernel's launches a
      pass (318 and 0, against 635), the panels' bytes, the allocator's
-     peak, and the passes in turns with the standard key's.
+     peak, and the passes in turns with the standard key's;
+ 17. public-key encryption on phase 4's DEFAULT context: the key (1272
+     zero-encryptions) and its build time, ``encrypt_public`` of 3 x 4096
+     bits on a cloud-only context (every bit decrypted, the mask noise
+     present, the time beside the byte bound of reading the key once and
+     writing the ciphertexts), the six ``gates.hom_*`` on those public
+     ciphertexts decrypted right, their first 32 lanes equal word for
+     word to the same gates on K1's plain version; then the
+     ported examples' ``main()`` at their default knobs (client_server,
+     homnand_bench, adder_bench, encrypted_compare, encrypted_ints,
+     lut_eval), each to its closing line, with its launches.
 
 Then one JSON line of kernels (each with its time, its bound on the card
 and, where one PyTorch call computes the same function, that call's time;
-K1's launches count phases 14's, 15's and 16's beside the main path's
-(with 16's steps on prebuilt panels), K2's the engine probes of phase 16's
-sessions, K3's phases 14's and 16's beside the console's, P9's phase 16's
-tensor-parallel pass beside its entry point's; P10's times are at the
-transform's size),
+K1's launches count phases 14's, 15's, 16's and 17's beside the main
+path's (with 16's steps on prebuilt panels), K2's the engine probes of
+phase 16's sessions and phase 17's contexts, K3's phases 14's, 16's and
+17's beside the console's, P9's phase 16's tensor-parallel pass beside its
+entry point's; P10's times are at the transform's size),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
@@ -202,8 +212,10 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import importlib
 import io
 import json
 import os
@@ -2829,6 +2841,144 @@ def phase_parallel(ctx, pbs_ctx, dev, card):
     return d
 
 
+
+# --------------------------------------------------------------------- #
+# 17. Public-key encryption, the gate functions and the examples
+# --------------------------------------------------------------------- #
+PK_BATCH = 4096  # the public-key encryption batch
+PLAIN_LANES = 32  # lanes of each gate held against K1's plain version
+FP64_FLOPS_PER_S = 67e12  # float64 tensor-core peak of an H100 SXM (published)
+# The ported examples, each run by its main() at its default knobs, and the
+# start of its closing line.
+EXAMPLES = {"client_server": "server computed NAND=", "homnand_bench": "not   OK",
+            "adder_bench": "blind rotations:", "encrypted_compare": "ok",
+            "encrypted_ints": "# all integer ops decode correctly", "lut_eval": "OK"}
+
+
+def plain_gate(kind: str, ck, cts, p) -> torch.Tensor:
+    """Gate ``kind`` of ``cts`` with K1's plain version in every step of
+    each bootstrap, composed from the JAX package's formulas (MUX: both
+    ANDs, then their OR); launches no kernel."""
+    mu = trlwe.trivial(torch.full((p.N,), p.mu, dtype=torch.int32, device=cts[0].device))
+
+    def boot(pre):
+        acc, a_steps = bootstrap.rotation_start(pre, mu, p)
+        for i in range(p.n):
+            acc = cmux_k.cmux_step_plain(acc, a_steps[i], ck.bk[i], p)
+        return bootstrap.identity_key_switch(trlwe.sample_extract(acc, 0), ck.ksk, p)
+
+    if kind == "mux":
+        control, in0, in1 = cts
+        return boot(gates.precombine("or", boot(gates.precombine("and", control, in1, params=p)),
+                                     boot(gates.precombine("andn", control, in0, params=p)),
+                                     params=p))
+    return boot(gates.precombine(kind, *cts, params=p))
+
+
+def run_example(name: str, card: str) -> tuple[float, dict]:
+    """``rustfhe_tpu_torch.examples.<name>.main()`` at its default knobs on
+    the card, its lines logged as ``[example:<name>]``; (ms, launches)."""
+    mod = importlib.import_module(f"rustfhe_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    before = counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, ms = host_ms(lambda: mod.main() if name == "client_server" else mod.main([]))
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"example:{name}", line)
+    lines = buf.getvalue().rstrip().splitlines()
+    if not lines or not lines[-1].startswith(EXAMPLES[name]):
+        raise AssertionError(f"{name}: no closing line {EXAMPLES[name]!r}")
+    d = delta(before)
+    if d["k1"] == 0 or d["k2"] == 0:
+        raise AssertionError(f"{name}: launches {d}, expected K1 steps and the K2 probe")
+    log("public", f"example {name} at its default knobs: {ms / 1e3:.2f} s, launches {d} "
+        f"on {card}")
+    return ms, d
+
+
+def phase_public_key(ctx, dev, card):
+    """Public-key encryption on phase 4's DEFAULT context: the key and its
+    build time, ``encrypt_public`` at B=4096 (decrypted, timed beside its
+    byte bound), the six ``gates.hom_*`` on public ciphertexts decrypted
+    right and, on their first lanes, equal to the same gates on K1's plain
+    version word for word (``plain_gate``); then each ported
+    example's ``main()`` at its default knobs.  Returns the phase's launch
+    counts."""
+    p = DEFAULT_PARAMS
+    t17 = time.perf_counter()
+    start = counts()
+    rs = np.random.RandomState(SEED + 17)
+    pk, first_ms = host_ms(ctx.make_public_key)
+    pk_ms = min(host_ms(ctx.make_public_key)[1] for _ in range(3))
+    M = pk.shape[0]
+    if (pk.shape != (2 * (p.n + 1), p.n + 1) or pk.dtype != torch.int32
+            or pk.device != ctx.device):
+        raise AssertionError(f"public key: {pk.dtype} {tuple(pk.shape)} on {pk.device}")
+    noise = tlwe.phase(pk, ctx.sk.lv0).to(torch.float64).abs().max().item() / 2**32
+    if noise > 8 * p.alpha_lv0:
+        raise AssertionError(f"public key rows: |phase| {noise:.3g} above 8 sigma")
+    log("public", f"make_public_key: ({M}, {p.n + 1}) int32, {pk.nbytes / 1e6:.2f} MB, "
+        f"{first_ms:.2f} ms first, {pk_ms:.2f} ms (best of 3, host clock); every row's phase "
+        f"within {noise / p.alpha_lv0:.2f} sigma of 0, on {card}")
+
+    # encrypt_public on a cloud-only context with the caller's generator
+    cloud = ctx.cloud_only()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    bits = rs.randint(0, 2, size=(3, PK_BATCH))
+    cts = [cloud.encrypt_public(pk, b, gen=gen) for b in bits]
+    for i, (ct, b) in enumerate(zip(cts, bits)):
+        check_bits(f"encrypt_public batch {i}", ctx.decrypt(ct).cpu().numpy(), b)
+    mask = cloud.encrypt_public(pk.masked_fill(torch.arange(p.n + 1, device=dev) > 0, 0),
+                                bits[0], gen=gen)[:, 1:]
+    if not bool(mask.any()) or mask.abs().max().item() > 8 * p.alpha_lv0 * 2**32:
+        raise AssertionError("encrypt_public: the mask noise is missing or above 8 sigma")
+    bits0 = torch.from_numpy(bits[0]).to(dev)
+    enc_ms = cuda_ms(lambda: cloud.encrypt_public(pk, bits0, gen=gen), 10)
+    nbytes = (M + PK_BATCH) * (p.n + 1) * 4  # the key read once, the ciphertexts written
+    bound_ms, _ = bound(0.0, nbytes)
+    gemm_ms = 2.0 * PK_BATCH * M * (p.n + 1) / FP64_FLOPS_PER_S * 1e3
+    log("public", f"encrypt_public at B={PK_BATCH}: {enc_ms:.4f} ms (CUDA events, mean of 10); "
+        f"byte bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB: the key once and the output; "
+        f"{bound_ms / enc_ms:.1%}); the float64 GEMM r^T pk alone, 2 x {PK_BATCH} x {M} x "
+        f"{p.n + 1} ops over the published 67 TFLOP/s float64 peak, {gemm_ms:.4f} ms; "
+        f"{PK_BATCH / enc_ms * 1e3:,.0f} encryptions/s; all {3 * PK_BATCH} decrypt right, "
+        f"the mask carries noise, on {card}")
+
+    # The six gate functions on public ciphertexts, against the same gates
+    # on K1's plain version on their first lanes.
+    c, x, y = cts
+    fns = dict(gates.GATES_2IN, **{"not": gates.hom_not, "mux": gates.hom_mux})
+    args = {"not": (x,), "mux": (c, x, y)}
+    truth = dict(TRUTH, mux=lambda x_, y_: np.where(bits[0] == 1, y_, x_))
+    times, plain_s = {}, 0.0
+    for kind in PARALLEL_GATES:
+        before = counts()
+        out, times[kind] = host_ms(lambda: fns[kind](ctx.ck, *args.get(kind, (x, y)), params=p,
+                                                     engine_name=ctx.engine_name))
+        expect(f"gates.hom_{kind}", delta(before), k1=(2 if kind == "mux" else 1) * p.n)
+        t0 = time.perf_counter()
+        want = plain_gate(kind, ctx.ck, [a[:PLAIN_LANES] for a in args.get(kind, (x, y))], p)
+        plain_s += time.perf_counter() - t0
+        exact(f"gates.hom_{kind} against its plain version", out[:PLAIN_LANES], want)
+        check_bits(f"gates.hom_{kind} on public ciphertexts", ctx.decrypt(out).cpu().numpy(),
+                   truth[kind](bits[1], bits[2]))
+    log("public", f"gates.hom_* on public ciphertexts at B={PK_BATCH} decrypt right, and their "
+        f"first {PLAIN_LANES} lanes equal the same gates on K1's plain version word for word "
+        f"({plain_s:.1f} s); ms: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+        + f" (host clock) on {card}")
+    del cts, c, x, y, out
+
+    # The ported examples at their default knobs, on the card.
+    for name in EXAMPLES:
+        run_example(name, card)
+    torch.cuda.empty_cache()
+    d = delta(start)
+    log("public", f"phase 17 in {time.perf_counter() - t17:.1f} s; launches {d}")
+    return d
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -2836,6 +2986,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    for knob in ("KEYFILE", "RUSTFHE_FORCE_CPU", "RUSTFHE_ENGINE"):  # every phase at the defaults
+        os.environ.pop(knob, None)
     p = DEFAULT_PARAMS
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -2964,7 +3116,12 @@ def main() -> int:
     # 16. the scale-out path (parallel/) and hybrid keys on phase 4's and
     # phase 14's contexts, with the launch counts of their run only
     par = phase_parallel(ctx, pbs_ctx, dev, card)
-    del ctx, pbs_ctx
+    del pbs_ctx
+
+    # 17. public-key encryption, the gate functions and the ported examples
+    # on phase 4's context, with the launch counts of their run only
+    pub = phase_public_key(ctx, dev, card)
+    del ctx
 
     F = FAST_PARAMS
     fast_t = limb_times["FAST"]
@@ -2976,14 +3133,15 @@ def main() -> int:
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
         ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
          KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295",
-         launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"],
+         launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"] + pub["k1"],
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
         ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
-         launches["k2"] + par["k2"], errs["k2"], *times["k2"],
+         launches["k2"] + par["k2"] + pub["k2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
         ("rotate_all_k: rotate_all_kernel<TILES> (mma.sync s8, one cluster per sample)",
-         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432", lat["k3"] + k3_pbs + par["k3"],
+         K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432",
+         lat["k3"] + k3_pbs + par["k3"] + pub["k3"],
          errs["k3"],
          k3_times[1][0], k3_times[1][2], k3_work(p, 1), None),
         ("limb_cmux_step_merged: limb_panel_kernel + step_digits_kernel + "

@@ -17,14 +17,25 @@ evaluator with its standard cells, on which the typed encrypted integers
 radix integers ``RadixUint`` / ``RadixInt`` (``radix.py``) at
 ``PBS_PARAMS``; ``parallel/`` is the scale-out path over
 ``torch.distributed`` (sharded gates, bootstrap and PBS, ``GateSession``);
-``bench.py`` is the batched HomNAND benchmark and
-``examples/radix_bench.py`` the PBS and radix one.
+public-key encryption (``tlwe.gen_public_key``, ``TFHE.make_public_key``)
+takes the dual-Regev form; ``bench.py`` is the batched HomNAND benchmark,
+``examples/`` holds the JAX package's example scripts (``python3 -m
+rustfhe_tpu_torch.examples.<name>``) and ``utils/timing.py`` the timers
+that synchronise the card.
 """
 
+from .params import (TFHEParams, DEFAULT_PARAMS, TEST_PARAMS, N2048_PARAMS, PBS_PARAMS,
+                     PBS_TEST_PARAMS)
+from .keys import SecretKey, CloudKey, gen_keys, gen_secret_key, gen_cloud_key
+from .engine import get_engine, register_engine
+from . import torus, tlwe, trlwe, trgsw, decomp, poly, bootstrap, gates, pbs
+from . import radix
 from .context import TFHE
-from .ints import FheInt, FheUint
-from .params import DEFAULT_PARAMS, PBS_PARAMS, PBS_TEST_PARAMS, TEST_PARAMS, TFHEParams
-from .radix import RadixInt, RadixUint
+from .ints import FheUint, FheInt
+from .radix import RadixUint, RadixInt
 
-__all__ = ["TFHE", "TFHEParams", "DEFAULT_PARAMS", "TEST_PARAMS", "PBS_PARAMS",
-           "PBS_TEST_PARAMS", "FheUint", "FheInt", "RadixUint", "RadixInt"]
+__all__ = ["TFHEParams", "DEFAULT_PARAMS", "TEST_PARAMS", "N2048_PARAMS", "PBS_PARAMS",
+           "PBS_TEST_PARAMS", "SecretKey", "CloudKey", "gen_keys", "gen_secret_key",
+           "gen_cloud_key", "get_engine", "register_engine", "TFHE", "FheUint", "FheInt",
+           "RadixUint", "RadixInt", "radix", "torus", "tlwe", "trlwe", "trgsw", "decomp",
+           "poly", "bootstrap", "gates", "pbs"]

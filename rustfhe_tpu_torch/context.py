@@ -2,11 +2,13 @@
 
 Counterpart of ``rustfhe_tpu/context.py`` (keygen, the latency mode, the
 key cache, encrypt/decrypt and the seeded upload, the gate set, the
-typed-integer and radix constructors and the programmable-bootstrapping
-methods; the public-key methods are not ported yet).  Randomness comes
-from one ``torch.Generator`` on the context's device, used for keygen and
-then for every encryption; a seeded upload's mask comes from threefry
-(``utils/threefry.py``) under a key drawn from that generator.
+typed-integer and radix constructors, the programmable-bootstrapping
+methods and public-key encryption).  Randomness comes from one
+``torch.Generator`` on the context's device, used for keygen and then for
+every encryption; a seeded upload's mask comes from threefry
+(``utils/threefry.py``) under a key drawn from that generator.  A
+cloud-only context has no generator: it encrypts under a public key with
+one the caller passes, as the JAX package's takes an explicit PRNG key.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from . import gates, pbs, tlwe, torus
 from ._device import resolve_device
+from ._u32 import from_numpy
 from .engine import resolve_engine, select_engine
 from .ints import FheInt, FheUint, from_pbs_int
 from .radix import RadixInt, RadixUint
@@ -122,6 +125,29 @@ class TFHE:
         seed, b = seeded
         return tlwe.expand_seeded(seed, b, self.params.n, self.device)
 
+    def make_public_key(self, rows: int | None = None) -> torch.Tensor:
+        """Publishable encryption key, int32 (M, n+1): zero-encryptions
+        under the secret key (``tlwe.gen_public_key``; M = 2(n+1) unless
+        ``rows`` says).  Keyless parties then encrypt with
+        ``encrypt_public``."""
+        if self.sk is None:
+            raise ValueError("cloud-only context cannot derive a public key")
+        return tlwe.gen_public_key(self.gen, self.sk.lv0, self.params, rows)
+
+    def encrypt_public(self, pk, bits, gen: torch.Generator | None = None) -> torch.Tensor:
+        """Encrypt bits under the PUBLIC key ``pk`` (int32 (M, n+1), or the
+        JAX package's numpy uint32 words): no secret material
+        (``tlwe.encrypt_binary_public``, the dual-Regev form).  Works on a
+        cloud-only context, which needs an explicit ``gen``, a
+        ``torch.Generator`` on the context's device."""
+        gen = gen if gen is not None else self.gen
+        if gen is None:
+            raise ValueError("no encryption generator (cloud-only context): pass gen=")
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator is on {gen.device}, context on {self.device}")
+        pk = pk.to(self.device) if isinstance(pk, torch.Tensor) else from_numpy(pk, self.device)
+        return tlwe.encrypt_binary_public(gen, pk, self._bits(bits), self.params)
+
     def trivial(self, bits) -> torch.Tensor:
         """Noiseless ciphertexts of constants."""
         return tlwe.trivial(torus.binary_to_torus(self._bits(bits)), self.params.n)
@@ -135,8 +161,11 @@ class TFHE:
         """Bootstrap a pre-combined batch."""
         return gates.hom_bootstrap(self.ck, pre, params=self.params)
 
-    def _gate(self, op: str, x, y=None) -> torch.Tensor:
-        return self.bootstrap_raw(gates.precombine(op, x, y, params=self.params))
+    def _gate(self, op: str, *cts) -> torch.Tensor:
+        """``gates.gate_circuit``, the composition of ``gates.hom_*``, with
+        every bootstrap through ``bootstrap_raw`` (one place to count
+        them)."""
+        return gates.gate_circuit(op, cts, params=self.params, boot=self.bootstrap_raw)
 
     def nand(self, x, y):
         return self._gate("nand", x, y)
@@ -156,10 +185,7 @@ class TFHE:
     def mux(self, control, in0, in1):
         """(in1 & control) | (in0 & !control): the two independent ANDs run
         as one double-width bootstrap batch, then one OR pass."""
-        pre_a = gates.precombine("and", control, in1, params=self.params)
-        pre_b = gates.precombine("andn", control, in0, params=self.params)
-        both = self.bootstrap_raw(torch.stack([pre_a, pre_b]))
-        return self._gate("or", both[0], both[1])
+        return self._gate("mux", control, in0, in1)
 
     # ----------------------- typed integers --------------------------- #
     # ``ints.FheUint`` reads two optional attributes of the context, as in

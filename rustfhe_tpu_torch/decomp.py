@@ -19,7 +19,9 @@ from __future__ import annotations
 import torch
 
 from ._u32 import s32, wrap
-from .params import TFHEParams, iks_round_constant
+from .params import TFHEParams, _make_decomp_mask, iks_round_constant
+
+make_decomp_mask = _make_decomp_mask  # the JAX package's name for the production mask
 
 
 def make_decomp_mask_inline(l: int, bits: int) -> int:

@@ -27,29 +27,66 @@ Four are the JAX package's generic engines, with its methods
   product, for direct calls and the probe;
 * ``"fft64"`` (``fft64.FFT64Engine``): float64 FFT convolution.
 
+``"oracle"`` (``oracle.OracleEngine``) is the naive product behind the same
+methods.  ``PolyEngine`` is the protocol of those methods: an engine that
+``register_engine`` adds under a name runs through them, as the generic
+engines do.
+
 ``select_engine`` takes the engine that the JAX cascade's rule names for
-the parameters (``engine_for``), or the one asked for, and admits it on a
-device only after its external product reproduces the naive mod-2^32
-oracle (``oracle``) on every adversarial probe pattern, on that device.
-An inexact result or a failed launch raises; nothing cascades to another
-engine.
+the parameters (``engine_for``), or the one asked for (by the caller, or
+by ``RUSTFHE_ENGINE`` with the JAX package's names mapped,
+``JAX_ENGINE_NAMES``), and admits it on a device only after its external
+product reproduces the naive mod-2^32 oracle (``oracle``) on every
+adversarial probe pattern, on that device.  An inexact result or a failed
+launch raises; nothing cascades to another engine.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import ClassVar
+from typing import ClassVar, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .._u32 import from_numpy
-from ..params import TFHEParams
+from ..params import DEFAULT_PARAMS, TFHEParams
 from . import cmux_k, limb_step, oracle
 from .fft64 import FFT64Engine
 from .matmul import MatmulEngine
+from .oracle import OracleEngine
 from .plain import prepare_trgsw, prepare_trgsw_limbs
 from .transform import NussTransformEngine
+
+
+@runtime_checkable
+class PolyEngine(Protocol):
+    """The generic-engine interface (the JAX package's ``PolyEngine``),
+    on int32 words.  ``keys.prepare_cloud_key`` stores
+    ``prepare_trgsw(bk_raw)`` as a ``keys.GenericBK`` and
+    ``bootstrap.blind_rotate`` calls ``external_product_digits`` on every
+    step; ``select_engine`` probes that product.  The K1-K6 engines
+    (``CmuxKEngine``, ``LimbEngine``) have their own key tables and do not
+    take this path."""
+
+    name: str
+
+    def prepare_trgsw(self, rows: torch.Tensor, params) -> object:
+        """The engine's form of TRGSW rows int32 ``(..., 2L, 2, N)``: per
+        row j, index 0 the b polynomial and index 1 the a polynomial."""
+
+    def external_product_digits(self, prepared, digits: torch.Tensor,
+                                params) -> torch.Tensor:
+        """sum_j digits[..., j, :] (*) rows[j] for both output
+        polynomials: ``digits`` int32 ``(..., 2L, N)`` (b digits then a
+        digits) -> int32 ``(..., 2, N)``."""
+
+    def poly_mul_torus_binary(self, a: torch.Tensor, s: torch.Tensor,
+                              params) -> torch.Tensor:
+        """Negacyclic product of torus words ``a (..., N)`` by the binary
+        polynomial ``s (N,)``, exact mod 2^32."""
 
 
 @dataclass(frozen=True)
@@ -74,10 +111,21 @@ class LimbEngine:
 
 _ENGINES = {e.name: e for e in (CmuxKEngine(), LimbEngine(), MatmulEngine(),
                                 MatmulEngine(limb_bits=4, use_bf16=True),
-                                NussTransformEngine(), FFT64Engine())}
-# The engines with the JAX package's methods (``prepare_trgsw``,
-# ``external_product_digits``); all but "nuss" take ``keys.GenericBK`` keys.
-GENERIC = (MatmulEngine, FFT64Engine, NussTransformEngine)
+                                NussTransformEngine(), FFT64Engine(), OracleEngine())}
+# The engines of this package with the JAX package's methods
+# (``PolyEngine``); all but "nuss" take ``keys.GenericBK`` keys.
+GENERIC = (MatmulEngine, FFT64Engine, NussTransformEngine, OracleEngine)
+# RUSTFHE_ENGINE's values that name a JAX engine -> the port's engine:
+# the Karatsuba kernels ("pallas_k2", "pallas_k") are K1-K3's, the fused
+# limb kernels ("pallas") K4-K6's.  Other names pass through.
+JAX_ENGINE_NAMES = {"pallas_k2": "cmux_k", "pallas_k": "cmux_k", "pallas": "limb"}
+
+
+def register_engine(name: str, engine) -> None:
+    """Add ``engine`` (a ``PolyEngine``) under ``name``, or replace the one
+    there: ``get_engine``, ``resolve_engine`` and so ``TFHE.new`` and
+    ``keys.prepare_cloud_key`` find it by that name."""
+    _ENGINES[name] = engine
 
 
 def get_engine(name: str = "cmux_k"):
@@ -90,6 +138,19 @@ def resolve_engine(engine):
     """Engine name or engine instance (e.g. ``LimbEngine(merge_c=False)``)
     -> engine instance."""
     return get_engine(engine) if isinstance(engine, str) else engine
+
+
+def requested_engine(params: TFHEParams, engine_name=None):
+    """The engine a caller gets for ``params``: ``engine_name`` (a name of
+    this package or an engine instance) when given, else the one
+    ``RUSTFHE_ENGINE`` names (a JAX engine's name mapped by
+    ``JAX_ENGINE_NAMES``), else ``engine_for(params)``.  ``select_engine``
+    probes it; the sharded builders (``parallel.sharded``) hold their key
+    to it."""
+    if engine_name is None:
+        env = os.environ.get("RUSTFHE_ENGINE")
+        engine_name = JAX_ENGINE_NAMES.get(env, env) if env else engine_for(params)
+    return resolve_engine(engine_name)
 
 
 def engine_for(params: TFHEParams) -> str:
@@ -175,34 +236,52 @@ def probe_ops(eng, params: TFHEParams):
     engine's own methods."""
     if isinstance(eng, LimbEngine):
         return limb_step.external_product, prepare_trgsw_limbs, torch.int8
-    if isinstance(eng, GENERIC):
+    if isinstance(eng, CmuxKEngine):
+        return cmux_k.external_product, prepare_trgsw, torch.int8
+    if isinstance(eng, PolyEngine):
         return (lambda d, prep, p: eng.external_product_digits(prep, d, p),
                 lambda rows: eng.prepare_trgsw(rows, params), torch.int32)
-    return cmux_k.external_product, prepare_trgsw, torch.int8
+    raise TypeError(f"{type(eng).__name__} is not an engine: it has no PolyEngine methods")
 
 
 def select_engine(params: TFHEParams, device, engine_name=None) -> str:
     """The engine for ``params`` on ``device``: ``engine_name`` (a name or an
-    engine instance) when given, else ``engine_for(params)``.  Admitted
-    after its external product (K2, K5 or the generic engine's; the plain
-    versions on the CPU) matches the oracle on ``probe_vectors`` there.
-    Returns the engine's name; raises RuntimeError when the result is
-    inexact."""
+    engine instance) when given, else the one ``RUSTFHE_ENGINE`` names (a
+    JAX name mapped by ``JAX_ENGINE_NAMES``), else ``engine_for(params)``.
+    Admitted after its external product (K2, K5 or the generic engine's;
+    the plain versions on the CPU) matches the oracle on ``probe_vectors``
+    there.  Returns the engine's name; raises RuntimeError when the result
+    is inexact, whoever named the engine."""
     device = torch.device(device)
-    eng = resolve_engine(engine_name if engine_name is not None else engine_for(params))
-    product, prepare, dtype = probe_ops(eng, params)
-    rows_np, digits_np = probe_vectors(params)
-    rows = from_numpy(rows_np)
-    digits = torch.from_numpy(digits_np)
-    want = oracle.external_product(rows, digits)  # ground truth, on the host
-    ok, why = engine_probe_result(product, params, rows.to(device), digits.to(device), want,
-                                  prepare, dtype)
+    eng = requested_engine(params, engine_name)
+    ok, why = _probe_engine(eng, params, device)
     if not ok:
         raise RuntimeError(f"the {eng.name} engine's external product on {device} failed the "
                            f"oracle probe: {why}")
     return eng.name
 
 
-__all__ = ["CmuxKEngine", "LimbEngine", "MatmulEngine", "NussTransformEngine", "FFT64Engine",
-           "GENERIC", "get_engine", "resolve_engine", "engine_for",
-           "probe_vectors", "engine_probe_result", "probe_ops", "select_engine"]
+def _probe_engine(eng, params: TFHEParams, device) -> tuple[bool, str]:
+    """(ok, why) of engine ``eng`` (a name or an instance) on
+    ``probe_vectors(params)`` on ``device``, against the oracle run on the
+    host."""
+    product, prepare, dtype = probe_ops(resolve_engine(eng), params)
+    rows_np, digits_np = probe_vectors(params)
+    rows = from_numpy(rows_np)
+    digits = torch.from_numpy(digits_np)
+    want = oracle.external_product(rows, digits)  # ground truth, on the host
+    return engine_probe_result(product, params, rows.to(torch.device(device)),
+                               digits.to(torch.device(device)), want, prepare, dtype)
+
+
+def select_fast_engine(params: TFHEParams | None = None, device="cuda") -> str:
+    """The JAX package's name for ``select_engine``: the engine for
+    ``params`` (DEFAULT_PARAMS if None) admitted on ``device`` (the card
+    unless the caller names the CPU)."""
+    return select_engine(params or DEFAULT_PARAMS, resolve_device(device))
+
+
+__all__ = ["PolyEngine", "CmuxKEngine", "LimbEngine", "MatmulEngine", "NussTransformEngine",
+           "FFT64Engine", "OracleEngine", "GENERIC", "JAX_ENGINE_NAMES", "register_engine",
+           "get_engine", "resolve_engine", "requested_engine", "engine_for", "probe_vectors",
+           "engine_probe_result", "probe_ops", "select_engine", "select_fast_engine"]

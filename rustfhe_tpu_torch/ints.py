@@ -81,6 +81,14 @@ class FheUint:
     def expand_seeded(cls, ctx, seeded) -> "FheUint":
         return cls(ctx, ctx.expand_seeded(seeded))
 
+    @classmethod
+    def encrypt_public(cls, ctx, pk, values, width: int,
+                       gen: torch.Generator | None = None) -> "FheUint":
+        """Keyless typed-integer encryption under a PUBLIC key
+        (``tlwe.gen_public_key``): works on a cloud-only context with an
+        explicit ``gen`` (``TFHE.encrypt_public``)."""
+        return cls(ctx, ctx.encrypt_public(pk, cls._to_bits(values, width), gen=gen))
+
     @staticmethod
     def _to_bits(values, width: int) -> np.ndarray:
         if not 0 < width <= 64:

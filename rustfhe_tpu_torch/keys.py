@@ -129,6 +129,28 @@ class CloudKey(NamedTuple):
     ksk: torch.Tensor
 
 
+def key_engine(bk) -> str:
+    """The name of the engine a bootstrapping key was prepared for."""
+    if isinstance(bk, (torch.Tensor, LatencyBK, HybridBK)):
+        return CmuxKEngine.name
+    if isinstance(bk, LimbBK):
+        return LimbEngine.name
+    if isinstance(bk, GenericBK):
+        return resolve_engine(bk.engine).name
+    raise TypeError(f"not a bootstrapping key: {type(bk).__name__}")
+
+
+def check_key_engine(bk, engine, what: str) -> None:
+    """Raise ValueError unless ``bk`` was prepared for ``engine`` (a name
+    or an engine instance); ``None`` checks nothing.  ``what`` names the
+    caller in the message."""
+    if engine is None:
+        return
+    want = resolve_engine(engine).name
+    if key_engine(bk) != want:
+        raise ValueError(f"the key was prepared for {key_engine(bk)!r}, {what} for {want!r}")
+
+
 def gen_secret_key(gen: torch.Generator, params: TFHEParams, device) -> SecretKey:
     return SecretKey(
         lv0=binary_array(gen, (params.n,), device),
@@ -172,11 +194,19 @@ def prepare_cloud_key(bk_raw: torch.Tensor, ksk_raw: torch.Tensor, params: TFHEP
             "oracle probe, not a cloud key, as in the JAX package")
     if isinstance(eng, LimbEngine):
         bk = LimbBK(prepare_trgsw_limbs(bk_raw), eng.merge_c, eng.fuse_step)
-    elif isinstance(eng, GENERIC):
-        bk = GenericBK(eng.prepare_trgsw(bk_raw, params), eng.name)
-    else:
+    elif isinstance(eng, CmuxKEngine):
         bk = prepare_trgsw(bk_raw)
+    else:  # a PolyEngine: one of this package's by its name, a registered one as itself
+        bk = GenericBK(eng.prepare_trgsw(bk_raw, params),
+                       eng.name if isinstance(eng, GENERIC) else eng)
     return CloudKey(bk=bk, ksk=prepare_ksk(ksk_raw, params))
+
+
+def gen_cloud_key(gen: torch.Generator, sk: SecretKey, params: TFHEParams,
+                  engine="cmux_k") -> CloudKey:
+    """The evaluation key prepared for ``engine`` (the JAX package's
+    ``gen_cloud_key``): ``gen_cloud_key_raw`` then ``prepare_cloud_key``."""
+    return prepare_cloud_key(*gen_cloud_key_raw(gen, sk, params), params, engine)
 
 
 def cloud_key_latency(ck: CloudKey) -> CloudKey:
@@ -189,6 +219,9 @@ def cloud_key_latency(ck: CloudKey) -> CloudKey:
     if isinstance(ck.bk, (LatencyBK, HybridBK, LimbBK, GenericBK)):
         return ck
     return CloudKey(bk=LatencyBK(ck.bk), ksk=ck.ksk)
+
+
+cloud_key_panels = cloud_key_latency  # the JAX package's name
 
 
 def card_memory_bytes(device) -> int | None:
@@ -272,7 +305,7 @@ def gen_keys(gen: torch.Generator, params: TFHEParams, device,
     """One-call keygen on ``device``: (SecretKey, CloudKey prepared for
     ``engine``).  The random draws do not depend on the engine."""
     sk = gen_secret_key(gen, params, device)
-    return sk, prepare_cloud_key(*gen_cloud_key_raw(gen, sk, params), params, engine)
+    return sk, gen_cloud_key(gen, sk, params, engine)
 
 
 def from_jax_keys(lv0, lv1, bk_raw, ksk_raw, params: TFHEParams, device,

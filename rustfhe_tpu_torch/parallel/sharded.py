@@ -25,8 +25,9 @@ equals the unsharded one word for word.  The bootstrapping key is
 replicated (62 MB at DEFAULT_PARAMS).
 
 The JAX functions default to the ``"matmul"`` engine; these take the key's
-own engine and default ``engine_name`` to the cascade's (``engine_for``),
-as ``TFHE.new`` does, so DEFAULT_PARAMS runs K1 on every rank.  The name
+own engine and default ``engine_name`` as ``TFHE.new`` does
+(``engine.requested_engine``: ``RUSTFHE_ENGINE``, else the cascade's
+``engine_for``), so DEFAULT_PARAMS runs K1 on every rank.  The name
 is held against the key's form: the key must have been prepared by that
 engine.  JAX's ``check_vma`` (a tracing checker) has no counterpart.
 """
@@ -41,16 +42,14 @@ from .. import trlwe
 from .._u32 import wrap
 from ..bootstrap import blind_rotate
 from ..decomp import decompose_unsigned
-from ..engine import CmuxKEngine, FFT64Engine, LimbEngine, MatmulEngine, engine_for, resolve_engine
+from ..engine import FFT64Engine, MatmulEngine, requested_engine, resolve_engine
 from ..engine.matmul import recombine
 from ..engine.plain import key_switch_partial
-from ..gates import precombine
-from ..keys import CloudKey, GenericBK, HybridBK, LatencyBK, LimbBK
+from ..gates import GATE_INPUTS, gate_circuit
+from ..keys import CloudKey, GenericBK, check_key_engine, key_engine  # noqa: F401 (re-exported)
 from ..params import TFHEParams
 from ..pbs import _gate_margin, _shape, rotate_extract_many
 from .mesh import axis_index, axis_size, group, shard
-
-GATE_INPUTS = {"nand": 2, "and": 2, "or": 2, "xor": 2, "not": 1, "mux": 3}
 
 
 def _finish_key_switch(ct_lv1: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
@@ -134,47 +133,22 @@ def _bootstrap_local(pre: torch.Tensor, bk, ksk_local: torch.Tensor, params: TFH
 
 
 def _gate_local(kind: str, params: TFHEParams, boot):
-    """The six gates over local shards, ``boot(pre, bk, ksk)`` their shared
-    bootstrap; MUX runs its two ANDs as one double-width batch, then the OR
-    (``gates.precombine``'s coefficients are JAX's formulas)."""
+    """The six gates over local shards: ``fn(bk, ksk, *cts)``, the
+    unsharded composition (``gates.gate_circuit``) with ``boot(pre, bk,
+    ksk)`` its bootstrap."""
     if kind not in GATE_INPUTS:
         raise ValueError(f"unknown gate {kind!r}; have {sorted(GATE_INPUTS)}")
 
-    def two(bk, ksk, x, y):
-        return boot(precombine(kind, x, y, params=params), bk, ksk)
+    def gate(bk, ksk, *cts):
+        return gate_circuit(kind, cts, params=params, boot=lambda pre: boot(pre, bk, ksk))
 
-    def not_(bk, ksk, x):
-        return boot(precombine("not", x, params=params), bk, ksk)
-
-    def mux(bk, ksk, control, in0, in1):
-        both = boot(torch.stack([precombine("and", control, in1, params=params),
-                                 precombine("andn", control, in0, params=params)]), bk, ksk)
-        return boot(precombine("or", both[0], both[1], params=params), bk, ksk)
-
-    return {"not": not_, "mux": mux}.get(kind, two)
-
-
-def key_engine(bk) -> str:
-    """The name of the engine a key was prepared for."""
-    if isinstance(bk, (torch.Tensor, LatencyBK, HybridBK)):
-        return CmuxKEngine.name
-    if isinstance(bk, LimbBK):
-        return LimbEngine.name
-    if isinstance(bk, GenericBK):
-        return resolve_engine(bk.engine).name
-    raise TypeError(f"not a bootstrapping key: {type(bk).__name__}")
-
-
-def _engine(engine_name, params: TFHEParams):
-    return resolve_engine(engine_name if engine_name is not None else engine_for(params))
+    return gate
 
 
 def _keyed(eng, fn):
     """``fn(bk, ...)`` after checking that ``bk`` is ``eng``'s key."""
     def call(bk, *args):
-        if key_engine(bk) != eng.name:
-            raise ValueError(f"the key was prepared for {key_engine(bk)!r}, the sharded "
-                             f"function for {eng.name!r}")
+        check_key_engine(bk, eng, "the sharded function")
         return fn(bk, *args)
     return call
 
@@ -190,7 +164,7 @@ def sharded_gate_fn(mesh: DeviceMesh, params: TFHEParams, engine_name=None,
     split over ``model``, ``shard_cloud_key``) or ``"all_to_all"`` (the KSK
     split over ``data``, ``shard_cloud_key(..., axis="data")``; every rank
     then holds as many rows)."""
-    eng = _engine(engine_name, params)
+    eng = requested_engine(params, engine_name)
     if key_switch == "psum":
         def ks_fn(lv1, ksk):
             return _key_switch_local(lv1, ksk, params, mesh, "model")
@@ -215,7 +189,7 @@ def sharded_bootstrap_fn(mesh: DeviceMesh, params: TFHEParams, engine_name=None,
     in_specs do.  The key switch is the ``model`` reduction.
     ``GateSession.bootstrap_raw`` and the bench's ``BENCH_SHARDED`` run
     this one function."""
-    eng = _engine(engine_name, params)
+    eng = requested_engine(params, engine_name)
 
     def ks_fn(lv1, ksk):
         return _key_switch_local(lv1, ksk, params, mesh, "model")
@@ -236,7 +210,7 @@ def sharded_pbs_fn(mesh: DeviceMesh, params: TFHEParams, engine_name=None, *,
     the unsharded ``pbs.pbs_many``'s (``pbs.rotate_extract_many``), the key
     switch the ``model`` reduction, and the (space, t) margin gate
     (``pbs._gate_margin``) applies as it does unsharded."""
-    eng = _engine(engine_name, params)
+    eng = requested_engine(params, engine_name)
 
     def run(bk, ksk_local, ct, tables):
         _gate_margin(params, space, _shape(tables)[-2], unsafe, "sharded_pbs")

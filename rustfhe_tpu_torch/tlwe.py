@@ -3,6 +3,10 @@
 Counterpart of ``rustfhe_tpu/tlwe.py``: a batch of TLWE ciphertexts is one
 int32 tensor ``(..., n+1)`` with the body ``b`` at index 0 and the mask
 ``a`` at 1..n.  Encoding: One -> +1/8, Zero -> -1/8.
+
+Public-key encryption (``gen_public_key``, ``encrypt_torus_public``) is
+the dual-Regev form: fresh noise on every coordinate of the ciphertext,
+where the JAX package adds it to the body only.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from . import torus
 from ._u32 import from_numpy, s32, wrap
 from .params import TFHEParams
 from .utils import threefry
-from .utils.rng import gaussian_torus, uniform_torus
+from .utils.rng import binary_array, gaussian_torus, uniform_torus
 
 
 def trivial(b: torch.Tensor, n: int) -> torch.Tensor:
@@ -86,6 +90,55 @@ def encrypt_binary(gen: torch.Generator, s: torch.Tensor, bits: torch.Tensor,
 
 def decrypt_binary(ct: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torus.torus_to_binary(phase(ct, s))
+
+
+def gen_public_key(gen: torch.Generator, s: torch.Tensor, params: TFHEParams,
+                   rows: int | None = None) -> torch.Tensor:
+    """LWE public key: ``rows`` encryptions of zero under ``s``, int32
+    (M, n+1), M = 2(n+1) by default, as in the JAX package.  Any party
+    then encrypts with ``encrypt_torus_public``.  Fewer than n+1 rows make
+    the subset sums enumerable (2^M masks: match mask(ct - S_j) == 0 and
+    read the body), so they raise."""
+    n = s.shape[-1]
+    M = rows if rows is not None else 2 * (n + 1)
+    if M < n + 1:
+        raise ValueError(f"public key needs rows >= n+1 = {n + 1} (got {M}): fewer "
+                         "rows make the ciphertext mask enumerable")
+    return encrypt_torus(gen, s, torch.zeros(M, dtype=torch.int32, device=s.device), params)
+
+
+def encrypt_torus_public(gen: torch.Generator, pk: torch.Tensor, m: torch.Tensor,
+                         params: TFHEParams) -> torch.Tensor:
+    """Encrypt torus message(s) ``m`` (int32, any shape) under the public
+    key ``pk (M, n+1)``: no secret material.  An independent binary subset
+    ``r`` of the pk rows per message, then the dual-Regev form
+
+        ct = r^T pk + (m + e_0, e_1, ..., e_n),
+
+    fresh Gaussian noise at ``alpha_lv0`` on every coordinate.  The JAX
+    package (``rustfhe_tpu/tlwe.py:105-122``) adds noise to the body only,
+    which leaves the mask a noiseless subset sum of the pk masks, open to
+    a lattice attack.  The mask noise adds -<e_mask, s> to the phase:
+    ~(n/2) alpha_lv0^2 of variance beside the subset's (M/2) alpha_lv0^2
+    and the body's alpha_lv0^2; at DEFAULT_PARAMS the predicted gate
+    margin goes 9.07 sigma (secret-key inputs) -> 8.96 (JAX's public
+    form) -> 8.90 (this one), ``utils/noise.noise_budget`` with the
+    inputs' variance in place of ``var_fresh``.
+
+    r^T pk is a float64 GEMM of the 0/1 subset against the signed words:
+    each sum is below M * 2^31 < 2^53, so it is exact, then taken mod
+    2^32.  Nothing of size (..., M, n+1) is made (26 GB at B=4096)."""
+    M, width = pk.shape
+    r = binary_array(gen, (m.numel(), M), pk.device).to(torch.float64)
+    ct = wrap(r @ pk.to(torch.float64)).reshape(m.shape + (width,))
+    ct = ct + gaussian_torus(gen, m.shape + (width,), params.alpha_lv0, pk.device)
+    ct[..., 0] += m
+    return ct
+
+
+def encrypt_binary_public(gen: torch.Generator, pk: torch.Tensor, bits: torch.Tensor,
+                          params: TFHEParams) -> torch.Tensor:
+    return encrypt_torus_public(gen, pk, torus.binary_to_torus(bits), params)
 
 
 def encrypt_torus_seeded(gen: torch.Generator, s: torch.Tensor, m: torch.Tensor,

@@ -960,3 +960,36 @@ def test_hybrid_rotation_equals_the_k1_loop(cuda, full):
     assert cmux_k.cmux_step.launches - k1 == (0 if full else p.n // 2 + p.n % 2)
     assert cmux_k.cmux_step_panel.launches - kp == (p.n if full else p.n // 2)
     assert torch.equal(got, want)
+
+
+def test_public_key_encryption_and_gates_at_default_on_card(cuda):
+    """Public-key encryption at DEFAULT_PARAMS on the card: a batch of
+    4096 under the 1272-row key decrypts right, and every ``gates.hom_*``
+    on public ciphertexts (K1) equals the same gate on the CPU (K1's plain
+    version) word for word, on 8 lanes."""
+    from rustfhe_tpu_torch import gates
+    from rustfhe_tpu_torch.keys import CloudKey
+
+    p = params.DEFAULT_PARAMS
+    ctx = TFHE.new(0, p, device=cuda)
+    pk = ctx.make_public_key()
+    assert pk.shape == (1272, p.n + 1) and pk.is_cuda
+    rs = np.random.RandomState(16)
+    bits = rs.randint(0, 2, 4096)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cts = ctx.cloud_only().encrypt_public(pk, bits, gen=gen)
+    assert cts.shape == (4096, p.n + 1) and cts.is_cuda
+    assert np.array_equal(ctx.decrypt(cts).cpu().numpy(), bits)
+    c, x, y = (cts[i * 8:(i + 1) * 8] for i in range(3))
+    host_ck = CloudKey(bk=ctx.ck.bk.cpu(), ksk=ctx.ck.ksk.cpu())
+    fns = dict(gates.GATES_2IN, **{"not": gates.hom_not, "mux": gates.hom_mux})
+    before = cmux_k.cmux_step.launches
+    for name, fn in fns.items():
+        args = {"not": (x,), "mux": (c, x, y)}.get(name, (x, y))
+        got = fn(ctx.ck, *args, params=p, engine_name="cmux_k")
+        assert got.is_cuda
+        want = fn(host_ck, *(a.cpu() for a in args), params=p)
+        assert torch.equal(got.cpu(), want), name
+    assert cmux_k.cmux_step.launches - before == (4 + 1 + 2) * p.n
+    got = ctx.decrypt(gates.hom_mux(ctx.ck, c, x, y, params=p)).cpu().numpy()
+    assert np.array_equal(got, np.where(bits[:8] == 1, bits[16:24], bits[8:16]))
