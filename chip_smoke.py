@@ -3,7 +3,8 @@
 limb engine, its generic engines, its measurement probes, its
 encrypted-integer path, its programmable bootstrapping with the radix
 integers, its seeded uploads, its scale-out path, its hybrid keys, its
-public-key encryption and its example scripts once on a CUDA card.
+public-key encryption, its example scripts and its studies once on a CUDA
+card.
 
 Run from the repository root, on a host with one NVIDIA H100:
 
@@ -18,7 +19,8 @@ Phases, one line each:
   1. environment: torch, CUDA, nvcc, the card;
   2. build: the CUDA kernels from ``rustfhe_tpu_torch/csrc`` (nvcc, first use;
      ptxas's registers, spills and performance notes; K1/K2's, K3's,
-     K4/K5/K6's, P5/P6's and P1-P4/P8's kernels may not spill);
+     K4/K5/K6's, P5/P6's and P1-P4/P8's kernels may not spill), then the
+     host library of ``native.py`` (g++);
   3. kernels: K1 (CMux step: key panel, digits and the int8 wgmma product
      with the limb recombination in its epilogue) and K2 (external
      product: panel and product) on the card against their plain torch
@@ -196,15 +198,23 @@ Phases, one line each:
      word to the same gates on K1's plain version; then the
      ported examples' ``main()`` at their default knobs (client_server,
      homnand_bench, adder_bench, encrypted_compare, encrypted_ints,
-     lut_eval), each to its closing line, with its launches.
+     lut_eval), each to its closing line, with its launches;
+ 18. the JAX package's studies (``rustfhe_tpu_torch/benches``), each
+     through its ``run(out=...)`` with its own checks (every one exact;
+     the noise control decodes all right), some at fewer iterations or a
+     smaller batch (``STUDIES``, each cut logged), after the host
+     library's products against their numpy fallbacks; the launches of
+     K1, K2, K3, K4, P4, P8 and P9 counted per study.
 
 Then one JSON line of kernels (each with its time, its bound on the card
 and, where one PyTorch call computes the same function, that call's time;
-K1's launches count phases 14's, 15's, 16's and 17's beside the main
-path's (with 16's steps on prebuilt panels), K2's the engine probes of
-phase 16's sessions and phase 17's contexts, K3's phases 14's, 16's and
-17's beside the console's, P9's phase 16's tensor-parallel pass beside its
-entry point's; P10's times are at the transform's size),
+K1's launches count phases 14's, 15's, 16's, 17's and 18's beside the
+main path's (with 16's and 18's steps on prebuilt panels), K2's the
+engine probes of phase 16's sessions and phase 17's contexts and phase
+18's, K3's phases 14's, 16's, 17's and 18's beside the console's, K4's,
+P4's and P8's phase 18's beside their own, P9's phase 16's
+tensor-parallel pass and phase 18's beside its entry point's; P10's times
+are at the transform's size),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
@@ -229,13 +239,15 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from rustfhe_tpu_torch import TFHE, _u32, bootstrap, gates, pbs, poly, radix, tlwe, trlwe
+from rustfhe_tpu_torch import (TFHE, _u32, bootstrap, gates, native, pbs, poly, radix, tlwe,
+                               trlwe)
 from rustfhe_tpu_torch.apps import nander
 from rustfhe_tpu_torch.apps.replprog import FusedEvaluator
 from rustfhe_tpu_torch.benches import (_timing, coissue2_probe, coissue_probe, k2_floor_probe,
                                        karatsuba2_probe, limb_order_probe, matmul_probe,
                                        nussbaumer_primitives_probe, step_breakdown_probe,
                                        vpu_reduce_probe)
+from rustfhe_tpu_torch.benches._timing import INT8_OPS_PER_S, bound, schoolbook_ops, step_ops
 from rustfhe_tpu_torch.engine import (build, cmux_k, get_engine, int8_gemm, karatsuba,
                                       karatsuba_probe, limb_probe, limb_step, matmul,
                                       nuss_primitives, oracle, plain, probe_vectors, rotate_all_k,
@@ -244,6 +256,7 @@ from rustfhe_tpu_torch.examples import radix_bench
 from rustfhe_tpu_torch.keys import CloudKey, GenericBK
 from rustfhe_tpu_torch.params import DEFAULT_PARAMS, FAST_PARAMS, PBS_PARAMS, TFHEParams
 from rustfhe_tpu_torch.trgsw import decompose_trlwe
+from rustfhe_tpu_torch.utils.timing import time_fn
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel")  # a step's launches
@@ -266,8 +279,6 @@ NUSS_SOURCE = "rustfhe_tpu_torch/csrc/nuss_primitives.cu"
 SEED = 0
 MIXED = 1024  # the mixed truth-table batch
 BATCH = 4096  # the timed NAND batch
-INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak of an H100 SXM at 700 W (published)
-HBM_BYTES_PER_S = 3.35e12  # device-memory rate of an H100 SXM (published)
 TRUTH = {
     "nand": lambda x, y: 1 - (x & y),
     "and": lambda x, y: x & y,
@@ -330,31 +341,6 @@ def ab_ms(kernel, plain_fn, iters: int) -> tuple[float, float]:
 
 def words(rs, shape, dev):
     return _u32.from_numpy(rs.randint(0, 2**32, size=shape, dtype=np.uint64), dev)
-
-
-def step_ops(p, b: int, steps: int = 1) -> float:
-    """The operations of ``steps`` CMux steps (or external products) of b
-    samples, whatever computes them: the least int8 count the repo shows
-    for the step, the two-level Karatsuba product's 2 x (2 halves x 4 limbs
-    x 2L x 9 leaves x (N/4)^2) per sample and step, 0.5625 of
-    ``schoolbook_ops``.  Every CMux step's and external product's bound
-    counts these."""
-    return 2.0 * b * steps * 2 * 4 * 2 * p.l * 9 * (p.N // 4) ** 2
-
-
-def schoolbook_ops(p, b: int, steps: int = 1) -> float:
-    """The int8 multiply-adds (x2) of the schoolbook product, 2 x (2 halves
-    x 4 limbs x 2L x N^2) per sample and step: what K1's GEMM executes,
-    used for its own rate, never for a bound."""
-    return 2.0 * b * steps * 2 * 4 * 2 * p.l * p.N * p.N
-
-
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least time on the card (ms) for ``ops`` int8 operations and
-    ``nbytes`` of device memory (each input read once, each output written
-    once), against the published peaks, and which of the two bounds it."""
-    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def step_bytes(p, b: int, key_bytes: int) -> int:
@@ -2979,6 +2965,93 @@ def phase_public_key(ctx, dev, card):
     return d
 
 
+# --------------------------------------------------------------------- #
+# 18. The studies: the JAX package's benches/ scripts, ported
+# --------------------------------------------------------------------- #
+# Each study's run() with the keywords of this phase and why they differ
+# from its defaults (None: the study's own defaults).
+STUDIES = (
+    ("multibit_probe", {}, None),
+    ("keyswitch_probe", {}, None),
+    ("latency_probe", dict(iters_largest=1), "B=32768 timed once (best of 5)"),
+    ("repl_latency_probe", {}, None),
+    ("pipeline_repl_probe", {}, None),
+    ("unroll_probe", {}, None),
+    ("hybrid_unroll_probe", dict(B=8192), "B=8192 (65536): the study's three rotations"),
+    ("n2048_probe", {}, None),
+    ("nuss_transform_probe", {}, None),
+    ("noise_calibration_probe", {}, None),
+    ("optimizer_probe", {}, None),
+    ("adder_ab_probe", {}, None),
+    ("karatsuba_probe", {}, None),
+    ("kernels", {}, None),
+)
+# The kernels phase 18 must launch, by the kernels line's names, and the
+# counters that count them.
+STUDY_COUNTERS = {"K1": (cmux_k.cmux_step, cmux_k.cmux_step_panel),
+                  "K2": (cmux_k.external_product,), "K3": (rotate_all_k.rotate_all,),
+                  "K4": (limb_step.cmux_step_merged,), "P4": (karatsuba_probe.step_ablate,),
+                  "P8": (karatsuba_probe.step_var,), "P9": (int8_gemm.int8_matmul,)}
+
+
+def reset_all_counters() -> None:
+    for mod in (cmux_k, limb_step, karatsuba_probe, int8_gemm):
+        mod.reset_counters()
+    rotate_all_k.rotate_all.launches = 0
+
+
+def check_native(card: str) -> None:
+    """The host library loaded, and its products equal to (u32, torus)
+    and within 1e-9 of (f64) the numpy fallbacks at N=1024."""
+    if not native.available():
+        raise AssertionError("the host library of native.py did not build or load")
+    rs = np.random.RandomState(SEED + 18)
+    n = 1024
+    a = rs.randint(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    b = rs.randint(-32, 32, size=n).astype(np.int32)
+    for name in ("negacyclic_mul_u32_exact", "negacyclic_mul_torus_fft"):
+        got, want = getattr(native, name)(a, b), getattr(native, name + "_numpy")(a, b)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native.{name} differs from its numpy fallback")
+    fa, fb = rs.standard_normal(n), rs.standard_normal(n)
+    err = np.abs(native.negacyclic_mul_f64_fft(fa, fb)
+                 - native.negacyclic_mul_f64_fft_numpy(fa, fb)).max()
+    if err > 1e-9 * np.abs(fa).max() * np.abs(fb).max() * n:
+        raise AssertionError(f"native.negacyclic_mul_f64_fft: {err} from the numpy fallback")
+    t_lib, _ = time_fn(native.negacyclic_mul_u32_exact, a, b)
+    t_np, _ = time_fn(native.negacyclic_mul_u32_exact_numpy, a, b)
+    log("studies", f"host library {native.build().name}: u32 and torus products equal to the "
+        f"numpy fallbacks at N={n}, f64 within {err:.3g}; the exact product {t_lib * 1e3:.3f} "
+        f"ms (numpy {t_np * 1e3:.3f} ms; best of 3, host clock) on the card's host ({card})")
+
+
+def phase_studies(card: str) -> dict[str, int]:
+    """Each study's ``run(out=...)`` on the card (``STUDIES``), every
+    launch counter set to 0 just before it and read just after; every
+    kernel of ``STUDY_COUNTERS`` must launch in the phase.  Returns the
+    phase's launches by kernel."""
+    t18 = time.perf_counter()
+    check_native(card)
+    total = dict.fromkeys(STUDY_COUNTERS, 0)
+    for name, kwargs, cut in STUDIES:
+        mod = importlib.import_module(f"rustfhe_tpu_torch.benches.{name}")
+        reset_all_counters()
+        t0 = time.perf_counter()
+        mod.run(out=functools.partial(log, f"study:{name}"), **kwargs)
+        got = {k: sum(c.launches for c in cs) for k, cs in STUDY_COUNTERS.items()}
+        for k, v in got.items():
+            total[k] += v
+        log("studies", f"{name}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {k: v for k, v in got.items() if v} }"
+            + (f"; cut for this phase: {cut}" if cut else "; the study's defaults"))
+        torch.cuda.empty_cache()
+    missing = [k for k, v in total.items() if not v]
+    if missing:
+        raise AssertionError(f"phase 18 launched no {', '.join(missing)}")
+    log("studies", f"phase 18 in {time.perf_counter() - t18:.1f} s; launches {total} on {card}")
+    return total
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py  (it takes no arguments)", file=sys.stderr)
@@ -3003,6 +3076,7 @@ def main() -> int:
     # 2. build: one nvcc per source, side by side
     t0 = time.perf_counter()
     libs = build.build()
+    host_lib = native.build()
     cmux_k.load_library()
     rotate_all_k.load_library()
     limb_step.load_library()
@@ -3010,8 +3084,8 @@ def main() -> int:
     int8_gemm.load_library()
     karatsuba_probe.load_library()
     nuss_primitives.load_library()
-    log("build", f"{', '.join(lib.name for lib, _ in libs.values())} from "
-        f"rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
+    log("build", f"{', '.join(lib.name for lib, _ in libs.values())} and the host library "
+        f"{host_lib.name} from rustfhe_tpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for lib, report in libs.values():
         for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "C75")):
@@ -3123,6 +3197,9 @@ def main() -> int:
     pub = phase_public_key(ctx, dev, card)
     del ctx
 
+    # 18. the studies, each with the launch counts of its run only
+    studies = phase_studies(card)
+
     F = FAST_PARAMS
     fast_t = limb_times["FAST"]
     two_l, f_two_l = 2 * p.l, 2 * F.l
@@ -3133,20 +3210,21 @@ def main() -> int:
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
         ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
          KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295",
-         launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"] + pub["k1"],
+         launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"] + pub["k1"]
+         + studies["K1"],
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
         ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
-         launches["k2"] + par["k2"] + pub["k2"], errs["k2"], *times["k2"],
+         launches["k2"] + par["k2"] + pub["k2"] + studies["K2"], errs["k2"], *times["k2"],
          (step_ops(p, b_k2), b_k2 * two_l * p.N + key_bytes + b_k2 * 2 * p.N * 4), None),
         ("rotate_all_k: rotate_all_kernel<TILES> (mma.sync s8, one cluster per sample)",
          K3_SOURCE, "rustfhe_tpu/engine/pallas_k.py:432",
-         lat["k3"] + k3_pbs + par["k3"] + pub["k3"],
+         lat["k3"] + k3_pbs + par["k3"] + pub["k3"] + studies["K3"],
          errs["k3"],
          k3_times[1][0], k3_times[1][2], k3_work(p, 1), None),
         ("limb_cmux_step_merged: limb_panel_kernel + step_digits_kernel + "
          "cmux_product_kernel<true, 2>", LIMB_SOURCE, "rustfhe_tpu/engine/pallas_step.py:363",
-         fast["k4"], errs["k4"], fast_t["step"]["k4"], fast_t["step"]["plain"],
+         fast["k4"] + studies["K4"], errs["k4"], fast_t["step"]["k4"], fast_t["step"]["plain"],
          (step_ops(F, BATCH), step_bytes(F, BATCH, f_limb_bytes)), None),
         ("limb_external_product: limb_panel_kernel + cmux_product_kernel<false, 1>", LIMB_SOURCE,
          "rustfhe_tpu/engine/pallas_step.py:158",
@@ -3171,7 +3249,7 @@ def main() -> int:
                        ("p9", "benches/pallas_matmul_probe.py:56")):
         M, K, N = GEMM_SHAPES[key]
         rows.append((f"int8_gemm ({key.upper()})", GEMM_SOURCE, where,
-                     probes[key] + (par["p9"] if key == "p9" else 0), errs[key],
+                     probes[key] + (par["p9"] + studies["P9"] if key == "p9" else 0), errs[key],
                      min(gemm_t[key][tile] for tile in int8_gemm.TILES), gemm_t[key]["plain"],
                      (2.0 * M * K * N, M * K + K * N + 4 * M * N), gemm_t[key]["torch._int_mm"]))
     kara_bytes = step_bytes(p, kara_b, int(np.prod(karatsuba.table_shape(p))))  # the leaf table
@@ -3192,7 +3270,8 @@ def main() -> int:
              "P2 serial"),
             ("P3", "karatsuba_step_coissue (B): " + kara_step.format("RECOMBINE, false, 1"),
              "P3 B")):
-        rows.append((name, KARATSUBA_SOURCE, KARATSUBA_REPLACES[probe], kara[probe],
+        rows.append((name, KARATSUBA_SOURCE, KARATSUBA_REPLACES[probe],
+                     kara[probe] + studies.get(probe, 0),
                      kara_errs[probe], kara_t[label], kara_t["plain"],
                      (step_ops(p, kara_b), kara_bytes), None))
     rows.append(("nuss_primitives", NUSS_SOURCE, "benches/nussbaumer_primitives_probe.py:57",

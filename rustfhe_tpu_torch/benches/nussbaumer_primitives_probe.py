@@ -32,7 +32,6 @@ W = R * npk.BL
 TRANSFORM_ROWS = 24576  # DEFAULT_PARAMS, B=4096: 4096 x 2L polynomials of 2N = W words
 SHAPES = ((TB, W), (TRANSFORM_ROWS, W))
 ITERS = 200  # calls per profiler session
-HBM_BYTES_PER_S = 3.35e12  # device-memory rate of an H100 SXM (published)
 PROFILE_TRIES = 3  # now and then a profiler session misses launches
 
 
@@ -112,7 +111,7 @@ def run(out=print) -> dict:
         c_ms, _ = device_ms(lambda: y.copy_(x))
         result["launches"] += made
         nbytes = 2 * x.numel() * 4
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = _timing.bound(nbytes=nbytes)[0]
         result[(rows, width)] = (k_ms, c_ms, b_ms)
         out(f"# ({rows}, {width}) words, S={npk.ROLL}, on {card}: device time per call "
             f"(profiler, {ITERS} calls) {k_ms * 1e3:.2f} us, out.copy_(x) {c_ms * 1e3:.2f} us; "

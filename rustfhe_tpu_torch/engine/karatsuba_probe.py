@@ -39,7 +39,7 @@ launches the kernels or raises.  ``step_ablate.launches``,
 ``step_var.launches``, ``step_k2.launches``, ``step_split.launches`` and
 ``step_coissue.launches`` count the steps run on the card (one per step,
 its four launches together, as ``cmux_k.cmux_step.launches`` counts K1's
-steps: an ``unroll=2`` call counts two), and nothing else.
+steps: an ``unroll=u`` call counts u), and nothing else.
 """
 
 from __future__ import annotations
@@ -389,20 +389,21 @@ def step_var(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
              params: TFHEParams, leaf_combine: bool = True, planes: int = 32,
              extract: str = "mul", unroll: int = 1, skip_rotate: bool = False) -> torch.Tensor:
     """P8: the step with its digit-side work varied (``var_form``).  With
-    ``unroll=2``, a~ is (B, 2) and ``table`` the two steps' tables stacked
-    (2, ...); the result is two steps.  Step 2's digits need every output
-    word of step 1 (the rotation mixes all positions), so the card runs the
-    two steps one after the other, each its four launches."""
-    if unroll not in (1, 2):
-        raise ValueError(f"unroll must be 1 or 2, got {unroll}")
+    ``unroll`` u > 1, a~ is (B, u) and ``table`` the u steps' tables
+    stacked (u, ...); the result is u steps, as the JAX probe's unrolled
+    kernel takes any unroll.  Step s+1's digits need every output word of
+    step s (the rotation mixes all positions), so the card runs the steps
+    one after the other, each its four launches."""
+    if unroll < 1:
+        raise ValueError(f"unroll must be at least 1, got {unroll}")
     _check_operands(acc, a_tilde, table, params, unroll)
     v = var_form(leaf_combine, planes, extract, skip_rotate)
     if v not in FORMS:
         raise ValueError(f"P8 runs no form {v}")
     if planes == 16 and params.l > 4:
         raise ValueError(f"packed tree sums hold 4 levels in a word, got l={params.l}")
-    if unroll == 2:
-        for s in range(2):
+    if unroll > 1:
+        for s in range(unroll):
             acc = _step_var1(acc, a_tilde, table[s], params, v, s)
         return acc
     return _step_var1(acc, a_tilde, table, params, v, None)
@@ -415,7 +416,7 @@ def _step_var1(acc, a_tilde, table, params, v: Step, col) -> torch.Tensor:
     if col is None:
         out = _launch(v, acc, a_tilde, table, params)
     else:
-        out = _launch(v, acc, a_tilde, table, params, a_stride=2, a_offset=col)
+        out = _launch(v, acc, a_tilde, table, params, a_stride=a_tilde.shape[1], a_offset=col)
     step_var.launches += 1
     return out
 

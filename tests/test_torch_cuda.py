@@ -2,7 +2,8 @@
 against their plain versions, and the generic engines "matmul" and "matmul_bf16" against
 their CPU products, on the card; the integer, PBS and radix paths on K1
 and K3 (a test vector per row at PBS_PARAMS) against the CPU and the K1 loop;
-the seeded expansion (threefry) on the card against the CPU's.
+the seeded expansion (threefry) on the card against the CPU's; the one-hot
+key switch on P9 and the grouped (k=2) NAND of the studies.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it also runs on a GPU host that has no jax, with the
@@ -993,3 +994,24 @@ def test_public_key_encryption_and_gates_at_default_on_card(cuda):
     assert cmux_k.cmux_step.launches - before == (4 + 1 + 2) * p.n
     got = ctx.decrypt(gates.hom_mux(ctx.ck, c, x, y, params=p)).cpu().numpy()
     assert np.array_equal(got, np.where(bits[:8] == 1, bits[16:24], bits[8:16]))
+
+
+def test_onehot_key_switch_on_p9_equals_identity_key_switch(cuda):
+    from rustfhe_tpu_torch.benches import keyswitch_probe
+
+    forms, ct = keyswitch_probe.setup(256, params.DEFAULT_PARAMS, cuda)
+    int8_gemm.reset_counters()
+    got = forms.onehot_int8(ct)
+    assert int8_gemm.int8_matmul.launches == 1
+    assert torch.equal(got, forms.current(ct))
+
+
+def test_grouped_nand_at_default_decodes_right(cuda):
+    from rustfhe_tpu_torch.benches import multibit_probe
+
+    p = params.DEFAULT_PARAMS
+    cmux_k.reset_counters()
+    bad, batch = multibit_probe.check_correctness(p, batch=64, seed=5, engine="cmux_k",
+                                                  device=cuda)
+    assert bad == 0, f"{bad}/{batch} grouped-2 NANDs wrong"
+    assert cmux_k.external_product.launches == 3 * (p.n // 2) + p.n % 2

@@ -457,6 +457,8 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="must have shape"):  # unroll=2 takes (B, 2) and two tables
         kp.step_var(t_acc, t_ai, table, p, unroll=2)
     with pytest.raises(ValueError, match="unroll"):
+        kp.step_var(t_acc, t_ai, table, p, unroll=0)
+    with pytest.raises(ValueError, match="must have shape"):  # unroll=3 takes (B, 3), three tables
         kp.step_var(t_acc, t_ai, table, p, unroll=3)
     with pytest.raises(ValueError, match="no form"):  # a form the entry points do not run
         kp.step_var(t_acc, t_ai, table, p, leaf_combine=False, planes=16)
