@@ -19,6 +19,7 @@ import torch
 
 from .. import native, tlwe
 from .._u32 import from_numpy
+from ..utils import trace
 
 # Every primitive gate's pre-combination is linear in (x, y, mu):
 # pre = ca*x + cb*y + cm*mu (mod 2^32), followed by the same bootstrap.
@@ -338,44 +339,52 @@ def evaluate_encrypted(circuit: Circuit, ctx, ct_inputs: torch.Tensor,
     level is padded to its ``_bucket``.  Padding lanes bootstrap zeros and
     change no output word.
     """
-    circuit = optimize(circuit)  # exact CSE+DCE: fewer bootstrap lanes
-    (widths, counts, idx_a, idx_b, cs, out_w, n_wires, out_src,
-     out_neg) = _level_plan(circuit, fixed_width)
-    dev = ct_inputs.device
-    if (dev.type != ctx.device.type or ctx.device.index not in (None, dev.index)
-            or ct_inputs.dtype != torch.int32):
-        raise ValueError(f"ct_inputs must be int32 on {ctx.device}, got {ct_inputs.dtype} "
-                         f"on {dev}")
-    if ct_inputs.dim() < 2 or ct_inputs.shape[-2] != circuit.n_inputs:
-        raise ValueError(f"ct_inputs must be (..., {circuit.n_inputs}, n+1), "
-                         f"got {tuple(ct_inputs.shape)}")
-    lead = ct_inputs.shape[:-2]
-    bshape = (-1,) + (1,) * (len(lead) + 1)
-    # One upload of the whole plan; levels slice it.
-    up = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev))
-    idx_a, idx_b, out_w = up(idx_a), up(idx_b), up(out_w)
-    # (ca, cb, cm * mu) as uint32 words (JAX's U32 coefficients) in int32.
-    words = from_numpy(np.stack([cs[:, 0], cs[:, 1], cs[:, 2] * ctx.params.mu], axis=1)
-                       & 0xFFFFFFFF, dev)
-    ca, cb, cm = words.unbind(1)
+    lanes = ct_inputs.shape[:-2].numel()
+    with trace.span("evaluate", lanes=lanes) as span:
+        with trace.span("evaluate.plan") as plan:
+            circuit = optimize(circuit)  # exact CSE+DCE: fewer bootstrap lanes
+            (widths, counts, idx_a, idx_b, cs, out_w, n_wires, out_src,
+             out_neg) = _level_plan(circuit, fixed_width)
+            dev = ct_inputs.device
+            if (dev.type != ctx.device.type or ctx.device.index not in (None, dev.index)
+                    or ct_inputs.dtype != torch.int32):
+                raise ValueError(f"ct_inputs must be int32 on {ctx.device}, got "
+                                 f"{ct_inputs.dtype} on {dev}")
+            if ct_inputs.dim() < 2 or ct_inputs.shape[-2] != circuit.n_inputs:
+                raise ValueError(f"ct_inputs must be (..., {circuit.n_inputs}, n+1), "
+                                 f"got {tuple(ct_inputs.shape)}")
+            lead = ct_inputs.shape[:-2]
+            bshape = (-1,) + (1,) * (len(lead) + 1)
+            # One upload of the whole plan; levels slice it.
+            up = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+            idx_a, idx_b, out_w = up(idx_a), up(idx_b), up(out_w)
+            # (ca, cb, cm * mu) as uint32 words (JAX's U32 coefficients) in int32.
+            words = from_numpy(np.stack([cs[:, 0], cs[:, 1], cs[:, 2] * ctx.params.mu], axis=1)
+                               & 0xFFFFFFFF, dev)
+            ca, cb, cm = words.unbind(1)
+            if trace.enabled():
+                plan.set(gates=sum(counts))
+                span.set(levels=len(widths))
 
-    wires = torch.zeros((n_wires,) + lead + ct_inputs.shape[-1:], dtype=torch.int32, device=dev)
-    wires[: circuit.n_inputs] = ct_inputs.movedim(-2, 0)
-    off = done = 0
-    for width, k in zip(widths, counts):
-        lanes = slice(off, off + width)
-        xa = wires.index_select(0, idx_a[lanes])  # (width, ..., n+1)
-        xb = wires.index_select(0, idx_b[lanes])
-        pre = xa * ca[lanes].reshape(bshape) + xb * cb[lanes].reshape(bshape)
-        pre[..., 0] += cm[lanes].reshape(bshape[:-1])
-        outs = ctx.bootstrap_raw(pre)
-        wires[out_w[done: done + k]] = outs[:k]
-        off += width
-        done += k
-    result = wires[up(out_src)]
-    if out_neg.any():  # negated outputs: free elementwise tlwe.neg
-        result = torch.where(up(out_neg).reshape(bshape), tlwe.neg(result), result)
-    return result.movedim(0, -2)
+        wires = torch.zeros((n_wires,) + lead + ct_inputs.shape[-1:], dtype=torch.int32,
+                            device=dev)
+        wires[: circuit.n_inputs] = ct_inputs.movedim(-2, 0)
+        off = done = 0
+        for width, k in zip(widths, counts):
+            with trace.span("evaluate.level", rows=width * lanes, pad_rows=(width - k) * lanes):
+                sel = slice(off, off + width)
+                xa = wires.index_select(0, idx_a[sel])  # (width, ..., n+1)
+                xb = wires.index_select(0, idx_b[sel])
+                pre = xa * ca[sel].reshape(bshape) + xb * cb[sel].reshape(bshape)
+                pre[..., 0] += cm[sel].reshape(bshape[:-1])
+                outs = ctx.bootstrap_raw(pre)
+                wires[out_w[done: done + k]] = outs[:k]
+            off += width
+            done += k
+        result = wires[up(out_src)]
+        if out_neg.any():  # negated outputs: free elementwise tlwe.neg
+            result = torch.where(up(out_neg).reshape(bshape), tlwe.neg(result), result)
+        return result.movedim(0, -2)
 
 
 def ripple_borrow_subtractor(n_bits: int) -> Circuit:

@@ -56,6 +56,7 @@ from .engine.plain import key_switch_digits
 from .keys import CloudKey, GenericBK, HybridBK, LatencyBK, LimbBK
 from .trgsw import decompose_trlwe
 from .params import TFHEParams
+from .utils import trace
 
 
 def rotation_start(ct: torch.Tensor, testvec: torch.Tensor,
@@ -120,24 +121,42 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | HybridBK | Lim
     below starts from the one accumulator (B, 2, N) this makes.  Returns
     int32 (..., 2, N)."""
     lead = torch.broadcast_shapes(ct.shape[:-1], testvec.shape[:-2])
-    ct = ct.expand(lead + ct.shape[-1:]).reshape(-1, params.n + 1)
-    if testvec.dim() > 2:
-        testvec = testvec.expand(lead + testvec.shape[-2:]).reshape(-1, 2, params.N)
-    acc, a_steps = rotation_start(ct, testvec, params)
-    if isinstance(bk, LimbBK):
-        return _limb_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
-    if isinstance(bk, GenericBK):
-        return _generic_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
-    if isinstance(bk, HybridBK):
-        return _hybrid_rotate(acc, a_steps, bk, params).reshape(lead + (2, params.N))
-    if isinstance(bk, LatencyBK):
-        if acc.shape[0] <= rotate_all_k.MAX_BATCH and rotate_all_k.takes(params):
+    rows = lead.numel()
+    path, steps = _rotation_path(bk, rows, params)
+    with trace.span("blind_rotate", rows=rows, tv_rows=testvec.shape[:-2].numel(), path=path,
+                    steps=steps):
+        ct = ct.expand(lead + ct.shape[-1:]).reshape(-1, params.n + 1)
+        if testvec.dim() > 2:
+            testvec = testvec.expand(lead + testvec.shape[-2:]).reshape(-1, 2, params.N)
+        acc, a_steps = rotation_start(ct, testvec, params)
+        if path == "limb":
+            acc = _limb_rotate(acc, a_steps, bk, params)
+        elif path == "generic":
+            acc = _generic_rotate(acc, a_steps, bk, params)
+        elif path == "hybrid":
+            acc = _hybrid_rotate(acc, a_steps, bk, params)
+        elif path == "k3":
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
-            return acc.reshape(lead + (2, params.N))
-        bk = bk.bk
-    for i in range(params.n):
-        acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], params)
+        else:
+            bk = bk.bk if isinstance(bk, LatencyBK) else bk
+            for i in range(params.n):
+                acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], params)
     return acc.reshape(lead + (2, params.N))
+
+
+def _rotation_path(bk, rows: int, params: TFHEParams) -> tuple[str, int]:
+    """Which branch of ``blind_rotate`` a key takes at ``rows`` flattened
+    rows, and its step calls (1 for K3's single launch)."""
+    if isinstance(bk, LimbBK):
+        return "limb", params.n
+    if isinstance(bk, GenericBK):
+        return "generic", params.n
+    if isinstance(bk, HybridBK):
+        return "hybrid", 2 * bk.panels_odd.shape[0] + bk.prep_tail.shape[0]
+    if (isinstance(bk, LatencyBK) and rows <= rotate_all_k.MAX_BATCH
+            and rotate_all_k.takes(params)):
+        return "k3", 1
+    return "k1", params.n
 
 
 def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor,
@@ -152,13 +171,15 @@ def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor,
 def identity_key_switch(ct_lv1: torch.Tensor, ksk: torch.Tensor,
                         params: TFHEParams) -> torch.Tensor:
     """lv1 TLWE (..., N+1) -> lv0 TLWE (..., n+1)."""
-    digits = decompose_unsigned(ct_lv1[..., 1:], params)  # (..., N, iks_l)
-    out = -key_switch_digits(ksk, digits, params)
-    out[..., 0] += ct_lv1[..., 0]
+    with trace.span("key_switch", rows=ct_lv1.shape[:-1].numel()):
+        digits = decompose_unsigned(ct_lv1[..., 1:], params)  # (..., N, iks_l)
+        out = -key_switch_digits(ksk, digits, params)
+        out[..., 0] += ct_lv1[..., 0]
     return out
 
 
 def bootstrap(ct: torch.Tensor, ck: CloudKey, params: TFHEParams) -> torch.Tensor:
     """Full gate bootstrap: blind rotate, extract, key switch."""
-    lv1 = gate_bootstrapping_tlwe2tlwe(ct, ck.bk, params)
-    return identity_key_switch(lv1, ck.ksk, params)
+    with trace.span("bootstrap", rows=ct.shape[:-1].numel()):
+        lv1 = gate_bootstrapping_tlwe2tlwe(ct, ck.bk, params)
+        return identity_key_switch(lv1, ck.ksk, params)

@@ -53,6 +53,7 @@ import torch
 from .._device import resolve_device
 from .._u32 import from_numpy
 from ..params import DEFAULT_PARAMS, TFHEParams
+from ..utils import trace
 from . import cmux_k, limb_step, oracle
 from .fft64 import FFT64Engine
 from .matmul import MatmulEngine
@@ -254,7 +255,8 @@ def select_engine(params: TFHEParams, device, engine_name=None) -> str:
     is inexact, whoever named the engine."""
     device = torch.device(device)
     eng = requested_engine(params, engine_name)
-    ok, why = _probe_engine(eng, params, device)
+    with trace.span("setup.engine_probe", engine=eng.name):
+        ok, why = _probe_engine(eng, params, device)
     if not ok:
         raise RuntimeError(f"the {eng.name} engine's external product on {device} failed the "
                            f"oracle probe: {why}")

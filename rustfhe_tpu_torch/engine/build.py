@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -102,7 +104,10 @@ def load(name: str) -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device, and "
                            "torch.cuda.is_available() is False")
-    path = library_path(name)
-    if not path.exists():
-        path = build()[name][0]
-    return ctypes.CDLL(str(path))
+    with trace.span("setup.kernels", library=name) as span:
+        path = library_path(name)
+        built = not path.exists()
+        span.set(built=built)
+        if built:
+            path = build()[name][0]
+        return ctypes.CDLL(str(path))

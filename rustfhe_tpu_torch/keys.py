@@ -49,6 +49,7 @@ from .engine import (GENERIC, CmuxKEngine, LimbEngine, MatmulEngine, NussTransfo
                      cmux_k, resolve_engine)
 from .engine.plain import prepare_ksk, prepare_trgsw, prepare_trgsw_limbs
 from .params import TFHEParams
+from .utils import trace
 from .utils.rng import binary_array
 
 
@@ -216,9 +217,10 @@ def cloud_key_latency(ck: CloudKey) -> CloudKey:
     (``_guard_panel_hbm``) has nothing to guard here.  A limb key has no
     latency form and is returned unchanged, as JAX returns the keys of
     engines without panel tables; so is a generic key."""
-    if isinstance(ck.bk, (LatencyBK, HybridBK, LimbBK, GenericBK)):
-        return ck
-    return CloudKey(bk=LatencyBK(ck.bk), ksk=ck.ksk)
+    with trace.span("setup.keys", engine=key_engine(ck.bk)):
+        if isinstance(ck.bk, (LatencyBK, HybridBK, LimbBK, GenericBK)):
+            return ck
+        return CloudKey(bk=LatencyBK(ck.bk), ksk=ck.ksk)
 
 
 cloud_key_panels = cloud_key_latency  # the JAX package's name
@@ -304,8 +306,9 @@ def gen_keys(gen: torch.Generator, params: TFHEParams, device,
              engine="cmux_k") -> tuple[SecretKey, CloudKey]:
     """One-call keygen on ``device``: (SecretKey, CloudKey prepared for
     ``engine``).  The random draws do not depend on the engine."""
-    sk = gen_secret_key(gen, params, device)
-    return sk, gen_cloud_key(gen, sk, params, engine)
+    with trace.span("setup.keys", engine=getattr(engine, "name", engine)):
+        sk = gen_secret_key(gen, params, device)
+        return sk, gen_cloud_key(gen, sk, params, engine)
 
 
 def from_jax_keys(lv0, lv1, bk_raw, ksk_raw, params: TFHEParams, device,
@@ -316,27 +319,30 @@ def from_jax_keys(lv0, lv1, bk_raw, ksk_raw, params: TFHEParams, device,
     ``"matmul"`` / ``"matmul_bf16"``, JAX's ``MatmulEngine.prepare_trgsw``
     table of ``bk_raw`` as numpy int8, taken as the key's table (the port's
     layout is JAX's), so both packages compute on one prepared key."""
-    shapes = {
-        "lv0": (params.n,),
-        "lv1": (params.N,),
-        "bk_raw": (params.n, 2 * params.l, 2, params.N),
-        "ksk_raw": (params.N, params.iks_l, params.iks_t, params.n + 1),
-    }
-    arrays = {"lv0": lv0, "lv1": lv1, "bk_raw": bk_raw, "ksk_raw": ksk_raw}
-    t = {}
-    for name, want in shapes.items():
-        arr = arrays[name]
-        if tuple(arr.shape) != want:
-            raise ValueError(f"{name} has shape {tuple(arr.shape)}, expected {want}")
-        t[name] = from_numpy(arr, device)
-    sk = SecretKey(lv0=t["lv0"], lv1=t["lv1"])
-    if bk_table is None:
-        return sk, prepare_cloud_key(t["bk_raw"], t["ksk_raw"], params, engine)
-    eng = resolve_engine(engine)
-    if not isinstance(eng, MatmulEngine):
-        raise ValueError(f"bk_table is a matmul engine's table; the key is for {eng.name!r}")
-    want = (params.n, 2 * params.l, 2, eng.num_limbs, 2 * params.N)
-    table = torch.from_numpy(np.array(bk_table))
-    if table.dtype != torch.int8 or tuple(table.shape) != want:
-        raise ValueError(f"bk_table must be int8 {want}, got {table.dtype} {tuple(table.shape)}")
-    return sk, CloudKey(GenericBK(table.to(device), eng.name), prepare_ksk(t["ksk_raw"], params))
+    with trace.span("setup.keys", engine=getattr(engine, "name", engine)):
+        shapes = {
+            "lv0": (params.n,),
+            "lv1": (params.N,),
+            "bk_raw": (params.n, 2 * params.l, 2, params.N),
+            "ksk_raw": (params.N, params.iks_l, params.iks_t, params.n + 1),
+        }
+        arrays = {"lv0": lv0, "lv1": lv1, "bk_raw": bk_raw, "ksk_raw": ksk_raw}
+        t = {}
+        for name, want in shapes.items():
+            arr = arrays[name]
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{name} has shape {tuple(arr.shape)}, expected {want}")
+            t[name] = from_numpy(arr, device)
+        sk = SecretKey(lv0=t["lv0"], lv1=t["lv1"])
+        if bk_table is None:
+            return sk, prepare_cloud_key(t["bk_raw"], t["ksk_raw"], params, engine)
+        eng = resolve_engine(engine)
+        if not isinstance(eng, MatmulEngine):
+            raise ValueError(f"bk_table is a matmul engine's table; the key is for {eng.name!r}")
+        want = (params.n, 2 * params.l, 2, eng.num_limbs, 2 * params.N)
+        table = torch.from_numpy(np.array(bk_table))
+        if table.dtype != torch.int8 or tuple(table.shape) != want:
+            raise ValueError(f"bk_table must be int8 {want}, got {table.dtype} "
+                             f"{tuple(table.shape)}")
+        ksk = prepare_ksk(t["ksk_raw"], params)
+        return sk, CloudKey(GenericBK(table.to(device), eng.name), ksk)

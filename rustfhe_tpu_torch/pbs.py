@@ -52,6 +52,7 @@ from ._u32 import from_numpy, s32, srl, wrap
 from .bootstrap import blind_rotate, identity_key_switch
 from .keys import CloudKey
 from .params import TFHEParams
+from .utils import trace
 
 
 def _check_space(space: int, params: TFHEParams) -> None:
@@ -158,14 +159,15 @@ def pbs(ck: CloudKey, ct: torch.Tensor, table, *, space: int, params: TFHEParams
     Cost: one gate bootstrap (the same blind rotation, sample extraction
     and key switch).  ``ct`` is not written to.
     """
-    _check_space(space, params)
-    _gate_margin(params, space, 1, unsafe, "pbs")
-    # Half-bucket pre-offset centres each bucket's phase window (module doc).
-    pre = tlwe.add_to_body(ct, (1 << 32) // (4 * space))
-    testvec = lut_testvec(table, space, params, raw=raw, device=ct.device)
-    rotated = blind_rotate(pre, ck.bk, testvec, params)
-    lv1 = trlwe.sample_extract(rotated, 0)
-    return identity_key_switch(lv1, ck.ksk, params)
+    with trace.span("pbs", rows=ct.shape[:-1].numel(), tables=1):
+        _check_space(space, params)
+        _gate_margin(params, space, 1, unsafe, "pbs")
+        # Half-bucket pre-offset centres each bucket's phase window (module doc).
+        pre = tlwe.add_to_body(ct, (1 << 32) // (4 * space))
+        testvec = lut_testvec(table, space, params, raw=raw, device=ct.device)
+        rotated = blind_rotate(pre, ck.bk, testvec, params)
+        lv1 = trlwe.sample_extract(rotated, 0)
+        return identity_key_switch(lv1, ck.ksk, params)
 
 
 def many_lut_testvec(tables, space: int, params: TFHEParams, raw: bool = False,
@@ -243,9 +245,10 @@ def pbs_many(ck: CloudKey, ct: torch.Tensor, tables, *, space: int, params: TFHE
     (``unsafe=True`` skips the gate).
     """
     t = _shape(tables)[-2]
-    _gate_margin(params, space, t, unsafe, "pbs_many")
-    lv1 = rotate_extract_many(ck.bk, ct, tables, space, params, raw=raw)
-    return identity_key_switch(lv1, ck.ksk, params)
+    with trace.span("pbs", rows=ct.shape[:-1].numel(), tables=t):
+        _gate_margin(params, space, t, unsafe, "pbs_many")
+        lv1 = rotate_extract_many(ck.bk, ct, tables, space, params, raw=raw)
+        return identity_key_switch(lv1, ck.ksk, params)
 
 
 def pbs_margin(params: TFHEParams, space: int, t: int = 1):
