@@ -38,7 +38,9 @@ Phases, one line each:
      their share of device time, the device's idle share, peak device
      memory, and the SM clock sampled by nvidia-smi during the pass);
   6. K1 on the real bootstrapping key: the first steps of both main-path
-     batches' blind rotations, kernel against plain version, bit for bit;
+     batches' blind rotations, kernel against plain version, bit for bit,
+     and one full bootstrap with its rotation issued in one call
+     (``cmux_k.cmux_rotate``) against the per-step loop of ``cmux_step``;
   7. latency path: K3 (the single-launch blind rotation, one cluster per
      sample, the step on the tensor cores) against its plain version and
      the K1 loop over all n steps, bit for bit, on random keys at B = 1, 8,
@@ -682,6 +684,20 @@ def phase_real_key(ctx, p, batches):
     log("realkey", "K1 bit-exact against its plain version on the bootstrapping key "
         f"(steps 0, 1, 2 and {p.n - 1}) from the real accumulators, "
         f"B={', '.join(str(b.shape[0]) for b in batches)}")
+    # one full bootstrap, its rotation issued in one call (cmux_k.cmux_rotate), against the
+    # per-step loop of cmux_step on the same key
+    pre = batches[-1]
+    acc, a_steps = bootstrap.rotation_start(pre, testvec, p)
+    loop = k1_loop(acc, a_steps, ctx.ck.bk, p)
+    want = bootstrap.identity_key_switch(trlwe.sample_extract(loop, 0), ctx.ck.ksk, p)
+    k1, rot = cmux_k.cmux_step.launches, cmux_k.cmux_rotate.launches
+    got = bootstrap.bootstrap(pre, ctx.ck, p)
+    if (cmux_k.cmux_step.launches - k1, cmux_k.cmux_rotate.launches - rot) != (p.n, 1):
+        raise AssertionError("a bootstrap did not issue its n K1 steps in one cmux_rotate call")
+    err = max(err, exact(f"bootstrap via cmux_rotate vs the per-step K1 loop, B={pre.shape[0]}",
+                         got, want))
+    log("realkey", f"one bootstrap of B={pre.shape[0]} on the bootstrapping key: its rotation in "
+        f"one cmux_rotate call ({p.n} steps) = the per-step cmux_step loop, word for word")
     return err
 
 

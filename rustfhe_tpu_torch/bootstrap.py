@@ -1,9 +1,9 @@
 """Gate bootstrapping: blind rotation, sample extraction, key switch.
 
 Counterpart of ``rustfhe_tpu/bootstrap.py``.  The JAX package runs the n
-CMux steps as a ``lax.scan``; here they are a Python loop of n launches of
-the step kernel K1 (``engine.cmux_k.cmux_step``), with the whole batch of
-gates inside each launch.  Scaling matches the reference exactly:
+CMux steps as a ``lax.scan``; here they are n steps of the step kernel K1
+issued from one host call (``engine.cmux_k.cmux_rotate``: a C loop of
+``cmux_step``'s launches), with the whole batch of gates inside each step.  Scaling matches the reference exactly:
 
   b~   = b >> (32 - nbit - 1)                  (floor)
   a~_i = (a_i + 2^(32-nbit-2)) >> (32-nbit-1)   (round)
@@ -122,9 +122,9 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | HybridBK | Lim
     int32 (..., 2, N)."""
     lead = torch.broadcast_shapes(ct.shape[:-1], testvec.shape[:-2])
     rows = lead.numel()
-    path, steps = _rotation_path(bk, rows, params)
+    path, steps, calls = _rotation_path(bk, rows, params)
     with trace.span("blind_rotate", rows=rows, tv_rows=testvec.shape[:-2].numel(), path=path,
-                    steps=steps):
+                    steps=steps, calls=calls):
         ct = ct.expand(lead + ct.shape[-1:]).reshape(-1, params.n + 1)
         if testvec.dim() > 2:
             testvec = testvec.expand(lead + testvec.shape[-2:]).reshape(-1, 2, params.N)
@@ -139,24 +139,26 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | HybridBK | Lim
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
         else:
             bk = bk.bk if isinstance(bk, LatencyBK) else bk
-            for i in range(params.n):
-                acc = cmux_k.cmux_step(acc, a_steps[i], bk[i], params)
+            acc = cmux_k.cmux_rotate(acc, a_steps, bk, params)
     return acc.reshape(lead + (2, params.N))
 
 
-def _rotation_path(bk, rows: int, params: TFHEParams) -> tuple[str, int]:
+def _rotation_path(bk, rows: int, params: TFHEParams) -> tuple[str, int, int]:
     """Which branch of ``blind_rotate`` a key takes at ``rows`` flattened
-    rows, and its step calls (1 for K3's single launch)."""
+    rows, its steps (1 for K3's single launch) and the host calls that
+    issue them (1 for K3 and for K1's ``cmux_rotate``, a step each on the
+    Python loops)."""
     if isinstance(bk, LimbBK):
-        return "limb", params.n
+        return "limb", params.n, params.n
     if isinstance(bk, GenericBK):
-        return "generic", params.n
+        return "generic", params.n, params.n
     if isinstance(bk, HybridBK):
-        return "hybrid", 2 * bk.panels_odd.shape[0] + bk.prep_tail.shape[0]
+        steps = 2 * bk.panels_odd.shape[0] + bk.prep_tail.shape[0]
+        return "hybrid", steps, steps
     if (isinstance(bk, LatencyBK) and rows <= rotate_all_k.MAX_BATCH
             and rotate_all_k.takes(params)):
-        return "k3", 1
-    return "k1", params.n
+        return "k3", 1, 1
+    return "k1", params.n, 1
 
 
 def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor,

@@ -54,7 +54,8 @@
 // K2 is the panel and the product without the add, on the caller's digits.
 // The digit and panel buffers are the wrapper's (engine/cmux_k.py keeps
 // them per thread across the steps of a rotation) and their TMA maps are
-// cached here by address.
+// cached here by address.  rustfhe_cmux_rotate_k issues a whole rotation's
+// steps from one host call, the three launches a step in a C loop.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -132,6 +133,40 @@ int rustfhe_cmux_step_k(const void* acc, const void* a_tilde, const void* key, v
   if (e == cudaSuccess) e = launch_digits(acc, a_tilde, digits, B, N, l, bgbit, mask, st);
   if (e == cudaSuccess) e = launch_product<true, 1>(digits, panel, acc, out, B, N, 2 * l, st);
   return (int)e;
+}
+
+// K1: a whole rotation of n steps, each rustfhe_cmux_step_k's three launches on `stream`, from
+// one host call.  a_steps (n, B) int32, row i the rotations of step i; key (n, 2L, 2, 2N) words,
+// step i at i 2L 2 2N.  Step i reads accumulator i % 2 and writes the other, acc being 0 and
+// acc2 1 (same shape), so both are overwritten; *result says which holds the rotation's output
+// (n % 2).  The product's TMA maps and grid are fetched once, the digit and panel buffers being
+// the same for every step.  On an error *failed_step is the step whose launch failed (-1: none
+// launched, the shape or the plan), and the steps after it are not launched.
+int rustfhe_cmux_rotate_k(void* acc, const void* a_steps, const void* key, void* acc2,
+                          void* digits, void* panel, int n, int B, int N, int l, int bgbit,
+                          unsigned int mask, int* failed_step, int* result, void* stream) {
+  *failed_step = -1;
+  *result = n % 2;
+  if (n < 1 || !shape_ok(B, N, 2 * l)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  ProductPlan plan;
+  cudaError_t e = plan_product<true, 1>(&plan, digits, panel, B, N, 2 * l);
+  if (e != cudaSuccess) return (int)e;
+  void* bufs[2] = {acc, acc2};
+  const size_t key_words = (size_t)2 * l * 2 * 2 * N;
+  for (int i = 0; i < n; ++i) {
+    const void* in = bufs[i % 2];
+    const int32_t* a_i = (const int32_t*)a_steps + (size_t)i * B;
+    e = launch_panel((const int32_t*)key + i * key_words, panel, N, 2 * l, st);
+    if (e == cudaSuccess) e = launch_digits(in, a_i, digits, B, N, l, bgbit, mask, st);
+    if (e == cudaSuccess)
+      e = launch_planned<true, 1>(plan, digits, in, bufs[(i + 1) % 2], B, N, 2 * l, st);
+    if (e != cudaSuccess) {
+      *failed_step = i;
+      return (int)e;
+    }
+  }
+  return (int)cudaSuccess;
 }
 
 // K1 on the caller's prebuilt panel (a hybrid key's step, keys.cloud_key_hybrid): the digits

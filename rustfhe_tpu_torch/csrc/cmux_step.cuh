@@ -608,28 +608,52 @@ static cudaError_t launch_limb_panel(const void* table, void* panel, int N, int 
 
 static MapCache maps;  // the TMA maps of the library's digit and panel buffers
 
+// What a product launch needs beyond its accumulators: the TMA maps of its
+// digit and panel buffers and its grid.  plan_product fetches it once for
+// any number of launches on the same buffers at the same shape (the steps of
+// a rotation); launch_planned launches on it.
+struct ProductPlan {
+  CUtensorMap map_d, map_p;
+  int grid;
+};
+
 template <bool ADD, int HALVES, class F = Product>
-static cudaError_t launch_product(const void* digits, const void* panel, const void* acc_in,
-                                  void* out, int B, int N, int two_l, cudaStream_t stream) {
+static cudaError_t plan_product(ProductPlan* plan, const void* digits, const void* panel, int B,
+                                int N, int two_l) {
   static bool ready[MAX_DEVICES];
-  if ((uintptr_t)digits % 16 || (uintptr_t)panel % 16 || (uintptr_t)acc_in % 8 ||
-      (uintptr_t)out % 8)
-    return cudaErrorMisalignedAddress;
-  const auto kernel = cmux_product_kernel<ADD, HALVES, F>;
+  if ((uintptr_t)digits % 16 || (uintptr_t)panel % 16) return cudaErrorMisalignedAddress;
   int sms = 0;
-  cudaError_t e = prepare_kernel((const void*)kernel, SMEM, Shape<CONSUMERS>::LAUNCH_REGS, ready,
-                                 &sms);
+  cudaError_t e = prepare_kernel((const void*)cmux_product_kernel<ADD, HALVES, F>, SMEM,
+                                 Shape<CONSUMERS>::LAUNCH_REGS, ready, &sms);
   if (e != cudaSuccess) return e;
   const Geometry g(N);
-  CUtensorMap map_d, map_p;
-  if (!maps.get(&map_d, digits, B, F::LEAVES * two_l * g.npad, F::SERIAL ? BM / 2 : BM) ||
-      !maps.get(&map_p, panel, F::LEAVES * two_l * 2 * LIMBS * g.rows, DEPTH, Tile<HALVES>::BOX))
+  if (!maps.get(&plan->map_d, digits, B, F::LEAVES * two_l * g.npad, F::SERIAL ? BM / 2 : BM) ||
+      !maps.get(&plan->map_p, panel, F::LEAVES * two_l * 2 * LIMBS * g.rows, DEPTH,
+                Tile<HALVES>::BOX))
     return cudaErrorInvalidValue;
   const int box = Tile<HALVES>::BOX;
   const int tiles = F::LEAVES * ((B + BM - 1) / BM) * (2 / HALVES) * ((N + box - 1) / box);
-  kernel<<<tiles < sms ? tiles : sms, Shape<CONSUMERS>::THREADS, SMEM, stream>>>(
-      map_d, map_p, (const int32_t*)acc_in, (int32_t*)out, B, N, two_l, (const int8_t*)digits);
+  plan->grid = tiles < sms ? tiles : sms;
+  return cudaSuccess;
+}
+
+template <bool ADD, int HALVES, class F = Product>
+static cudaError_t launch_planned(const ProductPlan& plan, const void* digits, const void* acc_in,
+                                  void* out, int B, int N, int two_l, cudaStream_t stream) {
+  if ((uintptr_t)acc_in % 8 || (uintptr_t)out % 8) return cudaErrorMisalignedAddress;
+  cmux_product_kernel<ADD, HALVES, F><<<plan.grid, Shape<CONSUMERS>::THREADS, SMEM, stream>>>(
+      plan.map_d, plan.map_p, (const int32_t*)acc_in, (int32_t*)out, B, N, two_l,
+      (const int8_t*)digits);
   return cudaGetLastError();
+}
+
+template <bool ADD, int HALVES, class F = Product>
+static cudaError_t launch_product(const void* digits, const void* panel, const void* acc_in,
+                                  void* out, int B, int N, int two_l, cudaStream_t stream) {
+  ProductPlan plan;
+  const cudaError_t e = plan_product<ADD, HALVES, F>(&plan, digits, panel, B, N, two_l);
+  if (e != cudaSuccess) return e;
+  return launch_planned<ADD, HALVES, F>(plan, digits, acc_in, out, B, N, two_l, stream);
 }
 
 }  // namespace cmux

@@ -16,15 +16,18 @@ epilogue (``panel_product``).  K2 is the panel and the product of the
 caller's digits.  Each thread keeps its own digit and panel buffers for
 ``cmux_step`` per device and stream while their shapes hold, across the
 steps of a rotation; the library keeps their TMA maps by address.
+``cmux_rotate`` issues a whole rotation's steps from one call into the
+library, which launches them in a C loop.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
 kernel or raises.  There is no fallback from a failed launch to the plain
 version.  ``cmux_step.launches`` counts steps (three kernel launches each),
-``cmux_step_panel.launches`` steps on a prebuilt panel (two each: the
-digits and the product), ``external_product.launches`` K2's calls (two
-each) and ``key_panel.launches`` the panel kernel launched alone (a hybrid
-key's build); nothing else counts.
+``cmux_rotate``'s among them, ``cmux_rotate.launches`` the rotations issued
+in one call, ``cmux_step_panel.launches`` steps on a prebuilt panel (two
+each: the digits and the product), ``external_product.launches`` K2's
+calls (two each) and ``key_panel.launches`` the panel kernel launched alone
+(a hybrid key's build); nothing else counts.
 """
 
 from __future__ import annotations
@@ -57,8 +60,11 @@ def load_library() -> ctypes.CDLL:
     Raises RuntimeError when no CUDA device is available."""
     lib = build.load("cmux_k")
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    pi = ctypes.POINTER(ctypes.c_int)
     for name, args in (
             ("rustfhe_cmux_step_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
+            ("rustfhe_cmux_rotate_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu, pi, pi,
+                                       vp]),
             ("rustfhe_cmux_step_panel", [vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
             ("rustfhe_external_product_k", [vp, vp, vp, vp, ci, ci, ci, vp]),
             ("rustfhe_key_panel", [vp, vp, ci, ci, vp]),
@@ -198,6 +204,49 @@ def cmux_step(acc: torch.Tensor, a_tilde: torch.Tensor, key: torch.Tensor,
 
 
 cmux_step.launches = 0
+
+
+def cmux_rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
+                params: TFHEParams) -> torch.Tensor:
+    """The n steps of a blind rotation, ``cmux_step`` on ``a_steps[i]`` and
+    ``key[i]`` for i < n, from one host call: ``acc`` int32 (B, 2, N),
+    ``a_steps`` int32 (n, B) (``bootstrap.rotation_start``), ``key`` the
+    prepared key int32 (n, 2L, 2, 2N).  On the card the library runs the
+    steps' launches in a C loop on the current stream, alternating between
+    ``acc`` and one new accumulator, so ``acc`` is overwritten; the result
+    is whichever of the two the last step wrote.  The kernels, their order
+    and their inputs are ``cmux_step``'s, so every output word is the same.
+    Adds n to ``cmux_step.launches`` and 1 to ``cmux_rotate.launches``.  On
+    the CPU: n calls of ``cmux_step``, that is the loop of
+    ``cmux_step_plain``, ``acc`` left as it was."""
+    B, n = acc.shape[0], params.n
+    N, two_l = params.N, 2 * params.l
+    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    _check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
+    _check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), acc.device)
+    if not _dispatch(acc.device):
+        for i in range(n):  # cmux_step_plain through the step's own dispatch
+            acc = cmux_step(acc, a_steps[i], key[i], params)
+        return acc
+    check_shape(N, two_l)
+    stream = _stream(acc.device)
+    digits = _step_buffer("digits", (B, two_l, geometry(N)[0]), acc.device, stream)
+    panel = _step_buffer("panel", panel_shape(params), acc.device, stream)
+    other = torch.empty_like(acc)
+    failed, result = ctypes.c_int(-1), ctypes.c_int(0)
+    lib = load_library()
+    with torch.cuda.device(acc.device):
+        err = lib.rustfhe_cmux_rotate_k(
+            acc.data_ptr(), a_steps.data_ptr(), key.data_ptr(), other.data_ptr(),
+            digits.data_ptr(), panel.data_ptr(), n, B, N, params.l, params.bgbit,
+            params.decomp_mask, ctypes.byref(failed), ctypes.byref(result), stream)
+    _check(lib, err, f"cmux_rotate_k (step {failed.value} of {n})")
+    cmux_step.launches += n
+    cmux_rotate.launches += 1
+    return other if result.value else acc
+
+
+cmux_rotate.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -393,5 +442,5 @@ def panel_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
 
 
 def reset_counters() -> None:
-    for fn in (cmux_step, cmux_step_panel, external_product, key_panel):
+    for fn in (cmux_step, cmux_rotate, cmux_step_panel, external_product, key_panel):
         fn.launches = 0

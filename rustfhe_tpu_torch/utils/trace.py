@@ -32,7 +32,8 @@ Spans of the port (name: where; attributes):
 * ``pbs``: ``pbs.pbs``, ``pbs.pbs_many``; ``rows``, ``tables`` (lookups a row)
 * ``blind_rotate``: ``bootstrap.blind_rotate``; ``rows``, ``tv_rows``,
   ``path`` (``k1``, ``k3``, ``hybrid``, ``limb``, ``generic``), ``steps``
-  (step calls, 1 for K3)
+  (n, 1 for K3's single launch), ``calls`` (the host calls that issued the
+  steps: 1 for K1 and K3, ``steps`` for the loops)
 * ``key_switch``: ``bootstrap.identity_key_switch``; ``rows``
 * ``setup.kernels``: ``engine.build.load``, a library's first load;
   ``library``, ``built``

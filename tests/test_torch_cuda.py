@@ -259,6 +259,51 @@ def test_rotate_all_kernel_matches_plain_and_the_k1_loop(cuda, name, B):
     assert torch.equal(got, _k1_loop(acc, a, bk, p))
 
 
+def _full_rotation_case(seed, B, p, cuda, per_row):
+    """A whole rotation's inputs at ``p``'s n: the first accumulator and the
+    rotations from random lv0 words and test vectors (one for every row, or
+    one per row) through ``bootstrap.rotation_start``, and a random key."""
+    from rustfhe_tpu_torch import bootstrap
+
+    rs = np.random.RandomState(seed)
+
+    def words(*shape):
+        return _u32.from_numpy(np.frombuffer(rs.bytes(4 * int(np.prod(shape))),
+                                             dtype=np.uint32).reshape(shape), cuda)
+
+    tv = words(B, 2, p.N) if per_row else words(2, p.N)
+    acc, a = bootstrap.rotation_start(words(B, p.n + 1), tv, p)
+    return acc, a, plain.prepare_trgsw(words(p.n, 2 * p.l, 2, p.N))
+
+
+@pytest.mark.parametrize("B", [1, 33, 300, 4096])
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_cmux_rotate_equals_the_cmux_step_chain(cuda, name, B):
+    """A rotation from one call (n = 635 at DEFAULT_PARAMS, 714 at
+    PBS_PARAMS with a test vector per row: both parities of the ping-pong)
+    = n calls of cmux_step, word for word; it counts n steps and one
+    rotation."""
+    p = CMUX_PARAMS[name]
+    acc, a, bk = _full_rotation_case(80 + B, B, p, cuda, per_row=name == "PBS_PARAMS")
+    want = _k1_loop(acc, a, bk, p)
+    k1, rot = cmux_k.cmux_step.launches, cmux_k.cmux_rotate.launches
+    got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
+    assert (cmux_k.cmux_step.launches - k1, cmux_k.cmux_rotate.launches - rot) == (p.n, 1)
+    assert torch.equal(got, want)
+
+
+def test_cmux_rotate_on_a_side_stream(cuda):
+    p = params.DEFAULT_PARAMS
+    acc, a, bk = _full_rotation_case(79, 300, p, cuda, per_row=False)
+    want = _k1_loop(acc, a, bk, p)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))  # the inputs were made on the default one
+    with torch.cuda.stream(side):
+        got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("cluster", [8, 16])
 @pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "N2048_PARAMS"])
 def test_rotate_all_kernel_at_both_cluster_sizes(cuda, name, cluster):

@@ -110,7 +110,7 @@ def test_an_add_and_a_pbs_many_make_the_span_tree(monkeypatch):
         assert [r.attrs["rows"] for r in got] == [bt.attrs["rows"] for bt in boots]
     for r in by_name(recs, "blind_rotate"):
         assert r.attrs == {"rows": r.attrs["rows"], "tv_rows": 1, "path": "k1",
-                           "steps": TEST_PARAMS.n}
+                           "steps": TEST_PARAMS.n, "calls": 1}
     for r in recs:
         assert r.t0_ns <= r.t1_ns
         if r.parent is not None:
@@ -137,14 +137,14 @@ def test_an_add_and_a_pbs_many_make_the_span_tree(monkeypatch):
         assert by_name(inner, "key_switch")[0].attrs == {"rows": 10}
 
 
-@pytest.mark.parametrize("case,path,steps", [
-    ("standard", "k1", TEST_PARAMS.n),
-    ("latency", "k3", 1),
-    ("generic", "generic", TEST_PARAMS.n),
-    ("hybrid", "hybrid", TEST_PARAMS.n),
-    ("limb", "limb", 16),
+@pytest.mark.parametrize("case,path,steps,calls", [
+    ("standard", "k1", TEST_PARAMS.n, 1),
+    ("latency", "k3", 1, 1),
+    ("generic", "generic", TEST_PARAMS.n, TEST_PARAMS.n),
+    ("hybrid", "hybrid", TEST_PARAMS.n, TEST_PARAMS.n),
+    ("limb", "limb", 16, 16),
 ])
-def test_blind_rotate_names_its_path_and_steps(case, path, steps):
+def test_blind_rotate_names_its_path_and_steps(case, path, steps, calls):
     p = FAST_PARAMS.replace(n=16, N=128) if case == "limb" else TEST_PARAMS
     engine = {"generic": "matmul", "limb": "limb"}.get(case, "cmux_k")
     ctx = TFHE.new(11, p, device="cpu", latency_mode=case == "latency", engine_name=engine)
@@ -157,7 +157,7 @@ def test_blind_rotate_names_its_path_and_steps(case, path, steps):
     assert ctx.decrypt(out).tolist() == [1, 1, 1, 0]
     recs = trace.records()
     (rot,) = by_name(recs, "blind_rotate")
-    assert rot.attrs == {"rows": 4, "tv_rows": 1, "path": path, "steps": steps}
+    assert rot.attrs == {"rows": 4, "tv_rows": 1, "path": path, "steps": steps, "calls": calls}
     assert not [r for r in recs if r.parent == rot.id]  # no span on a step
     assert [r.name for r in recs if r.parent is None] == ["bootstrap"]
 
