@@ -31,18 +31,22 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..engine.transform import (abc_combine, dlimb_split, forward_matrix, inverse_matrix,
                                 pointwise, relimb, split_mr)
-from .mesh import axis_index, axis_size, group, shard
+from .mesh import axis_index, axis_size, collective, group, shard
 
 
 def _reduce_scatter_last(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """Sum ``x`` (..., K) float64 over ``axis`` and keep this rank's block
     of the last dim (K / size), the JAX ``psum_scatter(..., tiled=True)``
-    on the last axis."""
+    on the last axis (``x`` itself on an axis of one rank)."""
     size = axis_size(mesh, axis)
+    if size == 1:
+        return x
     front = x.movedim(-1, 0).contiguous()  # (K, ...): rank d's block is rows d*K/size..
     out = torch.empty((front.shape[0] // size,) + front.shape[1:], dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, front, group=group(mesh, axis))
+    g = group(mesh, axis)
+    with collective("reduce_scatter", g, front):
+        dist.reduce_scatter_tensor(out, front, group=g)
     return out.movedim(0, -1)
 
 

@@ -15,6 +15,10 @@ initialised ``torch.distributed`` world (one device each), as a
 The port computes on plain rank-local tensors with explicit collectives on
 the mesh's groups (``group``); a "sharding" is a function from the full
 array to this rank's part of it (``batch_sharding``, ``replicated``).
+
+Every collective of ``parallel/`` runs inside a ``collective`` span
+(``collective`` below) and is left out on a group of one rank, where it
+would move nothing.
 """
 
 from __future__ import annotations
@@ -24,8 +28,15 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .._device import resolve_device
+from ..utils import trace
 
 AXES = ("data", "model")
+
+# Each collective's bytes that cross cards, per rank, as a multiple of
+# (g - 1) / g of its whole tensor over g ranks: the gathered output, the
+# all-to-all's tensor, the reduce-scatter's input, and a ring all-reduce's
+# tensor twice (a reduce-scatter, then an all-gather).
+CROSSING = {"all_gather": 1, "all_to_all": 1, "reduce_scatter": 1, "all_reduce": 2}
 
 
 def make_mesh(data: int | None = None, model: int = 1,
@@ -58,6 +69,17 @@ def group(mesh: DeviceMesh, axis: str):
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return dist.get_world_size(group(mesh, axis))
+
+
+def collective(op: str, g, tensor: torch.Tensor):
+    """The ``collective`` span of one ``op`` (a key of ``CROSSING``) over
+    process group ``g`` on ``tensor``, the whole tensor as ``CROSSING``
+    names it: attributes ``op``, ``ranks`` (the group's size) and
+    ``bytes``, the bytes that cross cards at this rank."""
+    size = dist.get_world_size(g)
+    nbytes = tensor.numel() * tensor.element_size()
+    return trace.span("collective", op=op, ranks=size,
+                      bytes=CROSSING[op] * (size - 1) * nbytes // size)
 
 
 def axis_index(mesh: DeviceMesh, axis: str) -> int:

@@ -33,7 +33,7 @@ from .._u32 import from_numpy, to_numpy
 from ..engine import resolve_engine, select_engine
 from ..keys import CloudKey, SecretKey, cloud_key_latency, gen_keys
 from ..params import TFHEParams
-from .mesh import axis_size, group, make_mesh, shard
+from .mesh import axis_size, collective, group, make_mesh, shard
 from .sharded import (GATE_INPUTS, key_engine, shard_cloud_key, sharded_bootstrap_fn,
                       sharded_gate_fn)
 
@@ -203,8 +203,9 @@ class GateSession:
         """Bootstrap a whole pre-combined batch (..., B, n+1) that every
         rank holds: this rank's ``data`` block of axis -2 (any leading
         gate-lane axes whole), then an ``all_gather`` over ``data`` returns
-        the whole batch.  A batch that ``data`` does not divide, or a
-        single (n+1,) ciphertext, is computed whole on every rank."""
+        the whole batch (none on a ``data`` axis of one rank).  A batch that
+        ``data`` does not divide, or a single (n+1,) ciphertext, is computed
+        whole on every rank."""
         ndim = pre.dim()
         data = axis_size(self.mesh, "data")
         if ndim not in self._bootstrap_fns:
@@ -214,10 +215,14 @@ class GateSession:
         if ndim < 2 or pre.shape[-2] % data:
             return fn(self.ck.bk, self._ksk_local, pre)
         out = fn(self.ck.bk, self._ksk_local, shard(pre, self.mesh, "data", dim=ndim - 2))
+        if data == 1:
+            return out
         front = out.movedim(-2, 0).contiguous()
         full = torch.empty((data * front.shape[0],) + front.shape[1:], dtype=front.dtype,
                            device=front.device)
-        dist.all_gather_into_tensor(full, front, group=group(self.mesh, "data"))
+        g = group(self.mesh, "data")
+        with collective("all_gather", g, full):
+            dist.all_gather_into_tensor(full, front, group=g)
         return full.movedim(0, -2).contiguous()
 
     # --------------------- client-side convenience -------------------- #

@@ -24,6 +24,11 @@ sums below 2^31, never wrapped 32-bit words, so every sharded output
 equals the unsharded one word for word.  The bootstrapping key is
 replicated (62 MB at DEFAULT_PARAMS).
 
+The spans are the unsharded bootstrap's (``bootstrap`` over
+``blind_rotate`` and ``key_switch``, with this rank's rows), and every
+collective opens a ``collective`` span (``mesh.collective``); a collective
+over a group of one rank is not issued.
+
 The JAX functions default to the ``"matmul"`` engine; these take the key's
 own engine and default ``engine_name`` as ``TFHE.new`` does
 (``engine.requested_engine``: ``RUSTFHE_ENGINE``, else the cascade's
@@ -49,7 +54,8 @@ from ..gates import GATE_INPUTS, gate_circuit
 from ..keys import CloudKey, GenericBK, check_key_engine, key_engine  # noqa: F401 (re-exported)
 from ..params import TFHEParams
 from ..pbs import _gate_margin, _shape, rotate_extract_many
-from .mesh import axis_index, axis_size, group, shard
+from ..utils import trace
+from .mesh import axis_index, axis_size, collective, group, shard
 
 
 def _finish_key_switch(ct_lv1: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
@@ -57,6 +63,14 @@ def _finish_key_switch(ct_lv1: torch.Tensor, total: torch.Tensor) -> torch.Tenso
     out = -wrap(total).reshape(ct_lv1.shape[:-1] + total.shape[-1:])
     out[..., 0] += ct_lv1[..., 0]
     return out
+
+
+def _all_reduce(part: torch.Tensor, mesh: DeviceMesh, axis: str) -> None:
+    """Sum ``part`` over ``axis`` in place; nothing on an axis of one rank."""
+    if axis_size(mesh, axis) > 1:
+        g = group(mesh, axis)
+        with collective("all_reduce", g, part):
+            dist.all_reduce(part, group=g)
 
 
 def _key_switch_local(ct_lv1: torch.Tensor, ksk_local: torch.Tensor, params: TFHEParams,
@@ -68,20 +82,22 @@ def _key_switch_local(ct_lv1: torch.Tensor, ksk_local: torch.Tensor, params: TFH
     takes the digits of its rows, sums its float64 partial
     (``plain.key_switch_partial``: an integer below 2^53), and one float64
     ``all_reduce`` over ``axis`` gives the total, exact in any order; it is
-    reduced mod 2^32 only then.  The axis size must divide N*iks_l, as
-    JAX's assert requires (each block is whole (i, l) rows)."""
+    reduced mod 2^32 only then (on an axis of one rank the partial is the
+    total).  The axis size must divide N*iks_l, as JAX's assert requires
+    (each block is whole (i, l) rows)."""
     il = params.N * params.iks_l
     size = axis_size(mesh, axis)
     if il % size or ksk_local.shape[1] * size != il:
         raise ValueError(f"{axis} = {size} must divide N*iks_l = {il} and the KSK block "
                          f"must hold {il}/{size} rows, got {tuple(ksk_local.shape)}")
-    rows = ksk_local.shape[1]
-    start = axis_index(mesh, axis) * rows
-    digits = decompose_unsigned(ct_lv1[..., 1:], params)  # (..., N, iks_l)
-    d = digits.reshape(-1, il)[:, start: start + rows]
-    part = key_switch_partial(ksk_local, d, params)
-    dist.all_reduce(part, group=group(mesh, axis))
-    return _finish_key_switch(ct_lv1, part)
+    with trace.span("key_switch", rows=ct_lv1.shape[:-1].numel()):
+        rows = ksk_local.shape[1]
+        start = axis_index(mesh, axis) * rows
+        digits = decompose_unsigned(ct_lv1[..., 1:], params)  # (..., N, iks_l)
+        d = digits.reshape(-1, il)[:, start: start + rows]
+        part = key_switch_partial(ksk_local, d, params)
+        _all_reduce(part, mesh, axis)
+        return _finish_key_switch(ct_lv1, part)
 
 
 def key_switch_all_to_all(ct_lv1: torch.Tensor, ksk_local: torch.Tensor, params: TFHEParams,
@@ -104,32 +120,40 @@ def key_switch_all_to_all(ct_lv1: torch.Tensor, ksk_local: torch.Tensor, params:
                          f"{tuple(ksk_local.shape)}")
     g = group(mesh, axis)
     nslots = params.iks_t - 1
-    digits = decompose_unsigned(ct_lv1[..., 1:], params).reshape(-1, il)  # (b, il)
-    b = digits.shape[0]
-    t = torch.arange(1, params.iks_t, dtype=digits.dtype, device=digits.device)
-    onehot = (digits[:, None, :] == t[None, :, None]).to(torch.int8)  # (b, T-1, il)
-    # Block d of the row axis goes to rank d; the received blocks stack in
-    # peer (= batch) order: (size, b, T-1, rows) = every peer's rows of mine.
-    send = onehot.reshape(b, nslots, size, rows).permute(2, 0, 1, 3).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=g)
-    full = recv.reshape(size * b, nslots, rows)
-    part = None
-    for s in range(nslots):
-        term = full[:, s].to(torch.float64) @ ksk_local[s]
-        part = term if part is None else part + term
-    mine = torch.empty((b, part.shape[-1]), dtype=part.dtype, device=part.device)
-    dist.reduce_scatter_tensor(mine, part, group=g)  # exact: integers below 2^53
-    return _finish_key_switch(ct_lv1, mine)
+    with trace.span("key_switch", rows=ct_lv1.shape[:-1].numel()):
+        digits = decompose_unsigned(ct_lv1[..., 1:], params).reshape(-1, il)  # (b, il)
+        b = digits.shape[0]
+        t = torch.arange(1, params.iks_t, dtype=digits.dtype, device=digits.device)
+        onehot = (digits[:, None, :] == t[None, :, None]).to(torch.int8)  # (b, T-1, il)
+        # Block d of the row axis goes to rank d; the received blocks stack in
+        # peer (= batch) order: (size, b, T-1, rows) = every peer's rows of mine.
+        send = onehot.reshape(b, nslots, size, rows).permute(2, 0, 1, 3).contiguous()
+        recv = send
+        if size > 1:
+            recv = torch.empty_like(send)
+            with collective("all_to_all", g, send):
+                dist.all_to_all_single(recv, send, group=g)
+        full = recv.reshape(size * b, nslots, rows)
+        part = None
+        for s in range(nslots):
+            term = full[:, s].to(torch.float64) @ ksk_local[s]
+            part = term if part is None else part + term
+        mine = part
+        if size > 1:
+            mine = torch.empty((b, part.shape[-1]), dtype=part.dtype, device=part.device)
+            with collective("reduce_scatter", g, part):
+                dist.reduce_scatter_tensor(mine, part, group=g)  # exact: integers below 2^53
+        return _finish_key_switch(ct_lv1, mine)
 
 
 def _bootstrap_local(pre: torch.Tensor, bk, ksk_local: torch.Tensor, params: TFHEParams,
                      ks_fn) -> torch.Tensor:
     """Full bootstrap of this rank's rows: blind rotation (any key form the
     port has), extraction, then ``ks_fn(lv1, ksk_local)``."""
-    mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=pre.device)
-    rotated = blind_rotate(pre, bk, trlwe.trivial(mu), params)
-    return ks_fn(trlwe.sample_extract(rotated, 0), ksk_local)
+    with trace.span("bootstrap", rows=pre.shape[:-1].numel()):
+        mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=pre.device)
+        rotated = blind_rotate(pre, bk, trlwe.trivial(mu), params)
+        return ks_fn(trlwe.sample_extract(rotated, 0), ksk_local)
 
 
 def _gate_local(kind: str, params: TFHEParams, boot):
@@ -239,7 +263,7 @@ class _TPMatmulEngine:
         start = axis_index(self._mesh, self.axis) * rows
         part = self._base.limb_sums(prepared_local, digits[..., start: start + rows, :],
                                     params).contiguous()  # a collective writes in place
-        dist.all_reduce(part, group=group(self._mesh, self.axis))
+        _all_reduce(part, self._mesh, self.axis)
         return recombine(part, self._base.limb_bits)
 
 
@@ -259,7 +283,7 @@ class _TPFFT64Engine:
         start = axis_index(self._mesh, self.axis) * rows
         part = self._base.conv_partial(prepared_local, digits[..., start: start + rows, :],
                                        params).contiguous()  # a collective writes in place
-        dist.all_reduce(part, group=group(self._mesh, self.axis))
+        _all_reduce(part, self._mesh, self.axis)
         return self._base.round_recombine(part)
 
 

@@ -28,13 +28,18 @@ Spans of the port (name: where; attributes):
 * ``evaluate``: ``apps.circuits.evaluate_encrypted``; ``lanes``, ``levels``
 * ``evaluate.plan``: its ``optimize``, ``_level_plan`` and uploads; ``gates``
 * ``evaluate.level``: one a level; ``rows`` (width x lanes), ``pad_rows``
-* ``bootstrap``: ``bootstrap.bootstrap``; ``rows``
+* ``bootstrap``: ``bootstrap.bootstrap``, and a rank's rows in
+  ``parallel.sharded``; ``rows``
 * ``pbs``: ``pbs.pbs``, ``pbs.pbs_many``; ``rows``, ``tables`` (lookups a row)
 * ``blind_rotate``: ``bootstrap.blind_rotate``; ``rows``, ``tv_rows``,
   ``path`` (``k1``, ``k3``, ``hybrid``, ``limb``, ``generic``), ``steps``
   (n, 1 for K3's single launch), ``calls`` (the host calls that issued the
   steps: 1 for K1 and K3, ``steps`` for the loops)
-* ``key_switch``: ``bootstrap.identity_key_switch``; ``rows``
+* ``key_switch``: ``bootstrap.identity_key_switch``, and the sharded key
+  switches of ``parallel.sharded``; ``rows``
+* ``collective``: every collective of ``parallel/`` (``parallel.mesh.collective``);
+  ``op``, ``ranks`` (the group's size), ``bytes`` (those that cross cards at
+  this rank)
 * ``setup.kernels``: ``engine.build.load``, a library's first load;
   ``library``, ``built``
 * ``setup.engine_probe``: ``engine.select_engine``; ``engine``

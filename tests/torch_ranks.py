@@ -248,8 +248,45 @@ def suite_session(x: dict, mesh, mesh_of) -> dict:
     return out
 
 
+def suite_dp_gates(x: dict, mesh, mesh_of) -> dict:
+    """The four-card gate server's request path at TEST_PARAMS on K1's plain
+    version: ``gates.gate_circuit`` over ``GateSession.bootstrap_raw`` on
+    the whole batch, every gate at each batch size, with the tracer on;
+    each gate call's ``bootstrap``, ``key_switch`` and ``collective`` spans
+    in the order they closed, as JSON."""
+    import json
+
+    from rustfhe_tpu_torch import _u32, gates
+    from rustfhe_tpu_torch.parallel import multihost
+    from rustfhe_tpu_torch.parallel.mesh import axis_size
+    from rustfhe_tpu_torch.params import TEST_PARAMS as p
+    from rustfhe_tpu_torch.utils import trace
+
+    out = {}
+    sk, ck = _keys(x, "", p)
+    sess = multihost.GateSession.from_keys(sk, ck, p, model=axis_size(mesh, "model"),
+                                           device="cpu")
+    spans = {}
+    trace.enable()
+    try:
+        for b in x["batches"].tolist():
+            cts = [_u32.from_numpy(x[f"in{j}_{b}"]) for j in range(3)]
+            for op, arity in gates.GATE_INPUTS.items():
+                trace.clear()
+                out[f"{op}_{b}"] = gates.gate_circuit(op, cts[:arity], params=p,
+                                                      boot=sess.bootstrap_raw)
+                spans[f"{op}_{b}"] = [
+                    [r.name, r.attrs] for r in trace.records()
+                    if r.name in ("bootstrap", "key_switch", "collective")]
+    finally:
+        trace.enable(False)
+        trace.clear()
+    out["spans"] = np.array(json.dumps(spans))
+    return out
+
+
 SUITES = {"sharding": suite_sharding, "pbs_degree": suite_pbs_degree,
-          "session": suite_session}
+          "session": suite_session, "dp_gates": suite_dp_gates}
 
 
 def _main(tmp: str, suite: str, rank: int, world: int, data: int, model: int) -> None:
