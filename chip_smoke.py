@@ -25,10 +25,13 @@ Phases, one line each:
      with the limb recombination in its epilogue) and K2 (external
      product: panel and product) on the card against their plain torch
      versions, bit for bit, and K2 against the oracle, on edge inputs and
-     at the main path's batches (1024 and 4096); K1's three kernels alone
-     against their plain versions; times in turns: K1, its pieces, the
-     plain step, and ``torch._int_mm`` at the step's product shape, K1's
-     share of its bound; K2 beside its plain version;
+     at the main path's batches (1024 and 4096); K1's Karatsuba step
+     (``cmux_k.cmux_step_karatsuba``, the wide rotations' step) against
+     the plain step, and its tree digits against the plain ones, at the
+     same batches; K1's three kernels alone against their plain versions;
+     times in turns: K1, its Karatsuba step, its pieces, the plain step,
+     and ``torch._int_mm`` at the step's product shape, K1's and the
+     Karatsuba step's shares of their bounds; K2 beside its plain version;
   4. main path: ``TFHE.new`` (keygen on the card, K2 probe), one mixed
      bootstrap batch with the NAND/AND/OR/XOR truth tables, NOT and both
      MUX first-pass lanes over all 8 combinations, then the MUX second
@@ -40,7 +43,9 @@ Phases, one line each:
   6. K1 on the real bootstrapping key: the first steps of both main-path
      batches' blind rotations, kernel against plain version, bit for bit,
      and one full bootstrap with its rotation issued in one call
-     (``cmux_k.cmux_rotate``) against the per-step loop of ``cmux_step``;
+     (``cmux_k.cmux_rotate``, at B=4096 on the Karatsuba steps) against the
+     per-step loop of ``cmux_step``, and the same rotation on the schoolbook
+     steps in one call;
   7. latency path: K3 (the single-launch blind rotation, one cluster per
      sample, the step on the tensor cores) against its plain version and
      the K1 loop over all n steps, bit for bit, on random keys at B = 1, 8,
@@ -261,7 +266,9 @@ from rustfhe_tpu_torch.trgsw import decompose_trlwe
 from rustfhe_tpu_torch.utils.timing import time_fn
 
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
-K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel")  # a step's launches
+KARATSUBA_STEP_SOURCE = "rustfhe_tpu_torch/csrc/karatsuba_step.cuh"  # built into cmux_k.cu
+K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel",  # a step's launches
+              "limb_panel_kernel", "leaf_digits_kernel", "leaf_product_kernel")  # its Karatsuba step's
 # K4/K6's and K5's launches (the digit and product kernels are K1's, csrc/cmux_step.cuh)
 LIMB_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel")
 K3_KERNELS = ("rotate_all_kernel", "barrier_floor_kernel")
@@ -352,11 +359,13 @@ def step_bytes(p, b: int, key_bytes: int) -> int:
 
 def phase_kernels(p, dev, rs):
     """K1 and K2 against their plain versions (and K2 against the oracle) at
-    DEFAULT_PARAMS, on edge inputs and at the main path's batches, then
+    DEFAULT_PARAMS, on edge inputs and at the main path's batches, K1's
+    Karatsuba step (and its tree digits) at the main path's batches, then
     their times at the main path's shapes."""
     two_l, N = 2 * p.l, p.N
     key = plain.prepare_trgsw(words(rs, (two_l, 2, N), dev))
-    errs = {"k1": 0, "k2": 0}
+    ktab = karatsuba.prepare_table(key[..., N:])  # the step's leaf table (cmux_k.leaf_table)
+    errs = {"k1": 0, "k2": 0, "k1_karatsuba": 0}
 
     # K1 on random accumulators and rotations, B=256.
     acc = words(rs, (256, 2, N), dev)
@@ -381,18 +390,27 @@ def phase_kernels(p, dev, rs):
     rd = torch.from_numpy(rs.randint(-hb, hb, size=(256, two_l, N)).astype(np.int8)).to(dev)
     errs["k2"] = max(errs["k2"], exact("K2 random", cmux_k.external_product(rd, key, p),
                                        cmux_k.external_product_plain(rd, key)))
-    # K1 and K2 at the main path's batches: the mixed batch and the NAND batch.
+    # K1, its Karatsuba step and K2 at the main path's batches: the mixed batch and the NAND
+    # batch (the Karatsuba step's tree digits read back from its digit buffer).
     for b in (MIXED, BATCH):
         accb = words(rs, (b, 2, N), dev)
         aib = torch.from_numpy(rs.randint(0, 2 * N, size=b).astype(np.int32)).to(dev)
-        errs["k1"] = max(errs["k1"], exact(f"K1 B={b}", cmux_k.cmux_step(accb, aib, key, p),
-                                           cmux_k.cmux_step_plain(accb, aib, key, p)))
+        want = cmux_k.cmux_step_plain(accb, aib, key, p)
+        errs["k1"] = max(errs["k1"], exact(f"K1 B={b}", cmux_k.cmux_step(accb, aib, key, p), want))
+        got = cmux_k.cmux_step_karatsuba(accb, aib, ktab, p)
+        tree = cmux_k._karatsuba_buffers(b, p, accb.device, cmux_k._stream(accb.device))[0]
+        errs["k1_karatsuba"] = max(
+            errs["k1_karatsuba"], exact(f"K1 Karatsuba B={b}", got, want),
+            exact(f"K1 Karatsuba tree digits B={b}", tree,
+                  karatsuba_probe.tree_digits_plain(karatsuba.scan_enter(accb), aib, p)))
         db = torch.from_numpy(rs.randint(-hb, hb, size=(b, two_l, N)).astype(np.int8)).to(dev)
         errs["k2"] = max(errs["k2"], exact(f"K2 B={b}", cmux_k.external_product(db, key, p),
                                            cmux_k.external_product_plain(db, key)))
     torch.cuda.synchronize()
     log("kernels", f"K1 and K2 bit-exact against their plain versions on {dev} "
-        f"(edge inputs, B=256, B={MIXED}, B={BATCH}); K2 equals the oracle on the probe vectors")
+        f"(edge inputs, B=256, B={MIXED}, B={BATCH}); K2 equals the oracle on the probe vectors; "
+        f"K1's Karatsuba step equals the plain step, and its tree digits the plain ones, at "
+        f"B={MIXED}, B={BATCH}")
 
     # K1's three kernels alone at B=BATCH, each against its plain version.
     panel = cmux_k.key_panel(key, p)
@@ -416,6 +434,7 @@ def phase_kernels(p, dev, rs):
                           generator=gen)
     t = turns({"plain": lambda: cmux_k.cmux_step_plain(accb, aib, key, p),
                "K1": lambda: cmux_k.cmux_step(accb, aib, key, p),
+               "Karatsuba": lambda: cmux_k.cmux_step_karatsuba(accb, aib, ktab, p),
                "panel": lambda: cmux_k.key_panel(key, p),
                "digits": lambda: cmux_k.step_digits(accb, aib, p),
                "product": lambda: cmux_k.panel_product(digits, panel, accb, p),
@@ -428,6 +447,7 @@ def phase_kernels(p, dev, rs):
     # the pieces' device times come from the profiler.
     dev_t = {k: profiled_ms(t_fn, 20) for k, t_fn in (
         ("K1", lambda: cmux_k.cmux_step(accb, aib, key, p)),
+        ("Karatsuba", lambda: cmux_k.cmux_step_karatsuba(accb, aib, ktab, p)),
         ("panel", lambda: cmux_k.key_panel(key, p)),
         ("digits", lambda: cmux_k.step_digits(accb, aib, p)),
         ("product", lambda: cmux_k.panel_product(digits, panel, accb, p)))}
@@ -445,7 +465,13 @@ def phase_kernels(p, dev, rs):
         f"ms ({ops / t['torch._int_mm'] / 1e9:.1f} TOPS) | K2 external_product B={pd.shape[0]} "
         f"(probe): {k2_ms:.4f} ms, plain {k2_plain:.4f} ms | K2 B={BATCH}: {k2b_ms:.4f} ms, "
         f"plain {k2b_plain:.4f} ms")
-    return errs, {"k1": (t["K1"], t["plain"]), "k2": (k2_ms, k2_plain)}
+    kara_bound = bound(step_ops(p, BATCH), step_bytes(p, BATCH, ktab.numel()))[0]
+    log("kernels", f"K1 cmux_step_karatsuba B={BATCH}: {t['Karatsuba']:.4f} ms (CUDA events; "
+        f"device {dev_t['Karatsuba']:.4f} ms), {t['Karatsuba'] / t['K1']:.3f}x the schoolbook "
+        f"step, {kara_bound / t['Karatsuba']:.1%} of its {kara_bound:.4f} ms bound (the leaf "
+        f"table's {ktab.numel()} bytes); plain {t['plain']:.4f} ms")
+    return errs, {"k1": (t["K1"], t["plain"]), "k2": (k2_ms, k2_plain),
+                  "k1_karatsuba": (t["Karatsuba"], t["plain"])}
 
 
 def ptxas_kernels(report: str, names) -> dict[str, tuple[int, int]]:
@@ -684,20 +710,29 @@ def phase_real_key(ctx, p, batches):
     log("realkey", "K1 bit-exact against its plain version on the bootstrapping key "
         f"(steps 0, 1, 2 and {p.n - 1}) from the real accumulators, "
         f"B={', '.join(str(b.shape[0]) for b in batches)}")
-    # one full bootstrap, its rotation issued in one call (cmux_k.cmux_rotate), against the
-    # per-step loop of cmux_step on the same key
+    # one full bootstrap, its rotation issued in one call (cmux_k.cmux_rotate: at B=4096 on the
+    # Karatsuba steps), against the per-step loop of cmux_step on the same key; and the same
+    # rotation on the schoolbook steps in one call
     pre = batches[-1]
     acc, a_steps = bootstrap.rotation_start(pre, testvec, p)
     loop = k1_loop(acc, a_steps, ctx.ck.bk, p)
     want = bootstrap.identity_key_switch(trlwe.sample_extract(loop, 0), ctx.ck.ksk, p)
-    k1, rot = cmux_k.cmux_step.launches, cmux_k.cmux_rotate.launches
+    product = cmux_k.product_for(p, pre.shape[0])
+    k1, rot, kara = (cmux_k.cmux_step.launches, cmux_k.cmux_rotate.launches,
+                     cmux_k.cmux_step_karatsuba.launches)
     got = bootstrap.bootstrap(pre, ctx.ck, p)
     if (cmux_k.cmux_step.launches - k1, cmux_k.cmux_rotate.launches - rot) != (p.n, 1):
         raise AssertionError("a bootstrap did not issue its n K1 steps in one cmux_rotate call")
-    err = max(err, exact(f"bootstrap via cmux_rotate vs the per-step K1 loop, B={pre.shape[0]}",
-                         got, want))
+    if cmux_k.cmux_step_karatsuba.launches - kara != (p.n if product == "karatsuba" else 0):
+        raise AssertionError(f"a bootstrap of B={pre.shape[0]} did not take the {product} steps")
+    err = max(err, exact(f"bootstrap via cmux_rotate ({product}) vs the per-step K1 loop, "
+                         f"B={pre.shape[0]}", got, want))
+    school = cmux_k._rotate_schoolbook(acc.clone(), a_steps, ctx.ck.bk, p)
+    err = max(err, exact(f"the schoolbook rotation in one call vs the per-step K1 loop, "
+                         f"B={pre.shape[0]}", school, loop))
     log("realkey", f"one bootstrap of B={pre.shape[0]} on the bootstrapping key: its rotation in "
-        f"one cmux_rotate call ({p.n} steps) = the per-step cmux_step loop, word for word")
+        f"one cmux_rotate call ({p.n} {product} steps) = the per-step cmux_step loop, word for "
+        "word, and so is the schoolbook rotation in one call")
     return err
 
 
@@ -2365,6 +2400,7 @@ def phase_pbs(dev, card):
                 f"{t:.2f}" for t in times["K1 loop"]) + f" ms on {card}; K3's clusters at "
             f"B=2: {rotate_all_k.cluster_for(2, p, dev)} blocks")
         k1_total, k1_calls = cmux_k.cmux_step.launches, k1_std + calls["K1 loop"]
+        kara_total = cmux_k.cmux_step_karatsuba.launches  # among k1_total
         if k1_total != p.n * k1_calls:
             raise AssertionError(f"pbs: K1 launched {k1_total} times for {k1_calls} K1-loop calls")
         total_ms = sum(r[1] for r in rows)
@@ -2374,7 +2410,7 @@ def phase_pbs(dev, card):
     finally:
         rot.remove()
     pre = tlwe.add_to_body(ct, (1 << 32) // (4 * PBS_SPACE))
-    return ctx, lat, k1_total, k3_lat, pre, tables
+    return ctx, lat, (k1_total, kara_total), k3_lat, pre, tables
 
 
 def pbs_breakdown(ctx, pre, tables, dev, card) -> None:
@@ -2555,7 +2591,7 @@ def phase_seeded(ctx, pbs_ctx, dev, card):
             raise AssertionError(f"seeded: {name} launched K1 {k1} times (n = {q.n} a level)")
         check_bits(f"seeded {name}", got, (av + bv) & np.uint64(255))
         txt.append(f"a seeded {name} at {INT_PAIRS} lanes {ms:.1f} ms ({k1 // q.n} levels)")
-    k1 = cmux_k.cmux_step.launches
+    k1, kara = cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches
     log("seeded", f"cloud-only on {card}: the mixed batch of {MIXED} gates from seeded uploads "
         f"through K1, every output right; {'; '.join(txt)} (upload, expansion, the op and the "
         f"decryption), every value right; K1 launched {k1} times")
@@ -2594,7 +2630,7 @@ def phase_seeded(ctx, pbs_ctx, dev, card):
         f"work), {words / min(ms) / 1e6:.2f} G words/s; allocator peak {peak / 2**30:.3f} GiB "
         f"above the bodies ({words * 4 / 2**30:.3f} GiB of output)")
     log("seeded", f"phase 15 in {time.perf_counter() - t15:.1f} s")
-    return k1
+    return k1, kara
 
 
 # --------------------------------------------------------------------- #
@@ -2628,6 +2664,7 @@ def host_turns(fns: dict, rounds: int = 1) -> dict:
 def counts() -> dict:
     """The launch counts phase 16 reads."""
     return {"k1": cmux_k.cmux_step.launches, "k1_panel": cmux_k.cmux_step_panel.launches,
+            "k1_karatsuba": cmux_k.cmux_step_karatsuba.launches,
             "key_panel": cmux_k.key_panel.launches, "k2": cmux_k.external_product.launches,
             "k3": rotate_all_k.rotate_all.launches, "p9": int8_gemm.int8_matmul.launches}
 
@@ -3049,6 +3086,7 @@ def phase_studies(card: str) -> dict[str, int]:
     t18 = time.perf_counter()
     check_native(card)
     total = dict.fromkeys(STUDY_COUNTERS, 0)
+    kara = 0  # K1's steps on the Karatsuba product, among "K1"
     for name, kwargs, cut in STUDIES:
         mod = importlib.import_module(f"rustfhe_tpu_torch.benches.{name}")
         reset_all_counters()
@@ -3057,6 +3095,7 @@ def phase_studies(card: str) -> dict[str, int]:
         got = {k: sum(c.launches for c in cs) for k, cs in STUDY_COUNTERS.items()}
         for k, v in got.items():
             total[k] += v
+        kara += cmux_k.cmux_step_karatsuba.launches
         log("studies", f"{name}: {time.perf_counter() - t0:.1f} s, launches "
             f"{ {k: v for k, v in got.items() if v} }"
             + (f"; cut for this phase: {cut}" if cut else "; the study's defaults"))
@@ -3064,8 +3103,9 @@ def phase_studies(card: str) -> dict[str, int]:
     missing = [k for k, v in total.items() if not v]
     if missing:
         raise AssertionError(f"phase 18 launched no {', '.join(missing)}")
-    log("studies", f"phase 18 in {time.perf_counter() - t18:.1f} s; launches {total} on {card}")
-    return total
+    log("studies", f"phase 18 in {time.perf_counter() - t18:.1f} s; launches {total} ({kara} "
+        f"of K1's on the Karatsuba product) on {card}")
+    return total | {"K1 Karatsuba": kara}
 
 
 def main() -> int:
@@ -3129,16 +3169,19 @@ def main() -> int:
     ctx, mixed_pre, mixed_out, mixed_want = phase_main_path(p, dev)
     cx, cy, nand_passes = phase_nand(ctx, p, card)
     passes = 2 + nand_passes
-    launches = {"k1": cmux_k.cmux_step.launches, "k2": cmux_k.external_product.launches}
+    launches = {"k1": cmux_k.cmux_step.launches, "k2": cmux_k.external_product.launches,
+                "k1_karatsuba": cmux_k.cmux_step_karatsuba.launches}
     if launches["k1"] != passes * p.n or launches["k2"] < 1:
         raise AssertionError(f"main path launches {launches}, expected K1 = {passes * p.n} "
                              "and K2 >= 1")
-    log("main", f"K1 launched {launches['k1']} times ({passes} passes x {p.n} steps), "
-        f"K2 {launches['k2']} (the engine probe)")
+    log("main", f"K1 launched {launches['k1']} times ({passes} passes x {p.n} steps; "
+        f"{launches['k1_karatsuba']} of them on the Karatsuba product), K2 {launches['k2']} "
+        "(the engine probe)")
 
     # 6. K1 on the real key, after the main path's counts were read
     nand_pre = gates.precombine("nand", cx, cy, params=p)
-    errs["k1"] = max(errs["k1"], phase_real_key(ctx, p, (mixed_pre, nand_pre)))
+    err = phase_real_key(ctx, p, (mixed_pre, nand_pre))  # both products' rotations
+    errs["k1"], errs["k1_karatsuba"] = max(errs["k1"], err), max(errs["k1_karatsuba"], err)
     k1_key = ctx.ck.bk[0].clone()  # phase 12 times K1's step beside the matmul step
     del cx, cy, nand_pre  # phase 13 runs on phase 4's context and keys
 
@@ -3193,7 +3236,7 @@ def main() -> int:
     # 14. PBS and the radix integers at PBS_PARAMS, with the launch counts
     # of its run only; then K1 and K3 on the real PBS keys
     t14 = time.perf_counter()
-    pbs_ctx, pbs_lat, k1_pbs, k3_pbs, pbs_pre, pbs_tables = phase_pbs(dev, card)
+    pbs_ctx, pbs_lat, (k1_pbs, kara_pbs), k3_pbs, pbs_pre, pbs_tables = phase_pbs(dev, card)
     k1_err, k3_err = phase_pbs_kernels(pbs_ctx, pbs_lat, pbs_pre, pbs_tables, dev, card)
     errs["k1"], errs["k3"] = max(errs["k1"], k1_err), max(errs["k3"], k3_err)
     del pbs_lat, pbs_pre
@@ -3201,7 +3244,7 @@ def main() -> int:
 
     # 15. seeded uploads on phase 4's and phase 14's contexts, with the
     # launch counts of their run only
-    k1_seeded = phase_seeded(ctx, pbs_ctx, dev, card)
+    k1_seeded, kara_seeded = phase_seeded(ctx, pbs_ctx, dev, card)
 
     # 16. the scale-out path (parallel/) and hybrid keys on phase 4's and
     # phase 14's contexts, with the launch counts of their run only
@@ -3223,12 +3266,20 @@ def main() -> int:
     limb_bytes = two_l * 2 * 4 * 2 * p.N  # the int8 limb table at DEFAULT
     f_limb_bytes = f_two_l * 2 * 4 * 2 * F.N
     b_k2, b_k5 = probe_vectors(p)[1].shape[0], probe_vectors(F)[1].shape[0]
+    # K1's steps, and those among them on the Karatsuba product, in the counted phases
+    k1_all = (launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"] + pub["k1"]
+              + studies["K1"])
+    k1_kara = (launches["k1_karatsuba"] + kara_pbs + kara_seeded + par["k1_karatsuba"]
+               + pub["k1_karatsuba"] + studies["K1 Karatsuba"])
+    leaf_bytes = int(np.prod(karatsuba.table_shape(p)))  # a step's leaf table
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
         ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
-         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295",
-         launches["k1"] + k1_pbs + k1_seeded + par["k1"] + par["k1_panel"] + pub["k1"]
-         + studies["K1"],
+         KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", k1_all - k1_kara,
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
+        ("cmux_step_karatsuba: limb_panel_kernel<9> + leaf_digits_kernel + leaf_product_kernel",
+         KARATSUBA_STEP_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", k1_kara,
+         errs["k1_karatsuba"], *times["k1_karatsuba"],
+         (step_ops(p, BATCH), step_bytes(p, BATCH, leaf_bytes)), None),
         ("external_product_k: key_panel_kernel + cmux_product_kernel<false, 1>", KERNEL_SOURCE,
          "rustfhe_tpu/engine/pallas_k.py:506",
          launches["k2"] + par["k2"] + pub["k2"] + studies["K2"], errs["k2"], *times["k2"],

@@ -3,7 +3,8 @@
 Counterpart of ``rustfhe_tpu/bootstrap.py``.  The JAX package runs the n
 CMux steps as a ``lax.scan``; here they are n steps of the step kernel K1
 issued from one host call (``engine.cmux_k.cmux_rotate``: a C loop of
-``cmux_step``'s launches), with the whole batch of gates inside each step.  Scaling matches the reference exactly:
+``cmux_step``'s launches, or at wide batches of the same step on the
+two-level Karatsuba product), with the whole batch of gates inside each step.  Scaling matches the reference exactly:
 
   b~   = b >> (32 - nbit - 1)                  (floor)
   a~_i = (a_i + 2^(32-nbit-2)) >> (32-nbit-1)   (round)
@@ -124,7 +125,7 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | HybridBK | Lim
     rows = lead.numel()
     path, steps, calls = _rotation_path(bk, rows, params)
     with trace.span("blind_rotate", rows=rows, tv_rows=testvec.shape[:-2].numel(), path=path,
-                    steps=steps, calls=calls):
+                    steps=steps, calls=calls) as span:
         ct = ct.expand(lead + ct.shape[-1:]).reshape(-1, params.n + 1)
         if testvec.dim() > 2:
             testvec = testvec.expand(lead + testvec.shape[-2:]).reshape(-1, 2, params.N)
@@ -139,7 +140,7 @@ def blind_rotate(ct: torch.Tensor, bk: torch.Tensor | LatencyBK | HybridBK | Lim
             acc = rotate_all_k.rotate_all(acc, a_steps, bk.bk, params)
         else:
             bk = bk.bk if isinstance(bk, LatencyBK) else bk
-            acc = cmux_k.cmux_rotate(acc, a_steps, bk, params)
+            acc = cmux_k.cmux_rotate(acc, a_steps, bk, params, span)  # sets its product
     return acc.reshape(lead + (2, params.N))
 
 

@@ -1,6 +1,7 @@
 // Device code shared by the blind-rotation kernels: the digit build of one
 // CMux step (the digit kernel of K1/K4/K6 and P5/P6 in cmux_step.cuh, K3 in
-// rotate_all_k.cu, and the Karatsuba tree digits of karatsuba_probe.cu).
+// rotate_all_k.cu, and the Karatsuba tree digits of karatsuba_step.cuh and
+// karatsuba_probe.cu).
 // All torus arithmetic is uint32_t (wrapping mod 2^32).
 
 #pragma once
@@ -28,6 +29,22 @@ __device__ __forceinline__ uint32_t rounded_diff(uint32_t rotated, uint32_t cur,
 
 __device__ __forceinline__ int8_t digit(uint32_t u, int lv, int bgbit) {
   return (int8_t)((int32_t)(u << (bgbit * lv)) >> (32 - bgbit));
+}
+
+// The nine tree planes of a position's four residues (the two-level
+// Karatsuba operand tree, engine/karatsuba.py tree_planes), in the leaf
+// table's order: r0, r2, r0+r2, r1, r3, r1+r3, r0+r1, r2+r3, r0+r1+r2+r3.
+template <class X, class Add>
+__device__ __forceinline__ void tree9(const X (&d)[4], X (&q)[9], Add add) {
+  q[0] = d[0];
+  q[1] = d[2];
+  q[2] = add(d[0], d[2]);
+  q[3] = d[1];
+  q[4] = d[3];
+  q[5] = add(d[1], d[3]);
+  q[6] = add(d[0], d[1]);
+  q[7] = add(d[2], d[3]);
+  q[8] = add(q[6], q[7]);
 }
 
 }  // namespace rustfhe

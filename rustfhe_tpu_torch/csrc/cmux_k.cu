@@ -56,11 +56,19 @@
 // them per thread across the steps of a rotation) and their TMA maps are
 // cached here by address.  rustfhe_cmux_rotate_k issues a whole rotation's
 // steps from one host call, the three launches a step in a C loop.
+//
+// Wide batches take the same step on the two-level Karatsuba product
+// (karatsuba_step.cuh: 9/16 of the multiply-adds, the leaf products
+// combined in the product's epilogue), word for word the step above:
+// rustfhe_cmux_rotate_karatsuba issues its rotation the same way, each
+// step's leaf panels cut from the key's leaf table (engine/cmux_k.py
+// leaf_table, prepared once).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cmux_step.cuh"
+#include "karatsuba_step.cuh"
 
 namespace {
 
@@ -167,6 +175,50 @@ int rustfhe_cmux_rotate_k(void* acc, const void* a_steps, const void* key, void*
     }
   }
   return (int)cudaSuccess;
+}
+
+// K1 on the Karatsuba product: a whole rotation of n steps, each karatsuba_step.cuh's three
+// launches on `stream`, from one host call, as rustfhe_cmux_rotate_k issues them.  table (n, 2,
+// 9, 4, 2L, N/2) int8, step i's leaf table at i 72 l N bytes; digits (B, 9, 2L, npad) int8 and
+// panel (9, 2L, 2, 4, rows, 128) int8, npad and rows those of ns = N/4.  acc, acc2, a_steps,
+// failed_step and result as rustfhe_cmux_rotate_k has them.
+int rustfhe_cmux_rotate_karatsuba(void* acc, const void* a_steps, const void* table, void* acc2,
+                                  void* digits, void* panel, int n, int B, int N, int l,
+                                  int bgbit, unsigned int mask, int* failed_step, int* result,
+                                  void* stream) {
+  namespace kara = rustfhe::karatsuba;
+  *failed_step = -1;
+  *result = n % 2;
+  if (n < 1 || !kara::step_shape_ok(B, N, l, bgbit)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  kara::ProductPlan plan;
+  cudaError_t e = kara::plan_product(&plan, digits, panel, B, N, l);
+  if (e != cudaSuccess) return (int)e;
+  void* bufs[2] = {acc, acc2};
+  for (int i = 0; i < n; ++i) {
+    e = kara::launch_step(plan, bufs[i % 2], (const int32_t*)a_steps + (size_t)i * B,
+                          (const int8_t*)table + i * kara::table_bytes(N, l), bufs[(i + 1) % 2],
+                          digits, panel, B, N, l, bgbit, mask, st);
+    if (e != cudaSuccess) {
+      *failed_step = i;
+      return (int)e;
+    }
+  }
+  return (int)cudaSuccess;
+}
+
+// One step of rustfhe_cmux_rotate_karatsuba, acc -> out (distinct buffers), on the step's leaf
+// table (2, 9, 4, 2L, N/2).
+int rustfhe_cmux_step_karatsuba(const void* acc, const void* a_tilde, const void* table, void* out,
+                                void* digits, void* panel, int B, int N, int l, int bgbit,
+                                unsigned int mask, void* stream) {
+  namespace kara = rustfhe::karatsuba;
+  if (!kara::step_shape_ok(B, N, l, bgbit) || acc == out) return (int)cudaErrorInvalidValue;
+  kara::ProductPlan plan;
+  const cudaError_t e = kara::plan_product(&plan, digits, panel, B, N, l);
+  if (e != cudaSuccess) return (int)e;
+  return (int)kara::launch_step(plan, acc, a_tilde, table, out, digits, panel, B, N, l, bgbit,
+                                mask, (cudaStream_t)stream);
 }
 
 // K1 on the caller's prebuilt panel (a hybrid key's step, keys.cloud_key_hybrid): the digits

@@ -91,12 +91,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// The ring's barriers at `full` and `empty` (STAGES of 8 bytes each): a full
-// barrier takes the producer's one expect_tx, an empty one an arrival from
-// each consumer warp.  One thread initialises them before the block's first
-// __syncthreads.
-__device__ __forceinline__ void ring_init(uint32_t full, uint32_t empty, int consumer_warps) {
-  for (int s = 0; s < STAGES; ++s) {
+// The ring's barriers at `full` and `empty` (`stages` of 8 bytes each): a
+// full barrier takes the producer's one expect_tx, an empty one an arrival
+// from each consumer warp.  One thread initialises them before the block's
+// first __syncthreads.
+__device__ __forceinline__ void ring_init(uint32_t full, uint32_t empty, int consumer_warps,
+                                          int stages = STAGES) {
+  for (int s = 0; s < stages; ++s) {
     mbar_init(full + 8 * s, 1);
     mbar_init(empty + 8 * s, consumer_warps);
   }

@@ -143,6 +143,7 @@ namespace {
 using namespace rustfhe::cmux;
 using rustfhe::rotated_coeff;
 using rustfhe::rounded_diff;
+using rustfhe::tree9;
 
 constexpr int R = 4;       // residues per half (levels 2)
 constexpr int TREE = 9;    // leaves
@@ -214,20 +215,6 @@ __device__ __forceinline__ int32_t extract(uint32_t u, int lv, int bgbit) {
     else
       return (int32_t)(raw - ((raw & half) << 1));
   }
-}
-
-// The nine tree planes of four residues, in the table's leaf order.
-template <class X, class Add>
-__device__ __forceinline__ void tree9(const X (&d)[R], X (&q)[TREE], Add add) {
-  q[0] = d[0];
-  q[1] = d[2];
-  q[2] = add(d[0], d[2]);
-  q[3] = d[1];
-  q[4] = d[3];
-  q[5] = add(d[1], d[3]);
-  q[6] = add(d[0], d[1]);
-  q[7] = add(d[2], d[3]);
-  q[8] = add(q[6], q[7]);
 }
 
 // 1. acc (B, 2N) words in the residue layout; a~ of sample b is

@@ -19,12 +19,21 @@ steps of a rotation; the library keeps their TMA maps by address.
 ``cmux_rotate`` issues a whole rotation's steps from one call into the
 library, which launches them in a C loop.
 
+At ``KARATSUBA_MIN_ROWS`` rows or more (per parameter set, measured on the
+card) ``cmux_rotate`` takes the same step on the two-level Karatsuba
+product instead (``cmux_step_karatsuba``, ``csrc/karatsuba_step.cuh``): the
+nine leaf products of ``engine/karatsuba.py`` at 9/16 of the schoolbook
+multiply-adds, combined in the product's epilogue, on each step's leaf
+table (``leaf_table``, prepared once for the whole key), every output word
+the same.  ``product_for`` says which product a rotation of B rows takes.
+
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
 kernel or raises.  There is no fallback from a failed launch to the plain
 version.  ``cmux_step.launches`` counts steps (three kernel launches each),
 ``cmux_rotate``'s among them, ``cmux_rotate.launches`` the rotations issued
-in one call, ``cmux_step_panel.launches`` steps on a prebuilt panel (two
+in one call, ``cmux_step_karatsuba.launches`` the steps among them on the
+Karatsuba product, ``cmux_step_panel.launches`` steps on a prebuilt panel (two
 each: the digits and the product), ``external_product.launches`` K2's
 calls (two each) and ``key_panel.launches`` the panel kernel launched alone
 (a hybrid key's build); nothing else counts.
@@ -35,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +52,8 @@ import torch.nn.functional as F
 from .. import poly
 from .._u32 import wrap
 from ..params import TFHEParams
-from . import build, plain
+from ..utils import trace
+from . import build, karatsuba, plain
 
 SLICE = 128  # bytes of K per stage of the product's TMA ring
 LIMBS = 4  # balanced signed 8-bit limbs of a key word
@@ -65,6 +76,9 @@ def load_library() -> ctypes.CDLL:
             ("rustfhe_cmux_step_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
             ("rustfhe_cmux_rotate_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu, pi, pi,
                                        vp]),
+            ("rustfhe_cmux_rotate_karatsuba", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu,
+                                               pi, pi, vp]),
+            ("rustfhe_cmux_step_karatsuba", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
             ("rustfhe_cmux_step_panel", [vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
             ("rustfhe_external_product_k", [vp, vp, vp, vp, ci, ci, ci, vp]),
             ("rustfhe_key_panel", [vp, vp, ci, ci, vp]),
@@ -207,7 +221,7 @@ cmux_step.launches = 0
 
 
 def cmux_rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
-                params: TFHEParams) -> torch.Tensor:
+                params: TFHEParams, span=trace.OFF) -> torch.Tensor:
     """The n steps of a blind rotation, ``cmux_step`` on ``a_steps[i]`` and
     ``key[i]`` for i < n, from one host call: ``acc`` int32 (B, 2, N),
     ``a_steps`` int32 (n, B) (``bootstrap.rotation_start``), ``key`` the
@@ -218,35 +232,202 @@ def cmux_rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
     and their inputs are ``cmux_step``'s, so every output word is the same.
     Adds n to ``cmux_step.launches`` and 1 to ``cmux_rotate.launches``.  On
     the CPU: n calls of ``cmux_step``, that is the loop of
-    ``cmux_step_plain``, ``acc`` left as it was."""
+    ``cmux_step_plain``, ``acc`` left as it was.
+
+    Where ``product_for`` says "karatsuba" (a batch of at least
+    ``KARATSUBA_MIN_ROWS`` rows) the steps are ``cmux_step_karatsuba``'s on
+    the key's ``leaf_table``, in the same one call (on the CPU the loop of
+    its plain version), every output word the same; they also count in
+    ``cmux_step_karatsuba.launches``.  ``span`` (the caller's open
+    ``trace.span``) gets the product taken as its ``product`` attribute."""
     B, n = acc.shape[0], params.n
     N, two_l = params.N, 2 * params.l
     _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
     _check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
     _check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), acc.device)
+    product = product_for(params, B)
+    span.set(product=product)
+    if product == "karatsuba":
+        return _rotate_karatsuba(acc, a_steps, leaf_table(key, params), params)
+    return _rotate_schoolbook(acc, a_steps, key, params)
+
+
+def _rotate_schoolbook(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
+                       params: TFHEParams) -> torch.Tensor:
+    """``cmux_rotate`` on ``cmux_step``'s schoolbook steps."""
     if not _dispatch(acc.device):
-        for i in range(n):  # cmux_step_plain through the step's own dispatch
+        for i in range(params.n):  # cmux_step_plain through the step's own dispatch
             acc = cmux_step(acc, a_steps[i], key[i], params)
         return acc
-    check_shape(N, two_l)
+    check_shape(params.N, 2 * params.l)
     stream = _stream(acc.device)
-    digits = _step_buffer("digits", (B, two_l, geometry(N)[0]), acc.device, stream)
+    digits = _step_buffer("digits", (acc.shape[0], 2 * params.l, geometry(params.N)[0]),
+                          acc.device, stream)
     panel = _step_buffer("panel", panel_shape(params), acc.device, stream)
+    return _rotate_call("cmux_rotate_k", acc, a_steps, key, digits, panel, params, stream)
+
+
+def _rotate_call(what: str, acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
+                 digits: torch.Tensor, panel: torch.Tensor, params: TFHEParams,
+                 stream: int) -> torch.Tensor:
+    """One call of the library's rotation ``rustfhe_<what>`` (the schoolbook
+    or the Karatsuba steps) on ``key`` (the doubled tables or the leaf
+    tables), ``acc`` and one new accumulator; returns whichever the last
+    step wrote and counts the steps and the rotation."""
+    B, n = acc.shape[0], params.n
     other = torch.empty_like(acc)
     failed, result = ctypes.c_int(-1), ctypes.c_int(0)
     lib = load_library()
     with torch.cuda.device(acc.device):
-        err = lib.rustfhe_cmux_rotate_k(
+        err = getattr(lib, "rustfhe_" + what)(
             acc.data_ptr(), a_steps.data_ptr(), key.data_ptr(), other.data_ptr(),
-            digits.data_ptr(), panel.data_ptr(), n, B, N, params.l, params.bgbit,
+            digits.data_ptr(), panel.data_ptr(), n, B, params.N, params.l, params.bgbit,
             params.decomp_mask, ctypes.byref(failed), ctypes.byref(result), stream)
-    _check(lib, err, f"cmux_rotate_k (step {failed.value} of {n})")
+    _check(lib, err, f"{what} (step {failed.value} of {n})")
     cmux_step.launches += n
     cmux_rotate.launches += 1
     return other if result.value else acc
 
 
 cmux_rotate.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# K1 on the two-level Karatsuba product: the wide batches' step
+# --------------------------------------------------------------------- #
+SPAN = 32  # leaf positions of the Karatsuba product's block tile (csrc/karatsuba_step.cuh)
+
+# The fewest rows at which the Karatsuba step is faster than the schoolbook
+# one, per (N, l, bgbit), from the two steps timed in turns on the card
+# (``benches/karatsuba_crossover.py``, PERF.md §6): DEFAULT_PARAMS and
+# PBS_PARAMS.  A parameter set not here keeps the schoolbook step.
+KARATSUBA_MIN_ROWS = {(1024, 3, 6): 768, (2048, 4, 6): 512}
+
+
+def karatsuba_takes(params: TFHEParams) -> bool:
+    """True when the Karatsuba step takes ``params``: N a power of two in
+    [4 SPAN, MAX_N] (whole block tiles of leaf positions) and the digit tree
+    and leaf sums in range (``karatsuba.check_bound``)."""
+    if not 4 * SPAN <= params.N <= MAX_N or params.N & (params.N - 1):
+        return False
+    try:
+        karatsuba.check_bound(params)
+    except ValueError:
+        return False
+    return True
+
+
+def wants_leaf_table(params: TFHEParams) -> bool:
+    """True when a K1 rotation at ``params`` takes the Karatsuba step from
+    some batch on (``KARATSUBA_MIN_ROWS`` has a threshold for it), so that
+    its key needs ``leaf_table``."""
+    return ((params.N, params.l, params.bgbit) in KARATSUBA_MIN_ROWS
+            and karatsuba_takes(params))
+
+
+def product_for(params: TFHEParams, rows: int) -> str:
+    """The product a K1 rotation of ``rows`` rows takes: "karatsuba" at
+    ``KARATSUBA_MIN_ROWS`` or more for ``params``, else "schoolbook"."""
+    if (wants_leaf_table(params)
+            and rows >= KARATSUBA_MIN_ROWS[(params.N, params.l, params.bgbit)]):
+        return "karatsuba"
+    return "schoolbook"
+
+
+_leaf_tables: dict = {}  # id(key) -> (the key's weak reference, its leaf tables)
+
+
+def leaf_table(key: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The leaf limb tables of every step of the prepared key ``key`` int32
+    (n, 2L, 2, 2N): int8 (n, 2, 9, 4, 2L, N/2), ``karatsuba.prepare_table``
+    of each step's rows (the upper half of its doubled table), on the key's
+    device.  Built once for a key and kept while the key lives (``keys``
+    builds a card key's in set-up)."""
+    n, two_l, N = key.shape[0], 2 * params.l, params.N
+    _check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), key.device)
+    hit = _leaf_tables.get(id(key))
+    if hit is not None and hit[0]() is key:
+        return hit[1]
+    table = torch.empty((n,) + karatsuba.table_shape(params), dtype=torch.int8, device=key.device)
+    for i in range(0, n, 64):  # a few steps at a time, to bound the temporaries
+        table[i: i + 64] = karatsuba.prepare_table(key[i: i + 64, ..., N:])
+    _leaf_tables[id(key)] = (weakref.ref(key), table)
+    weakref.finalize(key, _leaf_tables.pop, id(key), None)
+    return table
+
+
+def cmux_step_karatsuba_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
+                              params: TFHEParams) -> torch.Tensor:
+    """``cmux_step_plain``'s function through the Karatsuba leaves: the
+    residue layout's plain step (``karatsuba.step_plain``) on the step's
+    leaf table, in and out of the standard layout."""
+    flat = karatsuba.step_plain(karatsuba.scan_enter(acc), a_tilde, table, params)
+    return karatsuba.scan_exit(flat)
+
+
+def _check_karatsuba(params: TFHEParams) -> None:
+    if not karatsuba_takes(params):
+        raise ValueError(f"the Karatsuba step takes N a power of two in [{4 * SPAN}, {MAX_N}] "
+                         f"with half_bg * 4 <= 128, got N={params.N}, bgbit={params.bgbit}")
+
+
+def _karatsuba_buffers(B: int, params: TFHEParams, device: torch.device,
+                       stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The calling thread's tree-digit and leaf-panel buffers of the
+    Karatsuba step: int8 (B, 9, 2L, npad) and (9, 2L, 2, LIMBS, rows,
+    SLICE) at ns = N/4."""
+    npad, _, rows = geometry(params.N // karatsuba.R)
+    two_l = 2 * params.l
+    return (_step_buffer("leaf_digits", (B, karatsuba.T, two_l, npad), device, stream),
+            _step_buffer("leaf_panel", (karatsuba.T, two_l, 2, LIMBS, rows, SLICE), device,
+                         stream))
+
+
+def cmux_step_karatsuba(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
+                        params: TFHEParams) -> torch.Tensor:
+    """``cmux_step`` on the Karatsuba product: ``table`` the step's leaf
+    table int8 (2, 9, 4, 2L, N/2) (a row of ``leaf_table``).  Three
+    launches: the leaf panels, the tree digits and the product with the
+    combine and the add in its epilogue."""
+    B = acc.shape[0]
+    N = params.N
+    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    _check_tensor("table", table, torch.int8, karatsuba.table_shape(params), acc.device)
+    _check_karatsuba(params)
+    if not _dispatch(acc.device):
+        return cmux_step_karatsuba_plain(acc, a_tilde, table, params)
+    stream = _stream(acc.device)
+    digits, panel = _karatsuba_buffers(B, params, acc.device, stream)
+    out = torch.empty_like(acc)
+    _launch("cmux_step_karatsuba", load_library().rustfhe_cmux_step_karatsuba, acc, a_tilde,
+            table, out, digits, panel, B, N, params.l, params.bgbit, params.decomp_mask,
+            stream=stream)
+    cmux_step.launches += 1
+    cmux_step_karatsuba.launches += 1
+    return out
+
+
+cmux_step_karatsuba.launches = 0
+
+
+def _rotate_karatsuba(acc: torch.Tensor, a_steps: torch.Tensor, tables: torch.Tensor,
+                      params: TFHEParams) -> torch.Tensor:
+    """``cmux_rotate`` on the Karatsuba steps, ``tables`` the key's
+    ``leaf_table``: on the card one call into the library's C loop
+    (``rustfhe_cmux_rotate_karatsuba``), ``acc`` overwritten; on the CPU the
+    loop of ``cmux_step_karatsuba_plain``."""
+    _check_karatsuba(params)
+    if not _dispatch(acc.device):
+        for i in range(params.n):  # the plain step through the step's own dispatch
+            acc = cmux_step_karatsuba(acc, a_steps[i], tables[i], params)
+        return acc
+    stream = _stream(acc.device)
+    digits, panel = _karatsuba_buffers(acc.shape[0], params, acc.device, stream)
+    out = _rotate_call("cmux_rotate_karatsuba", acc, a_steps, tables, digits, panel, params,
+                       stream)
+    cmux_step_karatsuba.launches += params.n
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -442,5 +623,6 @@ def panel_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
 
 
 def reset_counters() -> None:
-    for fn in (cmux_step, cmux_rotate, cmux_step_panel, external_product, key_panel):
+    for fn in (cmux_step, cmux_rotate, cmux_step_karatsuba, cmux_step_panel, external_product,
+               key_panel):
         fn.launches = 0

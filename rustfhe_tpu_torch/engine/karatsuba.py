@@ -161,18 +161,19 @@ def table_shape(params: TFHEParams) -> tuple:
 
 
 def prepare_table(rows: torch.Tensor) -> torch.Tensor:
-    """TRGSW rows ``(2L, 2, N)`` int32 -> the leaf limb table int8
-    ``(2, T, K, 2L, 2ns)``.  Plane [c, t, k, j] is ``[limbs(-q), limbs(q)]``
-    of limb k of q = leaf t of ``tree_planes`` over the residues of row
-    (j, c), so out[x] = sum_i d[i] * plane[x - i + ns] is the negacyclic
-    product at size ns (the layout of ``plain.prepare_trgsw_limbs``).  The
-    key's tree sums wrap mod 2^32 before the limb split: the product is
-    taken mod 2^32, so the wrapped sum recombines exactly."""
+    """TRGSW rows ``(..., 2L, 2, N)`` int32 -> the leaf limb table int8
+    ``(..., 2, T, K, 2L, 2ns)``.  Plane [c, t, k, j] is ``[limbs(-q),
+    limbs(q)]`` of limb k of q = leaf t of ``tree_planes`` over the residues
+    of row (j, c), so out[x] = sum_i d[i] * plane[x - i + ns] is the
+    negacyclic product at size ns (the layout of
+    ``plain.prepare_trgsw_limbs``).  The key's tree sums wrap mod 2^32
+    before the limb split: the product is taken mod 2^32, so the wrapped sum
+    recombines exactly."""
     res = [rows[..., i::R] for i in range(R)]
-    q = torch.stack(tree_planes(res, lambda a, b: a + b), dim=-2)  # (2L, 2, T, ns)
-    neg = to_signed_limbs(-q, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)  # (2L, 2, T, K, ns)
+    q = torch.stack(tree_planes(res, lambda a, b: a + b), dim=-2)  # (..., 2L, 2, T, ns)
+    neg = to_signed_limbs(-q, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)  # (..., 2L, 2, T, K, ns)
     pos = to_signed_limbs(q, LIMB_BITS, NUM_LIMBS).movedim(-1, -2)
-    return torch.cat([neg, pos], dim=-1).permute(1, 2, 3, 0, 4).contiguous()
+    return torch.cat([neg, pos], dim=-1).movedim(-5, -2).contiguous()
 
 
 def table_from_qd(qd: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ Counterpart of ``rustfhe_tpu/keys.py`` (standard and latency keys):
   * the prepared cloud key, for the engine asked for (``engine``): BK
     as the int32 doubled tables K1 reads (``engine.plain.prepare_trgsw``,
     62 MB at DEFAULT_PARAMS; K1 cuts each step's table into int8 limb
-    panels on the card as it runs), or as the int8 doubled limb tables K4-K6
+    panels on the card as it runs), with, on the card, the leaf tables of
+    K1's Karatsuba step beside them (``engine.cmux_k.leaf_table``, 140 MB
+    at DEFAULT_PARAMS, kept with the key), or as the int8 doubled limb tables K4-K6
     read, marked ``LimbBK`` (``engine.plain.prepare_trgsw_limbs``, the
     same 62 MB), or as a generic engine's own table (``"matmul"``,
     ``"matmul_bf16"``, ``"fft64"``), marked ``GenericBK``; and the KSK as
@@ -197,6 +199,8 @@ def prepare_cloud_key(bk_raw: torch.Tensor, ksk_raw: torch.Tensor, params: TFHEP
         bk = LimbBK(prepare_trgsw_limbs(bk_raw), eng.merge_c, eng.fuse_step)
     elif isinstance(eng, CmuxKEngine):
         bk = prepare_trgsw(bk_raw)
+        if bk.is_cuda and cmux_k.wants_leaf_table(params):
+            cmux_k.leaf_table(bk, params)  # read by the wide rotations' Karatsuba steps
     else:  # a PolyEngine: one of this package's by its name, a registered one as itself
         bk = GenericBK(eng.prepare_trgsw(bk_raw, params),
                        eng.name if isinstance(eng, GENERIC) else eng)

@@ -34,7 +34,9 @@ Spans of the port (name: where; attributes):
 * ``blind_rotate``: ``bootstrap.blind_rotate``; ``rows``, ``tv_rows``,
   ``path`` (``k1``, ``k3``, ``hybrid``, ``limb``, ``generic``), ``steps``
   (n, 1 for K3's single launch), ``calls`` (the host calls that issued the
-  steps: 1 for K1 and K3, ``steps`` for the loops)
+  steps: 1 for K1 and K3, ``steps`` for the loops), and on K1 alone
+  ``product`` (``karatsuba`` or ``schoolbook``: the step that
+  ``engine.cmux_k.cmux_rotate`` took, set by it)
 * ``key_switch``: ``bootstrap.identity_key_switch``, and the sharded key
   switches of ``parallel.sharded``; ``rows``
 * ``collective``: every collective of ``parallel/`` (``parallel.mesh.collective``);

@@ -5,7 +5,12 @@ version; these tests hold it word for word to n calls of that step, at n
 odd and even (the card's ping-pong between two accumulators ends in the
 one or the other), at several batches, with one test vector for every row
 and with one per row.  ``bootstrap.blind_rotate`` takes it for a standard
-key, and its span says so.  The card's rotation is held to the per-step
+key, and its span says so.  At wide batches (``cmux_k.KARATSUBA_MIN_ROWS``,
+lowered here so that a small batch reaches it) the rotation takes the
+Karatsuba step, whose plain version (``cmux_step_karatsuba`` on the CPU)
+gives the same words, and so does the JAX package's K1 step (its own
+two-level Karatsuba step, in interpret mode); the span's ``product`` says
+which step ran.  The card's rotations are held to the per-step
 ``cmux_step`` chain by ``tests/test_torch_cuda.py``.
 """
 
@@ -14,7 +19,7 @@ import pytest
 import torch
 
 from rustfhe_tpu_torch import _u32, bootstrap, keys, params
-from rustfhe_tpu_torch.engine import cmux_k, plain, rotate_all_k
+from rustfhe_tpu_torch.engine import cmux_k, karatsuba, plain, rotate_all_k
 from rustfhe_tpu_torch.utils import trace
 
 P16 = params.DEFAULT_PARAMS.replace(n=16, N=256)
@@ -73,7 +78,7 @@ def test_blind_rotate_issues_k1_in_one_call(n, key):
     trace.clear()
     assert torch.equal(got, want)
     assert [r.attrs for r in recs] == [
-        {"rows": B, "tv_rows": 1, "path": "k1", "steps": n, "calls": 1}]
+        {"rows": B, "tv_rows": 1, "path": "k1", "steps": n, "calls": 1, "product": "schoolbook"}]
     assert (cmux_k.cmux_step.launches, cmux_k.cmux_rotate.launches) == (k1, rot)
 
 
@@ -98,3 +103,156 @@ def test_reset_counters_resets_the_rotations():
     cmux_k.reset_counters()
     assert cmux_k.cmux_rotate.launches == 0 and cmux_k.cmux_step.launches == 0
 
+
+def _lower_threshold(monkeypatch, p, rows):
+    """The Karatsuba step from ``rows`` rows at ``p`` (the measured
+    thresholds are thousands of rows)."""
+    monkeypatch.setitem(cmux_k.KARATSUBA_MIN_ROWS, (p.N, p.l, p.bgbit), rows)
+
+
+@pytest.mark.parametrize("B", [1, 5, 33])
+@pytest.mark.parametrize("N", [256, 1024])
+def test_karatsuba_step_plain_equals_the_schoolbook_step(N, B):
+    p = params.DEFAULT_PARAMS.replace(n=2, N=N)
+    _, _, acc, a_steps, bk = _rotation(5 * N + B, B, p, per_row=True)
+    tables = cmux_k.leaf_table(bk, p)
+    for i in range(p.n):
+        want = cmux_k.cmux_step_plain(acc, a_steps[i], bk[i], p)
+        got = cmux_k.cmux_step_karatsuba(acc, a_steps[i], tables[i], p)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert torch.equal(got, cmux_k.cmux_step_karatsuba_plain(acc, a_steps[i], tables[i], p))
+        acc = got
+
+
+def test_leaf_table_is_each_steps_table_kept_with_its_key():
+    p = P16.replace(n=3)
+    _, _, _, _, bk = _rotation(11, 1, p, per_row=False)
+    tables = cmux_k.leaf_table(bk, p)
+    assert tables.shape == (3,) + karatsuba.table_shape(p) and tables.dtype == torch.int8
+    for i in range(3):
+        assert torch.equal(tables[i], karatsuba.prepare_table(bk[i, ..., p.N:]))
+    assert cmux_k.leaf_table(bk, p) is tables  # built once
+    assert cmux_k.leaf_table(bk.clone(), p) is not tables
+    key_id = id(bk)
+    del bk
+    assert key_id not in cmux_k._leaf_tables  # dropped with its key
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["one_tv", "tv_per_row"])
+@pytest.mark.parametrize("n", [16, 17])
+def test_cmux_rotate_takes_the_karatsuba_step_from_the_threshold(monkeypatch, n, per_row):
+    p = P16.replace(n=n)
+    _lower_threshold(monkeypatch, p, 5)
+    for B, product in ((4, "schoolbook"), (5, "karatsuba"), (6, "karatsuba")):
+        assert cmux_k.product_for(p, B) == product
+        _, _, acc, a_steps, bk = _rotation(30 * n + B, B, p, per_row)
+        first = acc.clone()
+        want = _step_chain(acc, a_steps, bk, p)
+        counts = (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches,
+                  cmux_k.cmux_rotate.launches)
+        got = cmux_k.cmux_rotate(acc, a_steps, bk, p)
+        assert counts == (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches,
+                          cmux_k.cmux_rotate.launches)  # CPU: plain
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert torch.equal(acc, first)
+
+
+@pytest.mark.parametrize("B", [4, 5])
+def test_blind_rotate_span_names_the_product(monkeypatch, B):
+    p = P16
+    _lower_threshold(monkeypatch, p, 5)
+    ct, tv, acc, a_steps, bk = _rotation(40 + B, B, p, per_row=False)
+    want = _step_chain(acc, a_steps, bk, p)
+    trace.clear()
+    trace.enable()
+    try:
+        got = bootstrap.blind_rotate(ct, bk, tv, p)
+    finally:
+        trace.enable(False)
+    recs = [r for r in trace.records() if r.name == "blind_rotate"]
+    trace.clear()
+    assert torch.equal(got, want)
+    assert [r.attrs["product"] for r in recs] == ["karatsuba" if B >= 5 else "schoolbook"]
+
+
+def test_product_for_follows_the_measured_thresholds():
+    for p in (params.DEFAULT_PARAMS, params.PBS_PARAMS):
+        least = cmux_k.KARATSUBA_MIN_ROWS[(p.N, p.l, p.bgbit)]
+        assert cmux_k.karatsuba_takes(p)
+        assert cmux_k.product_for(p, least - 1) == "schoolbook"
+        assert cmux_k.product_for(p, least) == "karatsuba"
+    # no measured threshold, or a shape the step does not take (N < 128; Bg = 2^8: tree sums
+    # past int8): the schoolbook step at any batch
+    for p in (params.TEST_PARAMS, params.FAST_PARAMS, params.N2048_PARAMS, P16):
+        assert cmux_k.product_for(p, 1 << 20) == "schoolbook"
+    assert not cmux_k.karatsuba_takes(params.FAST_PARAMS)
+    assert not cmux_k.karatsuba_takes(params.DEFAULT_PARAMS.replace(N=64))
+    assert cmux_k.karatsuba_takes(P16)
+
+
+def test_cmux_step_karatsuba_checks_its_operands():
+    p = P16.replace(n=1)
+    _, _, acc, a_steps, bk = _rotation(9, 3, p, per_row=False)
+    table = cmux_k.leaf_table(bk, p)[0]
+    with pytest.raises(ValueError, match="table must have shape"):
+        cmux_k.cmux_step_karatsuba(acc, a_steps[0], table[:1], p)
+    with pytest.raises(TypeError, match="table must be torch.int8"):
+        cmux_k.cmux_step_karatsuba(acc, a_steps[0], table.to(torch.int32), p)
+    q = p.replace(N=64)
+    small = torch.zeros((3, 2, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="the Karatsuba step takes"):
+        cmux_k.cmux_step_karatsuba(small, a_steps[0],
+                                   torch.zeros(karatsuba.table_shape(q), dtype=torch.int8), q)
+
+
+def test_karatsuba_steps_match_the_jax_k1_step(monkeypatch):
+    """The Karatsuba step's plain version, and a rotation on it (the
+    threshold lowered), = the JAX package's K1 step (``pallas_k``'s
+    two-level Karatsuba step, in interpret mode), step by step, on the same
+    words."""
+    import jax.numpy as jnp
+
+    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
+    from rustfhe_tpu.params import TFHEParams as JParams
+
+    p, jp, B = params.TFHEParams(n=3, N=1024), JParams(n=3, N=1024), 5
+    _lower_threshold(monkeypatch, p, B)
+    rs = np.random.RandomState(57)
+    rows = rs.randint(0, 2**32, size=(p.n, 2 * p.l, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    start = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    a_np = rs.randint(0, 2 * p.N, size=(p.n, B)).astype(np.int32)
+    a_np[0, :4] = [0, 1, p.N, 2 * p.N - 1]
+    bk = plain.prepare_trgsw(_u32.from_numpy(rows))
+    tables = cmux_k.leaf_table(bk, p)
+    a_steps = torch.from_numpy(a_np)
+    k2 = PallasKaratsubaEngine(interpret=True, levels=2)
+    flat = k2.scan_enter(jnp.asarray(start), jp)
+    acc = _u32.from_numpy(start)
+    for i in range(p.n):
+        flat = k2.cmux_step(k2.prepare_trgsw(jnp.asarray(rows[i]), jp), flat,
+                            jnp.asarray(a_np[i]), jp)
+        acc = cmux_k.cmux_step_karatsuba_plain(acc, a_steps[i], tables[i], p)
+        assert np.array_equal(_u32.to_numpy(acc), np.asarray(k2.scan_exit(flat, jp)))
+    assert cmux_k.product_for(p, B) == "karatsuba"
+    got = cmux_k.cmux_rotate(_u32.from_numpy(start), a_steps, bk, p)
+    assert np.array_equal(_u32.to_numpy(got), np.asarray(k2.scan_exit(flat, jp)))
+
+
+@pytest.mark.parametrize("B", [4, 5])
+def test_cmux_rotate_sets_the_product_it_took_on_the_span(monkeypatch, B):
+    p = P16.replace(n=2)
+    _lower_threshold(monkeypatch, p, 5)
+    _, _, acc, a_steps, bk = _rotation(70 + B, B, p, per_row=False)
+    trace.clear()
+    trace.enable()
+    try:
+        with trace.span("caller") as span:
+            cmux_k.cmux_rotate(acc, a_steps, bk, p, span)
+        cmux_k.cmux_rotate(acc, a_steps, bk, p)  # no span given: nothing set
+    finally:
+        trace.enable(False)
+    recs = trace.records()
+    trace.clear()
+    assert [(r.name, r.attrs) for r in recs] == [
+        ("caller", {"product": cmux_k.product_for(p, B)})]
+    assert cmux_k.product_for(p, B) == ("karatsuba" if B >= 5 else "schoolbook")

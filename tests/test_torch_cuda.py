@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K6 (and K4/K6's pieces) and the probes P1-P10
-against their plain versions, and the generic engines "matmul" and "matmul_bf16" against
+"""The CUDA kernels K1-K6 (and K4/K6's pieces, and K1's Karatsuba step) and
+the probes P1-P10 against their plain versions, and the generic engines "matmul" and "matmul_bf16" against
 their CPU products, on the card; the integer, PBS and radix paths on K1
 and K3 (a test vector per row at PBS_PARAMS) against the CPU and the K1 loop;
 the seeded expansion (threefry) on the card against the CPU's; the one-hot
@@ -302,6 +302,83 @@ def test_cmux_rotate_on_a_side_stream(cuda):
         got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
     torch.cuda.current_stream(cuda).wait_stream(side)
     assert torch.equal(got, want)
+
+
+# K1 on the Karatsuba product: DEFAULT_PARAMS at B = 1,024, 4,096, 16,384 and an odd B, PBS_PARAMS
+# with a test vector per row at B = 512 and 4,096.
+KARATSUBA_CASES = [("DEFAULT_PARAMS", B) for B in (1024, 4096, 4099, 16384)] + [
+    ("PBS_PARAMS", B) for B in (512, 4096)]
+
+
+@pytest.mark.parametrize("name,B", KARATSUBA_CASES)
+def test_karatsuba_step_matches_the_schoolbook_step(cuda, name, B):
+    """One Karatsuba step on the card = K1's schoolbook step on the card = the
+    plain step (``step_digits_plain``, then the float64 external product;
+    on the card in plain torch), word for word, from a random accumulator
+    and key."""
+    p = CMUX_PARAMS[name]
+    rs = np.random.RandomState(90 + B)
+
+    def words(*shape):
+        return _u32.from_numpy(rs.randint(0, 2**32, size=shape, dtype=np.uint64), cuda)
+
+    acc = words(B, 2, p.N)
+    a = torch.from_numpy(rs.randint(0, 2 * p.N, size=(B,)).astype(np.int32)).to(cuda)
+    key = plain.prepare_trgsw(words(1, 2 * p.l, 2, p.N))
+    table = cmux_k.leaf_table(key, p)[0]
+    before = (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches)
+    got = cmux_k.cmux_step_karatsuba(acc, a, table, p)
+    assert (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, cmux_k.cmux_step(acc, a, key[0], p))
+    digits = cmux_k.step_digits_plain(acc, a, p)[..., :p.N].contiguous()
+    assert torch.equal(got, acc + plain.external_product(digits, key[0]))
+
+
+@pytest.mark.parametrize("name,B", KARATSUBA_CASES)
+def test_cmux_rotate_on_the_karatsuba_step_equals_the_schoolbook_chain(cuda, name, B):
+    """A whole rotation from one call on the Karatsuba steps (n = 635 or 714)
+    = n calls of K1's schoolbook cmux_step, word for word; it counts n steps,
+    n Karatsuba steps and one rotation."""
+    p = CMUX_PARAMS[name]
+    assert cmux_k.product_for(p, B) == "karatsuba"
+    acc, a, bk = _full_rotation_case(60 + B, B, p, cuda, per_row=name == "PBS_PARAMS")
+    want = _k1_loop(acc, a, bk, p)
+    before = (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches,
+              cmux_k.cmux_rotate.launches)
+    got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
+    assert (cmux_k.cmux_step.launches - before[0], cmux_k.cmux_step_karatsuba.launches - before[1],
+            cmux_k.cmux_rotate.launches - before[2]) == (p.n, p.n, 1)
+    assert torch.equal(got, want)
+
+
+def test_cmux_rotate_on_the_karatsuba_step_on_a_side_stream(cuda):
+    p = params.DEFAULT_PARAMS
+    acc, a, bk = _full_rotation_case(78, 1024, p, cuda, per_row=False)
+    want = _k1_loop(acc, a, bk, p)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))  # the inputs were made on the default one
+    with torch.cuda.stream(side):
+        before = cmux_k.cmux_step_karatsuba.launches
+        got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert cmux_k.cmux_step_karatsuba.launches == before + p.n
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_cmux_rotate_takes_the_karatsuba_step_from_its_threshold(cuda, name):
+    """One row below the measured threshold the rotation takes the schoolbook
+    step, at it the Karatsuba step; both = the per-step chain."""
+    p = CMUX_PARAMS[name]
+    least = cmux_k.KARATSUBA_MIN_ROWS[(p.N, p.l, p.bgbit)]
+    for B, steps in ((least - 1, 0), (least, p.n)):
+        acc, a, bk = _full_rotation_case(50 + B, B, p, cuda, per_row=name == "PBS_PARAMS")
+        want = _k1_loop(acc, a, bk, p)
+        before = cmux_k.cmux_step_karatsuba.launches
+        got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
+        assert cmux_k.cmux_step_karatsuba.launches - before == steps
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("cluster", [8, 16])

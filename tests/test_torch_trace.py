@@ -110,7 +110,7 @@ def test_an_add_and_a_pbs_many_make_the_span_tree(monkeypatch):
         assert [r.attrs["rows"] for r in got] == [bt.attrs["rows"] for bt in boots]
     for r in by_name(recs, "blind_rotate"):
         assert r.attrs == {"rows": r.attrs["rows"], "tv_rows": 1, "path": "k1",
-                           "steps": TEST_PARAMS.n, "calls": 1}
+                           "steps": TEST_PARAMS.n, "calls": 1, "product": "schoolbook"}
     for r in recs:
         assert r.t0_ns <= r.t1_ns
         if r.parent is not None:
@@ -157,7 +157,9 @@ def test_blind_rotate_names_its_path_and_steps(case, path, steps, calls):
     assert ctx.decrypt(out).tolist() == [1, 1, 1, 0]
     recs = trace.records()
     (rot,) = by_name(recs, "blind_rotate")
-    assert rot.attrs == {"rows": 4, "tv_rows": 1, "path": path, "steps": steps, "calls": calls}
+    product = {"product": "schoolbook"} if path == "k1" else {}  # K1's alone, at 4 rows
+    assert rot.attrs == {"rows": 4, "tv_rows": 1, "path": path, "steps": steps, "calls": calls,
+                         **product}
     assert not [r for r in recs if r.parent == rot.id]  # no span on a step
     assert [r.name for r in recs if r.parent is None] == ["bootstrap"]
 
