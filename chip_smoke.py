@@ -256,7 +256,7 @@ from rustfhe_tpu_torch.benches import (_timing, coissue2_probe, coissue_probe, k
                                        vpu_reduce_probe)
 from rustfhe_tpu_torch.benches._timing import INT8_OPS_PER_S, bound, schoolbook_ops, step_ops
 from rustfhe_tpu_torch.engine import (build, cmux_k, get_engine, int8_gemm, karatsuba,
-                                      karatsuba_probe, limb_probe, limb_step, matmul,
+                                      karatsuba_probe, launch, limb_probe, limb_step, matmul,
                                       nuss_primitives, oracle, plain, probe_vectors, rotate_all_k,
                                       select_engine)
 from rustfhe_tpu_torch.examples import radix_bench
@@ -398,7 +398,8 @@ def phase_kernels(p, dev, rs):
         want = cmux_k.cmux_step_plain(accb, aib, key, p)
         errs["k1"] = max(errs["k1"], exact(f"K1 B={b}", cmux_k.cmux_step(accb, aib, key, p), want))
         got = cmux_k.cmux_step_karatsuba(accb, aib, ktab, p)
-        tree = cmux_k._karatsuba_buffers(b, p, accb.device, cmux_k._stream(accb.device))[0]
+        tree = cmux_k.step_buffers("karatsuba", b, p, accb.device,
+                                   launch.current_stream(accb.device))[0]
         errs["k1_karatsuba"] = max(
             errs["k1_karatsuba"], exact(f"K1 Karatsuba B={b}", got, want),
             exact(f"K1 Karatsuba tree digits B={b}", tree,
@@ -727,7 +728,7 @@ def phase_real_key(ctx, p, batches):
         raise AssertionError(f"a bootstrap of B={pre.shape[0]} did not take the {product} steps")
     err = max(err, exact(f"bootstrap via cmux_rotate ({product}) vs the per-step K1 loop, "
                          f"B={pre.shape[0]}", got, want))
-    school = cmux_k._rotate_schoolbook(acc.clone(), a_steps, ctx.ck.bk, p)
+    school = cmux_k.rotate(acc.clone(), a_steps, ctx.ck.bk, p, "schoolbook")
     err = max(err, exact(f"the schoolbook rotation in one call vs the per-step K1 loop, "
                          f"B={pre.shape[0]}", school, loop))
     log("realkey", f"one bootstrap of B={pre.shape[0]} on the bootstrapping key: its rotation in "
@@ -3273,10 +3274,10 @@ def main() -> int:
                + pub["k1_karatsuba"] + studies["K1 Karatsuba"])
     leaf_bytes = int(np.prod(karatsuba.table_shape(p)))  # a step's leaf table
     rows = [  # name, source, replaces, launches, error, ms, plain ms, (ops, bytes), library ms
-        ("cmux_step_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
+        ("cmux_rotate_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
          KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", k1_all - k1_kara,
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
-        ("cmux_step_karatsuba: limb_panel_kernel<9> + leaf_digits_kernel + leaf_product_kernel",
+        ("cmux_rotate_karatsuba: limb_panel_kernel<9> + leaf_digits_kernel + leaf_product_kernel",
          KARATSUBA_STEP_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", k1_kara,
          errs["k1_karatsuba"], *times["k1_karatsuba"],
          (step_ops(p, BATCH), step_bytes(p, BATCH, leaf_bytes)), None),

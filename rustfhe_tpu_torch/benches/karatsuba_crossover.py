@@ -3,12 +3,12 @@
 
 For DEFAULT_PARAMS and PBS_PARAMS and each batch B, a rotation of STEPS
 steps (the parameters with n = STEPS) from random words, on the schoolbook
-steps (``cmux_k._rotate_schoolbook``) and on the Karatsuba steps
-(``cmux_k._rotate_karatsuba``): first held to each other word for word,
-then timed in turns (schoolbook, Karatsuba, Karatsuba, schoolbook) between
-CUDA events, ROUNDS rounds.  One JSON line a batch: each step's median ms,
-Karatsuba over schoolbook, and each one's share of the step's bound
-(``_timing.step_ops`` at 1,979 TOP/s).  Then, at the widest batch of each
+steps and on the Karatsuba steps (``cmux_k.rotate`` on either product):
+first held to each other word for word, then timed in turns (schoolbook,
+Karatsuba, Karatsuba, schoolbook) between CUDA events, ROUNDS rounds.  One
+JSON line a batch: each step's median ms, Karatsuba over schoolbook, and
+each one's share of the step's bound (``_timing.step_ops`` at 1,979
+TOP/s).  Then, at the widest batch of each
 set, the device time a step of each of the Karatsuba step's kernels by the
 profiler.  Numbers come only from a card: without one it refuses to run.
 
@@ -65,8 +65,8 @@ def sweep(name: str, device, batches=None) -> None:
     p = base.replace(n=STEPS)
     for B in batches:
         acc, a, key, tables = _case(p, B, device)
-        school = lambda: cmux_k._rotate_schoolbook(acc.clone(), a, key, p)  # noqa: E731
-        kara = lambda: cmux_k._rotate_karatsuba(acc.clone(), a, tables, p)  # noqa: E731
+        school = lambda: cmux_k.rotate(acc.clone(), a, key, p, "schoolbook")  # noqa: E731
+        kara = lambda: cmux_k.rotate(acc.clone(), a, tables, p, "karatsuba")  # noqa: E731
         if not torch.equal(school(), kara()):
             raise AssertionError(f"{name} B={B}: the Karatsuba rotation differs from the "
                                  "schoolbook one")
@@ -91,10 +91,10 @@ def sweep(name: str, device, batches=None) -> None:
 def profile(name: str, p, B: int, device) -> None:
     """The device time a step of each kernel of the Karatsuba rotation."""
     acc, a, key, tables = _case(p, B, device)
-    cmux_k._rotate_karatsuba(acc.clone(), a, tables, p)
+    cmux_k.rotate(acc.clone(), a, tables, p, "karatsuba")
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        cmux_k._rotate_karatsuba(acc.clone(), a, tables, p)
+        cmux_k.rotate(acc.clone(), a, tables, p, "karatsuba")
         torch.cuda.synchronize()
     per = {}
     for e in prof.key_averages():

@@ -52,10 +52,9 @@ import torch
 from . import poly, trlwe
 from ._u32 import srl
 from .decomp import decompose_unsigned
-from .engine import cmux_k, limb_step, resolve_engine, rotate_all_k
+from .engine import cmux_k, limb_step, plain, resolve_engine, rotate_all_k
 from .engine.plain import key_switch_digits
 from .keys import CloudKey, GenericBK, HybridBK, LatencyBK, LimbBK
-from .trgsw import decompose_trlwe
 from .params import TFHEParams
 from .utils import trace
 
@@ -83,9 +82,8 @@ def _limb_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: LimbBK,
             acc = step(acc, a_steps[i], bk.table[i], params)
         return acc
     for i in range(params.n):
-        diff = poly.rotate(acc, a_steps[i][:, None]) - acc
-        digits = decompose_trlwe(diff, params).to(torch.int8)
-        acc = acc + limb_step.external_product(digits, bk.table[i], params)
+        acc = plain.cmux_step(acc, a_steps[i], params,
+                              lambda d: limb_step.external_product(d, bk.table[i], params))
     return acc
 
 
@@ -105,8 +103,9 @@ def _generic_rotate(acc: torch.Tensor, a_steps: torch.Tensor, bk: GenericBK,
                     params: TFHEParams) -> torch.Tensor:
     eng = resolve_engine(bk.engine)
     for i in range(params.n):
-        diff = poly.rotate(acc, a_steps[i][:, None]) - acc
-        acc = acc + eng.external_product_digits(bk.table[i], decompose_trlwe(diff, params), params)
+        acc = plain.cmux_step(acc, a_steps[i], params,
+                              lambda d: eng.external_product_digits(bk.table[i], d, params),
+                              dtype=torch.int32)
     return acc
 
 

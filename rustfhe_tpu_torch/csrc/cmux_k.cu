@@ -55,7 +55,8 @@
 // The digit and panel buffers are the wrapper's (engine/cmux_k.py keeps
 // them per thread across the steps of a rotation) and their TMA maps are
 // cached here by address.  rustfhe_cmux_rotate_k issues a whole rotation's
-// steps from one host call, the three launches a step in a C loop.
+// steps from one host call, the three launches a step in a C loop; a single
+// step is a rotation of one.
 //
 // Wide batches take the same step on the two-level Karatsuba product
 // (karatsuba_step.cuh: 9/16 of the multiply-adds, the leaf products
@@ -68,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include "cmux_step.cuh"
+#include "error_string.cuh"
 #include "karatsuba_step.cuh"
 
 namespace {
@@ -131,25 +133,15 @@ extern "C" {
 // rows, 128) int8; digits (B, 2L, npad) int8; acc, out (B, 2, N) words; all
 // 16-byte aligned where a kernel reads them by TMA or writes them by vector.
 
-// K1: the three launches of one step, into the caller's digit and panel buffers.
-int rustfhe_cmux_step_k(const void* acc, const void* a_tilde, const void* key, void* out,
-                        void* digits, void* panel, int B, int N, int l, int bgbit,
-                        unsigned int mask, void* stream) {
-  if (!shape_ok(B, N, 2 * l)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = launch_panel(key, panel, N, 2 * l, st);
-  if (e == cudaSuccess) e = launch_digits(acc, a_tilde, digits, B, N, l, bgbit, mask, st);
-  if (e == cudaSuccess) e = launch_product<true, 1>(digits, panel, acc, out, B, N, 2 * l, st);
-  return (int)e;
-}
-
-// K1: a whole rotation of n steps, each rustfhe_cmux_step_k's three launches on `stream`, from
-// one host call.  a_steps (n, B) int32, row i the rotations of step i; key (n, 2L, 2, 2N) words,
-// step i at i 2L 2 2N.  Step i reads accumulator i % 2 and writes the other, acc being 0 and
-// acc2 1 (same shape), so both are overwritten; *result says which holds the rotation's output
-// (n % 2).  The product's TMA maps and grid are fetched once, the digit and panel buffers being
-// the same for every step.  On an error *failed_step is the step whose launch failed (-1: none
-// launched, the shape or the plan), and the steps after it are not launched.
+// K1: a whole rotation of n steps, each the three launches above (key_panel_kernel,
+// step_digits_kernel, cmux_product_kernel<true, 1>) on `stream`, from one host call; a single
+// step is a rotation of one.  a_steps (n, B) int32, row i the rotations of step i; key (n, 2L,
+// 2, 2N) words, step i at i 2L 2 2N.  Step i reads accumulator i % 2 and writes the other, acc
+// being 0 and acc2 1 (same shape), so acc2 is written and, from n = 2 on, acc too; *result says
+// which holds the rotation's output (n % 2).  The product's TMA maps and grid are fetched once,
+// the digit and panel buffers being the same for every step.  On an error *failed_step is the
+// step whose launch failed (-1: none launched, the shape or the plan), and the steps after it
+// are not launched.
 int rustfhe_cmux_rotate_k(void* acc, const void* a_steps, const void* key, void* acc2,
                           void* digits, void* panel, int n, int B, int N, int l, int bgbit,
                           unsigned int mask, int* failed_step, int* result, void* stream) {
@@ -207,20 +199,6 @@ int rustfhe_cmux_rotate_karatsuba(void* acc, const void* a_steps, const void* ta
   return (int)cudaSuccess;
 }
 
-// One step of rustfhe_cmux_rotate_karatsuba, acc -> out (distinct buffers), on the step's leaf
-// table (2, 9, 4, 2L, N/2).
-int rustfhe_cmux_step_karatsuba(const void* acc, const void* a_tilde, const void* table, void* out,
-                                void* digits, void* panel, int B, int N, int l, int bgbit,
-                                unsigned int mask, void* stream) {
-  namespace kara = rustfhe::karatsuba;
-  if (!kara::step_shape_ok(B, N, l, bgbit) || acc == out) return (int)cudaErrorInvalidValue;
-  kara::ProductPlan plan;
-  const cudaError_t e = kara::plan_product(&plan, digits, panel, B, N, l);
-  if (e != cudaSuccess) return (int)e;
-  return (int)kara::launch_step(plan, acc, a_tilde, table, out, digits, panel, B, N, l, bgbit,
-                                mask, (cudaStream_t)stream);
-}
-
 // K1 on the caller's prebuilt panel (a hybrid key's step, keys.cloud_key_hybrid): the digits
 // and the product, without key_panel_kernel.  The JAX package fuses a hybrid key's pair of steps
 // into one launch (cmux_step_pair, pallas_k.py:721); here the odd step's digits read the whole
@@ -262,10 +240,6 @@ int rustfhe_panel_product(const void* digits, const void* panel, const void* acc
                           int N, int two_l, void* stream) {
   if (!shape_ok(B, N, two_l)) return (int)cudaErrorInvalidValue;
   return (int)launch_product<true, 1>(digits, panel, acc, out, B, N, two_l, (cudaStream_t)stream);
-}
-
-const char* rustfhe_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -254,13 +254,17 @@ __device__ __forceinline__ void tile_coords(int tile, int tiles_m, int tiles_n, 
 // (the consumers' setmaxnreg.inc waits for registers the producer gave
 // back, and only completes when the launch granted that many a thread) and
 // opt in to `smem` bytes of dynamic shared memory.  Returns the device's
-// SM count in *sms.
+// SM count in *sms.  Every call makes the device's primary context current
+// on the calling thread: a thread's first call into a library may come
+// before any launch of it, and the TMA maps encoded next need a context.
 inline cudaError_t prepare_kernel(const void* kernel, int smem, int launch_regs,
                                   bool (&ready)[MAX_DEVICES], int* sms) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
   if (!ready[dev]) {
     cudaFuncAttributes attr;
     e = cudaFuncGetAttributes(&attr, kernel);

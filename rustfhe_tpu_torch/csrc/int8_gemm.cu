@@ -60,6 +60,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "error_string.cuh"
 #include "hopper_common.cuh"
 
 namespace {

@@ -107,6 +107,7 @@
 #include <cuda_runtime.h>
 
 #include "cmux_step.cuh"
+#include "error_string.cuh"
 
 namespace rustfhe {
 namespace karatsuba {

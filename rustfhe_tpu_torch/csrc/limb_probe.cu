@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "cmux_step.cuh"
+#include "error_string.cuh"
 
 namespace {
 

@@ -39,6 +39,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "error_string.cuh"
+
 namespace {
 
 constexpr int BL = 64;                // lanes per block

@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "cmux_common.cuh"
+#include "error_string.cuh"
 #include "hopper_common.cuh"
 
 namespace cg = cooperative_groups;

@@ -70,6 +70,13 @@ def decompose_unsigned(x: torch.Tensor, params: TFHEParams) -> torch.Tensor:
 
 
 
+def decompose_trlwe(ct: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """Gadget-decompose TRLWE pair(s) (..., 2, N) into int32 (..., 2L, N):
+    body digits, then mask digits."""
+    digits = decompose_signed(ct, params).movedim(-1, -2)  # (..., 2, L, N)
+    return digits.reshape(ct.shape[:-2] + (2 * params.l, params.N))
+
+
 def recompose_signed(digits: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """sum_i d_i * 2^(32 - bits*(i+1)) mod 2^32 over the last axis: the
     inverse of ``decompose_signed`` up to its rounding (a test helper)."""

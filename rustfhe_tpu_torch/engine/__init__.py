@@ -4,7 +4,8 @@ selector.
 Counterpart of ``rustfhe_tpu/engine/__init__.py``.  Two engines are
 families of hand-written CUDA kernels, with the plain torch version of
 every kernel beside it; a wrapper launches its kernel on a CUDA tensor and
-runs the plain version on a CPU tensor:
+runs the plain version on a CPU tensor (every wrapper binds, checks and
+launches through ``launch``; ``build`` compiles the libraries):
 
 * ``"cmux_k"`` (``CmuxKEngine``): K1-K3 (``cmux_k``, ``rotate_all_k``) on
   the int32 doubled key table, the counterpart of the JAX engines

@@ -5,7 +5,8 @@ Counterpart of ``rustfhe_tpu/engine/pallas_k.py``: K1 replaces
 (pallas_k.py:506).  The kernels are CUDA C++ for sm_90a in
 ``csrc/cmux_k.cu`` (with ``csrc/hopper_common.cuh`` and
 ``csrc/cmux_common.cuh``), built with nvcc into a shared library with a
-plain C interface on first use (``build``) and called through ctypes.
+plain C interface on first use (``build``) and called through ctypes
+(``launch``).
 
 A step is one int8 GEMM on the tensor cores (``wgmma``), in three
 launches: the step's key panels (``key_panel``: the balanced int8 limbs of
@@ -14,10 +15,11 @@ slice), the digits (``step_digits``: int8 (B, 2L, Npad), Npad = N rounded
 up to 128) and the product with the limb recombination and the add in its
 epilogue (``panel_product``).  K2 is the panel and the product of the
 caller's digits.  Each thread keeps its own digit and panel buffers for
-``cmux_step`` per device and stream while their shapes hold, across the
-steps of a rotation; the library keeps their TMA maps by address.
-``cmux_rotate`` issues a whole rotation's steps from one call into the
-library, which launches them in a C loop.
+K1's steps per device and stream while their shapes hold, across the
+steps of a rotation (``step_buffers``); the library keeps their TMA maps by
+address.  ``rotate`` issues a rotation's steps on the product it is given
+from one call into the library's rotation entry for that product, which
+launches them in a C loop; ``cmux_step`` is a rotation of one step.
 
 At ``KARATSUBA_MIN_ROWS`` rows or more (per parameter set, measured on the
 card) ``cmux_rotate`` takes the same step on the two-level Karatsuba
@@ -30,9 +32,9 @@ the same.  ``product_for`` says which product a rotation of B rows takes.
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
 kernel or raises.  There is no fallback from a failed launch to the plain
-version.  ``cmux_step.launches`` counts steps (three kernel launches each),
-``cmux_rotate``'s among them, ``cmux_rotate.launches`` the rotations issued
-in one call, ``cmux_step_karatsuba.launches`` the steps among them on the
+version.  ``cmux_step.launches`` counts K1's steps (three kernel launches
+each), a single step's and every rotation's, ``cmux_rotate.launches`` the
+``cmux_rotate`` calls, ``cmux_step_karatsuba.launches`` the steps on the
 Karatsuba product, ``cmux_step_panel.launches`` steps on a prebuilt panel (two
 each: the digits and the product), ``external_product.launches`` K2's
 calls (two each) and ``key_panel.launches`` the panel kernel launched alone
@@ -43,7 +45,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 import weakref
 
 import torch
@@ -53,7 +54,8 @@ from .. import poly
 from .._u32 import wrap
 from ..params import TFHEParams
 from ..utils import trace
-from . import build, karatsuba, plain
+from . import karatsuba, launch, plain
+from .launch import INT, INT_P, UINT, VP, check_tensor, dispatch
 
 SLICE = 128  # bytes of K per stage of the product's TMA ring
 LIMBS = 4  # balanced signed 8-bit limbs of a key word
@@ -69,53 +71,15 @@ SMEM_BYTES = 1024 + 4 * (128 * SLICE + 4 * COEFFS * SLICE) + 8 * 8
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/cmux_k.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("cmux_k")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    pi = ctypes.POINTER(ctypes.c_int)
-    for name, args in (
-            ("rustfhe_cmux_step_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
-            ("rustfhe_cmux_rotate_k", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu, pi, pi,
-                                       vp]),
-            ("rustfhe_cmux_rotate_karatsuba", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu,
-                                               pi, pi, vp]),
-            ("rustfhe_cmux_step_karatsuba", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
-            ("rustfhe_cmux_step_panel", [vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]),
-            ("rustfhe_external_product_k", [vp, vp, vp, vp, ci, ci, ci, vp]),
-            ("rustfhe_key_panel", [vp, vp, ci, ci, vp]),
-            ("rustfhe_step_digits", [vp, vp, vp, ci, ci, ci, ci, cu, vp]),
-            ("rustfhe_panel_product", [vp, vp, vp, vp, ci, ci, ci, vp])):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ci
-    lib.rustfhe_cuda_error_string.argtypes = [ci]
-    lib.rustfhe_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.rustfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _dispatch(device: torch.device) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {device}")
+    rotation = [VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, INT, UINT, INT_P, INT_P, VP]
+    return launch.bind("cmux_k", {
+        "rustfhe_cmux_rotate_k": rotation,
+        "rustfhe_cmux_rotate_karatsuba": rotation,
+        "rustfhe_cmux_step_panel": [VP, VP, VP, VP, VP, INT, INT, INT, INT, UINT, VP],
+        "rustfhe_external_product_k": [VP, VP, VP, VP, INT, INT, INT, VP],
+        "rustfhe_key_panel": [VP, VP, INT, INT, VP],
+        "rustfhe_step_digits": [VP, VP, VP, INT, INT, INT, INT, UINT, VP],
+        "rustfhe_panel_product": [VP, VP, VP, VP, INT, INT, INT, VP]})
 
 
 # --------------------------------------------------------------------- #
@@ -147,149 +111,33 @@ def check_shape(N: int, two_l: int) -> None:
                          "exact int32 range")
 
 
-def _launch(what: str, fn, *args, stream: int | None = None) -> None:
-    """Call ``fn(*args, stream)`` with the first tensor's device current,
-    tensors passed by address, on ``stream`` or that device's current
-    stream, and raise on an error."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    with torch.cuda.device(device):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
-                 _stream(device) if stream is None else stream)
-    _check(load_library(), err, what)
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-_scratch = threading.local()  # each thread's step buffers, {(device, stream, role): tensor}
-
-
-def _step_buffer(role: str, shape: tuple[int, ...], device: torch.device,
-                 stream: int) -> torch.Tensor:
-    """The calling thread's int8 ``role`` buffer ("digits" or "panel") for
-    steps on ``stream``, kept while its shape holds.  Steps on one stream
-    run in order, so a step never overwrites a buffer that an earlier step
-    still reads, and no other thread's step writes it.  Two allocations
-    per step made the host-bound K1 loop at B <= 32 8-25 % slower
-    (PERF.md §6)."""
-    bufs = _scratch.__dict__.setdefault("bufs", {})
-    buf = bufs.get((device, stream, role))
-    if buf is None or tuple(buf.shape) != shape:
-        buf = bufs[device, stream, role] = torch.empty(shape, dtype=torch.int8, device=device)
-    return buf
-
-
 # --------------------------------------------------------------------- #
 # K1: one blind-rotate CMux step
 # --------------------------------------------------------------------- #
 def cmux_step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, key: torch.Tensor,
                     params: TFHEParams) -> torch.Tensor:
-    """acc + ExtProd(key, Decompose(X^{a~} * acc - acc)): rotate (gather),
-    difference, decomposition, then ``plain.external_product``."""
-    from ..trgsw import decompose_trlwe
-
-    rot = poly.rotate(acc, a_tilde[:, None])
-    digits = decompose_trlwe(rot - acc, params).to(torch.int8)
-    return acc + plain.external_product(digits, key)
+    """acc + ExtProd(key, Decompose(X^{a~} * acc - acc)): ``plain.cmux_step``
+    on ``plain.external_product``."""
+    return plain.cmux_step(acc, a_tilde, params, lambda d: plain.external_product(d, key))
 
 
 def cmux_step(acc: torch.Tensor, a_tilde: torch.Tensor, key: torch.Tensor,
               params: TFHEParams) -> torch.Tensor:
     """One blind-rotate step for a batch: ``acc`` int32 (B, 2, N), ``a_tilde``
     int32 (B,) in [0, 2N), ``key`` the step's doubled TRGSW table int32
-    (2L, 2, 2N) (``plain.prepare_trgsw``).  Returns the new accumulator."""
+    (2L, 2, 2N) (``plain.prepare_trgsw``).  Returns the new accumulator; on
+    the card ``rotate`` of this one step, ``acc`` not written."""
     B = acc.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
-    _check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), acc.device)
-    if not _dispatch(acc.device):
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), acc.device)
+    if not dispatch(acc.device):
         return cmux_step_plain(acc, a_tilde, key, params)
-    check_shape(N, two_l)
-    stream = _stream(acc.device)
-    digits = _step_buffer("digits", (B, two_l, geometry(N)[0]), acc.device, stream)
-    panel = _step_buffer("panel", panel_shape(params), acc.device, stream)
-    out = torch.empty_like(acc)
-    _launch("cmux_step_k", load_library().rustfhe_cmux_step_k, acc, a_tilde, key, out, digits,
-            panel, B, N, params.l, params.bgbit, params.decomp_mask, stream=stream)
-    cmux_step.launches += 1
-    return out
+    return rotate(acc, a_tilde[None], key[None], params, "schoolbook")
 
 
 cmux_step.launches = 0
-
-
-def cmux_rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
-                params: TFHEParams, span=trace.OFF) -> torch.Tensor:
-    """The n steps of a blind rotation, ``cmux_step`` on ``a_steps[i]`` and
-    ``key[i]`` for i < n, from one host call: ``acc`` int32 (B, 2, N),
-    ``a_steps`` int32 (n, B) (``bootstrap.rotation_start``), ``key`` the
-    prepared key int32 (n, 2L, 2, 2N).  On the card the library runs the
-    steps' launches in a C loop on the current stream, alternating between
-    ``acc`` and one new accumulator, so ``acc`` is overwritten; the result
-    is whichever of the two the last step wrote.  The kernels, their order
-    and their inputs are ``cmux_step``'s, so every output word is the same.
-    Adds n to ``cmux_step.launches`` and 1 to ``cmux_rotate.launches``.  On
-    the CPU: n calls of ``cmux_step``, that is the loop of
-    ``cmux_step_plain``, ``acc`` left as it was.
-
-    Where ``product_for`` says "karatsuba" (a batch of at least
-    ``KARATSUBA_MIN_ROWS`` rows) the steps are ``cmux_step_karatsuba``'s on
-    the key's ``leaf_table``, in the same one call (on the CPU the loop of
-    its plain version), every output word the same; they also count in
-    ``cmux_step_karatsuba.launches``.  ``span`` (the caller's open
-    ``trace.span``) gets the product taken as its ``product`` attribute."""
-    B, n = acc.shape[0], params.n
-    N, two_l = params.N, 2 * params.l
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    _check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
-    _check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), acc.device)
-    product = product_for(params, B)
-    span.set(product=product)
-    if product == "karatsuba":
-        return _rotate_karatsuba(acc, a_steps, leaf_table(key, params), params)
-    return _rotate_schoolbook(acc, a_steps, key, params)
-
-
-def _rotate_schoolbook(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
-                       params: TFHEParams) -> torch.Tensor:
-    """``cmux_rotate`` on ``cmux_step``'s schoolbook steps."""
-    if not _dispatch(acc.device):
-        for i in range(params.n):  # cmux_step_plain through the step's own dispatch
-            acc = cmux_step(acc, a_steps[i], key[i], params)
-        return acc
-    check_shape(params.N, 2 * params.l)
-    stream = _stream(acc.device)
-    digits = _step_buffer("digits", (acc.shape[0], 2 * params.l, geometry(params.N)[0]),
-                          acc.device, stream)
-    panel = _step_buffer("panel", panel_shape(params), acc.device, stream)
-    return _rotate_call("cmux_rotate_k", acc, a_steps, key, digits, panel, params, stream)
-
-
-def _rotate_call(what: str, acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
-                 digits: torch.Tensor, panel: torch.Tensor, params: TFHEParams,
-                 stream: int) -> torch.Tensor:
-    """One call of the library's rotation ``rustfhe_<what>`` (the schoolbook
-    or the Karatsuba steps) on ``key`` (the doubled tables or the leaf
-    tables), ``acc`` and one new accumulator; returns whichever the last
-    step wrote and counts the steps and the rotation."""
-    B, n = acc.shape[0], params.n
-    other = torch.empty_like(acc)
-    failed, result = ctypes.c_int(-1), ctypes.c_int(0)
-    lib = load_library()
-    with torch.cuda.device(acc.device):
-        err = getattr(lib, "rustfhe_" + what)(
-            acc.data_ptr(), a_steps.data_ptr(), key.data_ptr(), other.data_ptr(),
-            digits.data_ptr(), panel.data_ptr(), n, B, params.N, params.l, params.bgbit,
-            params.decomp_mask, ctypes.byref(failed), ctypes.byref(result), stream)
-    _check(lib, err, f"{what} (step {failed.value} of {n})")
-    cmux_step.launches += n
-    cmux_rotate.launches += 1
-    return other if result.value else acc
-
-
-cmux_rotate.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -344,7 +192,7 @@ def leaf_table(key: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     device.  Built once for a key and kept while the key lives (``keys``
     builds a card key's in set-up)."""
     n, two_l, N = key.shape[0], 2 * params.l, params.N
-    _check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), key.device)
+    check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), key.device)
     hit = _leaf_tables.get(id(key))
     if hit is not None and hit[0]() is key:
         return hit[1]
@@ -371,63 +219,130 @@ def _check_karatsuba(params: TFHEParams) -> None:
                          f"with half_bg * 4 <= 128, got N={params.N}, bgbit={params.bgbit}")
 
 
-def _karatsuba_buffers(B: int, params: TFHEParams, device: torch.device,
-                       stream: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The calling thread's tree-digit and leaf-panel buffers of the
-    Karatsuba step: int8 (B, 9, 2L, npad) and (9, 2L, 2, LIMBS, rows,
-    SLICE) at ns = N/4."""
-    npad, _, rows = geometry(params.N // karatsuba.R)
-    two_l = 2 * params.l
-    return (_step_buffer("leaf_digits", (B, karatsuba.T, two_l, npad), device, stream),
-            _step_buffer("leaf_panel", (karatsuba.T, two_l, 2, LIMBS, rows, SLICE), device,
-                         stream))
-
-
 def cmux_step_karatsuba(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                         params: TFHEParams) -> torch.Tensor:
     """``cmux_step`` on the Karatsuba product: ``table`` the step's leaf
     table int8 (2, 9, 4, 2L, N/2) (a row of ``leaf_table``).  Three
     launches: the leaf panels, the tree digits and the product with the
-    combine and the add in its epilogue."""
+    combine and the add in its epilogue; on the card ``rotate`` of this one
+    step, ``acc`` not written."""
     B = acc.shape[0]
     N = params.N
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
-    _check_tensor("table", table, torch.int8, karatsuba.table_shape(params), acc.device)
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    check_tensor("table", table, torch.int8, karatsuba.table_shape(params), acc.device)
     _check_karatsuba(params)
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return cmux_step_karatsuba_plain(acc, a_tilde, table, params)
-    stream = _stream(acc.device)
-    digits, panel = _karatsuba_buffers(B, params, acc.device, stream)
-    out = torch.empty_like(acc)
-    _launch("cmux_step_karatsuba", load_library().rustfhe_cmux_step_karatsuba, acc, a_tilde,
-            table, out, digits, panel, B, N, params.l, params.bgbit, params.decomp_mask,
-            stream=stream)
-    cmux_step.launches += 1
-    cmux_step_karatsuba.launches += 1
-    return out
+    return rotate(acc, a_tilde[None], table[None], params, "karatsuba")
 
 
 cmux_step_karatsuba.launches = 0
 
 
-def _rotate_karatsuba(acc: torch.Tensor, a_steps: torch.Tensor, tables: torch.Tensor,
-                      params: TFHEParams) -> torch.Tensor:
-    """``cmux_rotate`` on the Karatsuba steps, ``tables`` the key's
-    ``leaf_table``: on the card one call into the library's C loop
-    (``rustfhe_cmux_rotate_karatsuba``), ``acc`` overwritten; on the CPU the
-    loop of ``cmux_step_karatsuba_plain``."""
-    _check_karatsuba(params)
-    if not _dispatch(acc.device):
-        for i in range(params.n):  # the plain step through the step's own dispatch
-            acc = cmux_step_karatsuba(acc, a_steps[i], tables[i], params)
+# --------------------------------------------------------------------- #
+# K1 rotations: one C entry per product
+# --------------------------------------------------------------------- #
+# Each product's rotation entry in csrc/cmux_k.cu.
+ROTATIONS = {"schoolbook": "rustfhe_cmux_rotate_k", "karatsuba": "rustfhe_cmux_rotate_karatsuba"}
+
+
+def step_buffers(product: str, B: int, params: TFHEParams, device: torch.device,
+                 stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The calling thread's digit and panel buffers of K1's steps on
+    ``product`` for B rows on ``stream`` (``launch.step_buffer``), holding
+    the last such step's digits and panels: int8 (B, 2L, npad) and
+    ``panel_shape`` for the schoolbook product; the tree digits (B, 9, 2L,
+    npad) and leaf panels (9, 2L, 2, LIMBS, rows, SLICE), npad and rows
+    those of ns = N/4, for the Karatsuba one."""
+    two_l = 2 * params.l
+    if product == "schoolbook":
+        return (launch.step_buffer("digits", (B, two_l, geometry(params.N)[0]), device, stream),
+                launch.step_buffer("panel", panel_shape(params), device, stream))
+    npad, _, rows = geometry(params.N // karatsuba.R)
+    return (launch.step_buffer("leaf_digits", (B, karatsuba.T, two_l, npad), device, stream),
+            launch.step_buffer("leaf_panel", (karatsuba.T, two_l, 2, LIMBS, rows, SLICE), device,
+                               stream))
+
+
+def rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor, params: TFHEParams,
+           product: str) -> torch.Tensor:
+    """The n = ``a_steps.shape[0]`` steps of a K1 rotation on ``product``
+    (a key of ``ROTATIONS``): ``acc`` int32 (B, 2, N), ``a_steps`` int32 (n,
+    B), ``key`` the steps' doubled tables int32 (n, 2L, 2, 2N) for the
+    schoolbook product, their leaf tables int8 (n, 2, 9, 4, 2L, N/2)
+    (``leaf_table``) for the Karatsuba one.  On the card one call of the
+    product's rotation entry, which runs the steps' launches in a C loop
+    on the current stream, alternating between ``acc`` and one new
+    accumulator: step 0 reads ``acc``, and from n = 2 on ``acc`` is
+    overwritten; the result is whichever of the two the last step wrote.
+    Adds n to ``cmux_step.launches``, and on the Karatsuba product to
+    ``cmux_step_karatsuba.launches``.  On the CPU: the loop of ``cmux_step``
+    or ``cmux_step_karatsuba`` (their plain versions), ``acc`` left as it
+    was."""
+    B, n = acc.shape[0], a_steps.shape[0]
+    N, two_l = params.N, 2 * params.l
+    if product not in ROTATIONS:
+        raise ValueError(f"unknown product {product!r}; K1 has {', '.join(ROTATIONS)}")
+    if product == "karatsuba":
+        _check_karatsuba(params)
+        key_dtype, key_shape, step = torch.int8, karatsuba.table_shape(params), cmux_step_karatsuba
+    else:
+        key_dtype, key_shape, step = torch.int32, (two_l, 2, 2 * N), cmux_step
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
+    check_tensor("key", key, key_dtype, (n,) + tuple(key_shape), acc.device)
+    if not dispatch(acc.device):
+        for i in range(n):  # the plain step through the step's own dispatch
+            acc = step(acc, a_steps[i], key[i], params)
         return acc
-    stream = _stream(acc.device)
-    digits, panel = _karatsuba_buffers(acc.shape[0], params, acc.device, stream)
-    out = _rotate_call("cmux_rotate_karatsuba", acc, a_steps, tables, digits, panel, params,
-                       stream)
-    cmux_step_karatsuba.launches += params.n
+    if product == "schoolbook":  # the Karatsuba step's shapes: _check_karatsuba
+        check_shape(N, two_l)
+    stream = launch.current_stream(acc.device)
+    digits, panel = step_buffers(product, B, params, acc.device, stream)
+    other = torch.empty_like(acc)
+    failed, result = ctypes.c_int(-1), ctypes.c_int(0)
+    lib = load_library()
+    with torch.cuda.device(acc.device):
+        err = getattr(lib, ROTATIONS[product])(
+            acc.data_ptr(), a_steps.data_ptr(), key.data_ptr(), other.data_ptr(),
+            digits.data_ptr(), panel.data_ptr(), n, B, N, params.l, params.bgbit,
+            params.decomp_mask, ctypes.byref(failed), ctypes.byref(result), stream)
+    launch.check(lib, err, f"{ROTATIONS[product]} (step {failed.value} of {n})")
+    cmux_step.launches += n
+    if product == "karatsuba":
+        cmux_step_karatsuba.launches += n
+    return other if result.value else acc
+
+
+def cmux_rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor,
+                params: TFHEParams, span=trace.OFF) -> torch.Tensor:
+    """A blind rotation's n = ``params.n`` steps, ``cmux_step`` on
+    ``a_steps[i]`` and ``key[i]`` for i < n, from one host call: ``acc``
+    int32 (B, 2, N), ``a_steps`` int32 (n, B) (``bootstrap.rotation_start``),
+    ``key`` the prepared key int32 (n, 2L, 2, 2N).  ``rotate`` on the
+    product ``product_for`` picks for B rows: the schoolbook steps on
+    ``key``, or from ``KARATSUBA_MIN_ROWS`` rows on the Karatsuba steps on
+    the key's ``leaf_table``; every output word is the same.  On the card
+    ``acc`` is overwritten, and 1 is added to ``cmux_rotate.launches``.
+    ``span`` (the caller's open ``trace.span``) gets the product taken as
+    its ``product`` attribute."""
+    B, n = acc.shape[0], params.n
+    N, two_l = params.N, 2 * params.l
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
+    check_tensor("key", key, torch.int32, (n, two_l, 2, 2 * N), acc.device)
+    product = product_for(params, B)
+    span.set(product=product)
+    if product == "karatsuba":
+        key = leaf_table(key, params)
+    out = rotate(acc, a_steps, key, params, product)
+    if dispatch(acc.device):
+        cmux_rotate.launches += 1
     return out
+
+
+cmux_rotate.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -453,17 +368,17 @@ def cmux_step_panel(acc: torch.Tensor, a_tilde: torch.Tensor, panel: torch.Tenso
     one accumulator round trip, and the two steps stay two calls."""
     B = acc.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
-    _check_tensor("panel", panel, torch.int8, panel_shape(params), acc.device)
-    if not _dispatch(acc.device):
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    check_tensor("panel", panel, torch.int8, panel_shape(params), acc.device)
+    if not dispatch(acc.device):
         return cmux_step_panel_plain(acc, a_tilde, panel, params)
     check_shape(N, two_l)
-    stream = _stream(acc.device)
-    digits = _step_buffer("digits", (B, two_l, geometry(N)[0]), acc.device, stream)
+    stream = launch.current_stream(acc.device)
+    digits = launch.step_buffer("digits", (B, two_l, geometry(N)[0]), acc.device, stream)
     out = torch.empty_like(acc)
-    _launch("cmux_step_panel", load_library().rustfhe_cmux_step_panel, acc, a_tilde, panel, out,
-            digits, B, N, params.l, params.bgbit, params.decomp_mask, stream=stream)
+    launch.call(load_library(), "rustfhe_cmux_step_panel", acc, a_tilde, panel, out, digits, B, N,
+                params.l, params.bgbit, params.decomp_mask, stream=stream)
     cmux_step_panel.launches += 1
     return out
 
@@ -484,9 +399,9 @@ def external_product(digits: torch.Tensor, key: torch.Tensor,
     TRGSW table ``key`` int32 (2L, 2, 2N).  Returns int32 (B, 2, N)."""
     B = digits.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("digits", digits, torch.int8, (B, two_l, N), digits.device)
-    _check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), digits.device)
-    if not _dispatch(digits.device):
+    check_tensor("digits", digits, torch.int8, (B, two_l, N), digits.device)
+    check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), digits.device)
+    if not dispatch(digits.device):
         return external_product_plain(digits, key)
     check_shape(N, two_l)
     npad = geometry(N)[0]
@@ -496,8 +411,8 @@ def external_product(digits: torch.Tensor, key: torch.Tensor,
         digits = digits.clone()
     panel = torch.empty(panel_shape(params), dtype=torch.int8, device=digits.device)
     out = torch.empty((B, 2, N), dtype=torch.int32, device=digits.device)
-    _launch("external_product_k", load_library().rustfhe_external_product_k, digits, key, out,
-            panel, B, N, two_l)
+    launch.call(load_library(), "rustfhe_external_product_k", digits, key, out, panel, B, N,
+                two_l)
     external_product.launches += 1
     return out
 
@@ -531,16 +446,16 @@ def key_panel(key: torch.Tensor, params: TFHEParams,
     """The key panels of ``key`` (``key_panel_plain``'s function), on the
     key's device, into ``out`` when it is given (a hybrid key's slot)."""
     N, two_l = params.N, 2 * params.l
-    _check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), key.device)
+    check_tensor("key", key, torch.int32, (two_l, 2, 2 * N), key.device)
     if out is not None:
-        _check_tensor("out", out, torch.int8, panel_shape(params), key.device)
-    if not _dispatch(key.device):
+        check_tensor("out", out, torch.int8, panel_shape(params), key.device)
+    if not dispatch(key.device):
         panel = key_panel_plain(key, params)
         return panel if out is None else out.copy_(panel)
     check_shape(N, two_l)
     panel = torch.empty(panel_shape(params), dtype=torch.int8,
                         device=key.device) if out is None else out
-    _launch("key_panel", load_library().rustfhe_key_panel, key, panel, N, two_l)
+    launch.call(load_library(), "rustfhe_key_panel", key, panel, N, two_l)
     key_panel.launches += 1
     return panel
 
@@ -550,12 +465,9 @@ key_panel.launches = 0
 
 def step_digits_plain(acc: torch.Tensor, a_tilde: torch.Tensor,
                       params: TFHEParams) -> torch.Tensor:
-    """The digits of X^{a~} * acc - acc as int8 (B, 2L, npad), plane p*l + lv
-    as ``trgsw.decompose_trlwe`` orders them, zeros past N."""
-    from ..trgsw import decompose_trlwe
-
-    diff = poly.rotate(acc, a_tilde[:, None]) - acc
-    digits = decompose_trlwe(diff, params).to(torch.int8)
+    """The digits of X^{a~} * acc - acc (``plain.step_digits``) as int8 (B,
+    2L, npad), zeros past N."""
+    digits = plain.step_digits(acc, a_tilde, params).to(torch.int8)
     return F.pad(digits, (0, geometry(params.N)[0] - params.N)).contiguous()
 
 
@@ -563,14 +475,14 @@ def step_digits(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEParams) ->
     """``step_digits_plain``'s function on the device of ``acc``."""
     B = acc.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
-    if not _dispatch(acc.device):
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    if not dispatch(acc.device):
         return step_digits_plain(acc, a_tilde, params)
     check_shape(N, two_l)
     digits = torch.empty((B, two_l, geometry(N)[0]), dtype=torch.int8, device=acc.device)
-    _launch("step_digits", load_library().rustfhe_step_digits, acc, a_tilde, digits, B, N,
-            params.l, params.bgbit, params.decomp_mask)
+    launch.call(load_library(), "rustfhe_step_digits", acc, a_tilde, digits, B, N, params.l,
+                params.bgbit, params.decomp_mask)
     return digits
 
 
@@ -610,15 +522,14 @@ def panel_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
     device of ``digits``."""
     B = digits.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("digits", digits, torch.int8, (B, two_l, geometry(N)[0]), digits.device)
-    _check_tensor("panel", panel, torch.int8, panel_shape(params), digits.device)
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
-    if not _dispatch(digits.device):
+    check_tensor("digits", digits, torch.int8, (B, two_l, geometry(N)[0]), digits.device)
+    check_tensor("panel", panel, torch.int8, panel_shape(params), digits.device)
+    check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
+    if not dispatch(digits.device):
         return panel_product_plain(digits, panel, acc, params)
     check_shape(N, two_l)
     out = torch.empty_like(acc)
-    _launch("panel_product", load_library().rustfhe_panel_product, digits, panel, acc, out,
-            B, N, two_l)
+    launch.call(load_library(), "rustfhe_panel_product", digits, panel, acc, out, B, N, two_l)
     return out
 
 

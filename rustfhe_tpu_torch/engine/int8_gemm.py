@@ -20,7 +20,7 @@ the stages through shared-memory descriptors, one stage's products
 overlapping the next one's copies.  Those building blocks live in
 ``csrc/hopper_common.cuh``, shared with the CMux step's product (K1, K2 in
 ``csrc/cmux_k.cu``).  It is built with nvcc into a library with a plain C
-interface on first use and called through ctypes.
+interface on first use and called through ctypes (``launch``).
 
 The wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
@@ -35,8 +35,8 @@ import functools
 
 import torch
 
-from . import build, cmux_k, limb_step
-from .cmux_k import _check_tensor, _dispatch
+from . import launch, limb_step
+from .launch import INT, VP, check_tensor, dispatch
 
 # Block tiles (rows of d, columns of w) of the kernel's instantiations, by
 # the index the C entry takes: 64x64 runs one consumer warpgroup (m64n64),
@@ -53,11 +53,7 @@ ALIGN = 1024  # slack to put the ring on a 128-byte swizzle atom
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/int8_gemm.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("int8_gemm")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rustfhe_int8_gemm.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.rustfhe_int8_gemm.restype = ci
-    return lib
+    return launch.bind("int8_gemm", {"rustfhe_int8_gemm": [VP, VP, VP, INT, INT, INT, INT, VP]})
 
 
 def tile_shape(tile: str) -> tuple[int, int]:
@@ -118,13 +114,13 @@ def int8_matmul(d: torch.Tensor, wt: torch.Tensor, tile: str = TILE) -> torch.Te
         raise ValueError(f"d and wt must be 2-D, got {tuple(d.shape)} and {tuple(wt.shape)}")
     M, K = d.shape
     N = wt.shape[0]
-    _check_tensor("d", d, torch.int8, (M, K), d.device)
-    _check_tensor("wt", wt, torch.int8, (N, K), d.device)
+    check_tensor("d", d, torch.int8, (M, K), d.device)
+    check_tensor("wt", wt, torch.int8, (N, K), d.device)
     check_bound(K)
     if M % bm or N % bn or K % DEPTH or min(M, N, K) < 1:
         raise ValueError(f"shape (M, K, N) = ({M}, {K}, {N}) does not divide tile {tile}: M "
                          f"must be a multiple of {bm}, N of {bn} and K of {DEPTH}")
-    if not _dispatch(d.device):
+    if not dispatch(d.device):
         return int8_matmul_plain(d, wt.t())
     if d.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("d and wt must start on a 16-byte boundary")
@@ -133,13 +129,8 @@ def int8_matmul(d: torch.Tensor, wt: torch.Tensor, tile: str = TILE) -> torch.Te
     if need > limit:
         raise ValueError(f"tile {tile} needs {need} bytes of shared memory per block, over the "
                          f"card's opt-in limit of {limit} bytes")
-    lib = load_library()
     out = torch.empty((M, N), dtype=torch.int32, device=d.device)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = lib.rustfhe_int8_gemm(d.data_ptr(), wt.data_ptr(), out.data_ptr(), M, N, K,
-                                    TILES[tile], stream)
-    cmux_k._check(cmux_k.load_library(), err, "rustfhe_int8_gemm")
+    launch.call(load_library(), "rustfhe_int8_gemm", d, wt, out, M, N, K, TILES[tile])
     int8_matmul.launches += 1
     return out
 

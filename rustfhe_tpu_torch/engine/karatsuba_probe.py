@@ -20,8 +20,8 @@ production K1 at levels 2 (``pallas_k.py:_kernel_step_k``, the engine
   boxes requested before the build (C, ``pipelined``).
 
 CUDA C++ for sm_90a in ``csrc/karatsuba_probe.cu``, built with nvcc on
-first use and called through ctypes; each form the entry points run
-(``FORMS``) is one instantiation.  A step is four launches (the nine
+first use and called through ctypes (``launch``); each form the entry
+points run (``FORMS``) is one instantiation.  A step is four launches (the nine
 leaves' products on the tensor cores, ``wgmma``): the tree digits
 (``tree_digits``), the leaf panels (``leaf_panel``), the leaf products in
 one launch (``leaves``; the broadcast parts for "nodots") and the tree
@@ -53,8 +53,8 @@ import torch.nn.functional as F
 
 from .._u32 import wrap
 from ..params import TFHEParams
-from . import build, cmux_k, karatsuba, limb_step
-from .cmux_k import _check_tensor, _dispatch
+from . import cmux_k, karatsuba, launch, limb_step
+from .launch import INT, UINT, VP, check_tensor, dispatch
 from .karatsuba import R, T, Step
 from .plain import NUM_LIMBS
 
@@ -133,19 +133,13 @@ def form_code(v: Step) -> int:
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/karatsuba_probe.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("karatsuba_probe")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    for name, args in (
-            ("rustfhe_karatsuba_step", [vp, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, ci, ci,
-                                        vp]),
-            ("rustfhe_karatsuba_tree_digits", [vp, vp, vp, ci, ci, ci, ci, cu, ci, vp]),
-            ("rustfhe_karatsuba_leaf_panel", [vp, vp, ci, ci, vp]),
-            ("rustfhe_karatsuba_leaf_product", [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]),
-            ("rustfhe_karatsuba_combine", [vp, vp, vp, ci, ci, ci, ci, vp])):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ci
-    return lib
+    return launch.bind("karatsuba_probe", {
+        "rustfhe_karatsuba_step": [VP, VP, INT, VP, VP, VP, VP, VP, INT, INT, INT, INT, UINT, INT,
+                                   INT, VP],
+        "rustfhe_karatsuba_tree_digits": [VP, VP, VP, INT, INT, INT, INT, UINT, INT, VP],
+        "rustfhe_karatsuba_leaf_panel": [VP, VP, INT, INT, VP],
+        "rustfhe_karatsuba_leaf_product": [VP, VP, VP, VP, INT, INT, INT, INT, INT, VP],
+        "rustfhe_karatsuba_combine": [VP, VP, VP, INT, INT, INT, INT, VP]})
 
 
 # --------------------------------------------------------------------- #
@@ -253,27 +247,26 @@ def tree_digits(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEParams,
     as ``torch.empty`` left them)."""
     _check_piece_form(v)
     B = acc.shape[0]
-    _check_tensor("acc", acc, torch.int32, (B, 2 * params.N), acc.device)
-    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    check_tensor("acc", acc, torch.int32, (B, 2 * params.N), acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
     check_shape(params)
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return tree_digits_plain(acc, a_tilde, params, v)
     digits = torch.empty(digit_shape(params, B), dtype=torch.int8, device=acc.device)
-    cmux_k._launch("karatsuba_tree_digits", load_library().rustfhe_karatsuba_tree_digits, acc,
-                   a_tilde, digits, B, params.N, params.l, params.bgbit, params.decomp_mask,
-                   form_code(v))
+    launch.call(load_library(), "rustfhe_karatsuba_tree_digits", acc, a_tilde, digits, B, params.N,
+                params.l, params.bgbit, params.decomp_mask, form_code(v))
     return digits
 
 
 def leaf_panel(table: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """``leaf_panel_plain``'s function on the device of ``table``."""
-    _check_tensor("table", table, torch.int8, karatsuba.table_shape(params), table.device)
+    check_tensor("table", table, torch.int8, karatsuba.table_shape(params), table.device)
     check_shape(params)
-    if not _dispatch(table.device):
+    if not dispatch(table.device):
         return leaf_panel_plain(table, params)
     panel = torch.empty(panel_shape(params), dtype=torch.int8, device=table.device)
-    cmux_k._launch("karatsuba_leaf_panel", load_library().rustfhe_karatsuba_leaf_panel, table,
-                   panel, params.N, 2 * params.l)
+    launch.call(load_library(), "rustfhe_karatsuba_leaf_panel", table, panel, params.N,
+                2 * params.l)
     return panel
 
 
@@ -284,16 +277,16 @@ def leaves(digits: torch.Tensor, panel: torch.Tensor, table: torch.Tensor, param
     parts."""
     _check_piece_form(v)
     B = digits.shape[0]
-    _check_tensor("digits", digits, torch.int8, digit_shape(params, B), digits.device)
-    _check_tensor("panel", panel, torch.int8, panel_shape(params), digits.device)
-    _check_tensor("table", table, torch.int8, karatsuba.table_shape(params), digits.device)
+    check_tensor("digits", digits, torch.int8, digit_shape(params, B), digits.device)
+    check_tensor("panel", panel, torch.int8, panel_shape(params), digits.device)
+    check_tensor("table", table, torch.int8, karatsuba.table_shape(params), digits.device)
     check_shape(params)
     _check_tm(params, tm)
-    if not _dispatch(digits.device):
+    if not dispatch(digits.device):
         return leaves_plain(digits, panel, table, params, v, tm)
     out = torch.empty(leaf_shape(params, B, v), dtype=torch.int32, device=digits.device)
-    cmux_k._launch("karatsuba_leaf_product", load_library().rustfhe_karatsuba_leaf_product,
-                   digits, panel, table, out, B, params.N, 2 * params.l, form_code(v), tm)
+    launch.call(load_library(), "rustfhe_karatsuba_leaf_product", digits, panel, table, out, B,
+                params.N, 2 * params.l, form_code(v), tm)
     return out
 
 
@@ -302,14 +295,14 @@ def combine(acc: torch.Tensor, leaves_: torch.Tensor, params: TFHEParams,
     """``combine_plain``'s function on the device of ``acc``."""
     _check_piece_form(v)
     B = acc.shape[0]
-    _check_tensor("acc", acc, torch.int32, (B, 2 * params.N), acc.device)
-    _check_tensor("leaves", leaves_, torch.int32, leaf_shape(params, B, v), acc.device)
+    check_tensor("acc", acc, torch.int32, (B, 2 * params.N), acc.device)
+    check_tensor("leaves", leaves_, torch.int32, leaf_shape(params, B, v), acc.device)
     check_shape(params)
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return combine_plain(acc, leaves_, params, v)
     out = torch.empty_like(acc)
-    cmux_k._launch("karatsuba_combine", load_library().rustfhe_karatsuba_combine, acc, leaves_,
-                   out, B, params.N, params.l, form_code(v))
+    launch.call(load_library(), "rustfhe_karatsuba_combine", acc, leaves_, out, B, params.N,
+                params.l, form_code(v))
     return out
 
 
@@ -323,19 +316,19 @@ def _check_piece_form(v: Step) -> None:
 # --------------------------------------------------------------------- #
 def _check_operands(acc, a_tilde, table, params: TFHEParams, unroll: int = 1) -> None:
     B = acc.shape[0]
-    _check_tensor("acc", acc, torch.int32, (B, 2 * params.N), acc.device)
+    check_tensor("acc", acc, torch.int32, (B, 2 * params.N), acc.device)
     a_shape, t_shape = (B,), karatsuba.table_shape(params)
     if unroll > 1:
         a_shape, t_shape = (B, unroll), (unroll,) + t_shape
-    _check_tensor("a_tilde", a_tilde, torch.int32, a_shape, acc.device)
-    _check_tensor("table", table, torch.int8, t_shape, acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, a_shape, acc.device)
+    check_tensor("table", table, torch.int8, t_shape, acc.device)
     karatsuba.check_bound(params)
 
 
 def _launch(v: Step, acc, a_tilde, table, params: TFHEParams, tm: int = TM,
             a_stride: int = 1, a_offset: int = 0) -> torch.Tensor:
     """One step of form ``v`` on the card, into the calling thread's digit,
-    panel and leaf buffers (``cmux_k._step_buffer``); a~ of sample b is
+    panel and leaf buffers (``launch.step_buffer``); a~ of sample b is
     ``a_tilde[b * a_stride + a_offset]`` (flat)."""
     if v not in FORMS:
         raise ValueError(f"the Karatsuba kernel carries no form {v}")
@@ -343,22 +336,23 @@ def _launch(v: Step, acc, a_tilde, table, params: TFHEParams, tm: int = TM,
     if table.data_ptr() % 4:  # the panel kernel reads the table as words
         table = table.clone()
     B, dev = acc.shape[0], acc.device
-    stream = cmux_k._stream(dev)
+    stream = launch.current_stream(dev)
     out = torch.empty_like(acc)
     if v.accio:
         bufs = (None, None, None)
     else:
         nbytes = 4 * int(torch.Size(leaf_shape(params, B, v)).numel())
-        bufs = (cmux_k._step_buffer("kdigits", digit_shape(params, B), dev, stream),
-                cmux_k._step_buffer("kpanel", panel_shape(params), dev, stream),
-                cmux_k._step_buffer("kleaves", (nbytes,), dev, stream))
+        bufs = (launch.step_buffer("kdigits", digit_shape(params, B), dev, stream),
+                launch.step_buffer("kpanel", panel_shape(params), dev, stream),
+                launch.step_buffer("kleaves", (nbytes,), dev, stream))
     ptrs = [0 if b is None else b.data_ptr() for b in bufs]
+    lib = load_library()
     with torch.cuda.device(dev):
-        err = load_library().rustfhe_karatsuba_step(
+        err = lib.rustfhe_karatsuba_step(
             acc.data_ptr(), a_tilde.data_ptr() + 4 * a_offset, a_stride, table.data_ptr(),
             out.data_ptr(), *ptrs, B, params.N, params.l, params.bgbit, params.decomp_mask,
             form_code(v), tm, stream)
-    cmux_k._check(cmux_k.load_library(), err, f"rustfhe_karatsuba_step ({v})")
+    launch.check(lib, err, f"rustfhe_karatsuba_step ({v})")
     return out
 
 
@@ -378,7 +372,7 @@ def step_ablate(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     _check_operands(acc, a_tilde, table, params)
     _check_tm(params, tm)
     v = ABLATIONS[variant]
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return karatsuba.step_plain(acc, a_tilde, table, params, v, tm)
     out = _launch(v, acc, a_tilde, table, params, tm)
     step_ablate.launches += 1
@@ -410,7 +404,7 @@ def step_var(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
 
 
 def _step_var1(acc, a_tilde, table, params, v: Step, col) -> torch.Tensor:
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         a = a_tilde if col is None else a_tilde[:, col]
         return karatsuba.step_plain(acc, a, table, params, v)
     if col is None:
@@ -426,7 +420,7 @@ def step_k2(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     """P1: the limb-outer Karatsuba step with the multiply extract (one
     tree combine per limb, then the limbs recombine)."""
     _check_operands(acc, a_tilde, table, params)
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return karatsuba.step_plain(acc, a_tilde, table, params, K2_FORM)
     out = _launch(K2_FORM, acc, a_tilde, table, params)
     step_k2.launches += 1
@@ -441,7 +435,7 @@ def step_split(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     warpgroups together (grouped: the product's own tile)."""
     _check_operands(acc, a_tilde, table, params)
     v = Step(extract="mul", split=SPLITS[grouped])
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return karatsuba.step_plain(acc, a_tilde, table, params, v)
     out = _launch(v, acc, a_tilde, table, params)
     step_split.launches += 1
@@ -457,7 +451,7 @@ def step_coissue(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     requested before its build."""
     _check_operands(acc, a_tilde, table, params)
     v = COISSUE_FORMS[BUILDS[pipelined]]
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return karatsuba.step_plain(acc, a_tilde, table, params, v)
     out = _launch(v, acc, a_tilde, table, params)
     step_coissue.launches += 1

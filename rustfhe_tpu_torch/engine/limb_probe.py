@@ -14,9 +14,9 @@ drains the product's fragment into the recombination after each plane
 (``drain_product``); P6 "full" and P5 "limb-outer" are K6's and K4's
 kernels.  CUDA C++ for sm_90a in ``csrc/limb_probe.cu`` on the kernels of
 ``csrc/cmux_step.cuh``, built with nvcc into a library with a plain C
-interface on first use and called through ctypes.  They take K4/K6's
-operands: acc int32 (B, 2, N), a~ int32 (B,), the doubled limb table int8
-(2L, 2, 4, 2N), at every shape K4/K6 take.
+interface on first use and called through ctypes (``launch``).  They take
+K4/K6's operands: acc int32 (B, 2, N), a~ int32 (B,), the doubled limb
+table int8 (2L, 2, 4, 2N), at every shape K4/K6 take.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain version beside it, a CUDA tensor launches the
@@ -36,9 +36,10 @@ import torch.nn.functional as F
 
 from .._u32 import wrap
 from ..params import TFHEParams
-from . import build, cmux_k, plain
-from .cmux_k import _check_tensor, _dispatch
-from .limb_step import _check_step, cmux_step_plain
+from ..decomp import decompose_trlwe
+from . import cmux_k, launch, plain
+from .launch import INT, UINT, VP, check_tensor, dispatch
+from .limb_step import check_step, cmux_step_plain, merged_product_plain
 
 # P6's variants: (rotate, products).  "full" computes K6's function.
 VARIANTS = {"full": (True, True), "nodots": (True, False), "norot": (False, True)}
@@ -51,19 +52,13 @@ TM = 128  # coefficients per summed digit in "nodots": the TPU probe's panel dep
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/limb_probe.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("limb_probe")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    for name, args in (
-            ("rustfhe_limb_probe_variant", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, ci, ci,
-                                            ci, vp]),
-            ("rustfhe_limb_probe_order", [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, ci, vp]),
-            ("rustfhe_limb_probe_digits_norot", [vp, vp, ci, ci, ci, ci, cu, vp]),
-            ("rustfhe_limb_probe_drain_product", [vp, vp, vp, vp, ci, ci, ci, vp]),
-            ("rustfhe_limb_probe_nodots", [vp, vp, vp, ci, ci, ci, ci, vp])):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ci
-    return lib
+    step = [VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, UINT]
+    return launch.bind("limb_probe", {
+        "rustfhe_limb_probe_variant": step + [INT, INT, INT, VP],
+        "rustfhe_limb_probe_order": step + [INT, VP],
+        "rustfhe_limb_probe_digits_norot": [VP, VP, INT, INT, INT, INT, UINT, VP],
+        "rustfhe_limb_probe_drain_product": [VP, VP, VP, VP, INT, INT, INT, VP],
+        "rustfhe_limb_probe_nodots": [VP, VP, VP, INT, INT, INT, INT, VP]})
 
 
 # --------------------------------------------------------------------- #
@@ -75,8 +70,6 @@ def step_digits_plain(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEPara
     ``rotate``, the digits of acc itself: int8 (B, 2L, npad), zeros past N."""
     if rotate:
         return cmux_k.step_digits_plain(acc, a_tilde, params)
-    from ..trgsw import decompose_trlwe
-
     digits = decompose_trlwe(acc, params).to(torch.int8)
     return F.pad(digits, (0, cmux_k.geometry(params.N)[0] - params.N)).contiguous()
 
@@ -88,13 +81,13 @@ def step_digits(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEParams,
     if rotate:
         return cmux_k.step_digits(acc, a_tilde, params)
     B, N, two_l = acc.shape[0], params.N, 2 * params.l
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    if not _dispatch(acc.device):
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    if not dispatch(acc.device):
         return step_digits_plain(acc, a_tilde, params, rotate)
     cmux_k.check_shape(N, two_l)
     digits = torch.empty((B, two_l, cmux_k.geometry(N)[0]), dtype=torch.int8, device=acc.device)
-    cmux_k._launch("limb_probe_digits_norot", load_library().rustfhe_limb_probe_digits_norot,
-                   acc, digits, B, N, params.l, params.bgbit, params.decomp_mask)
+    launch.call(load_library(), "rustfhe_limb_probe_digits_norot", acc, digits, B, N, params.l,
+                params.bgbit, params.decomp_mask)
     return digits
 
 
@@ -105,17 +98,15 @@ def drain_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
     merged_product_plain``, which the CPU runs), since the recombination
     is linear mod 2^32."""
     B, N, two_l = digits.shape[0], params.N, 2 * params.l
-    _check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
-    _check_tensor("panel", panel, torch.int8, cmux_k.panel_shape(params), digits.device)
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
-    if not _dispatch(digits.device):
-        from .limb_step import merged_product_plain
-
+    check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
+    check_tensor("panel", panel, torch.int8, cmux_k.panel_shape(params), digits.device)
+    check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
+    if not dispatch(digits.device):
         return merged_product_plain(digits, panel, acc, params)
     cmux_k.check_shape(N, two_l)
     out = torch.empty_like(acc)
-    cmux_k._launch("limb_probe_drain_product", load_library().rustfhe_limb_probe_drain_product,
-                   digits, panel, acc, out, B, N, two_l)
+    launch.call(load_library(), "rustfhe_limb_probe_drain_product", digits, panel, acc, out, B,
+                N, two_l)
     return out
 
 
@@ -133,15 +124,14 @@ def nodots(digits: torch.Tensor, acc: torch.Tensor, params: TFHEParams,
            tm: int = TM) -> torch.Tensor:
     """``nodots_plain``'s function on the device of ``digits``."""
     B, N, two_l = digits.shape[0], params.N, 2 * params.l
-    _check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
+    check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
+    check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
     _check_tm(params, tm)
-    if not _dispatch(digits.device):
+    if not dispatch(digits.device):
         return nodots_plain(digits, acc, params, tm)
     cmux_k.check_shape(N, two_l)
     out = torch.empty_like(acc)
-    cmux_k._launch("limb_probe_nodots", load_library().rustfhe_limb_probe_nodots, acc, digits,
-                   out, B, N, two_l, tm)
+    launch.call(load_library(), "rustfhe_limb_probe_nodots", acc, digits, out, B, N, two_l, tm)
     return out
 
 
@@ -169,17 +159,16 @@ def _check_tm(params: TFHEParams, tm: int) -> None:
 
 def _step(entry: str, acc, a_tilde, table, params: TFHEParams, *flags) -> torch.Tensor:
     """A variant's three launches into the calling thread's digit and panel
-    buffers (``cmux_k._step_buffer``, K4/K6's)."""
+    buffers (``cmux_k.step_buffers``, K4/K6's)."""
     B, N, two_l = acc.shape[0], params.N, 2 * params.l
     cmux_k.check_shape(N, two_l)
     if table.data_ptr() % 4:  # the panel kernel reads the table as words
         table = table.clone()
-    stream = cmux_k._stream(acc.device)
-    digits = cmux_k._step_buffer("digits", (B, two_l, cmux_k.geometry(N)[0]), acc.device, stream)
-    panel = cmux_k._step_buffer("panel", cmux_k.panel_shape(params), acc.device, stream)
+    stream = launch.current_stream(acc.device)
+    digits, panel = cmux_k.step_buffers("schoolbook", B, params, acc.device, stream)
     out = torch.empty_like(acc)
-    cmux_k._launch(entry, getattr(load_library(), entry), acc, a_tilde, table, out, digits, panel,
-                   B, N, params.l, params.bgbit, params.decomp_mask, *flags, stream=stream)
+    launch.call(load_library(), entry, acc, a_tilde, table, out, digits, panel, B, N, params.l,
+                params.bgbit, params.decomp_mask, *flags, stream=stream)
     return out
 
 
@@ -190,9 +179,9 @@ def step_variant(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; P6 has {', '.join(VARIANTS)}")
     rotate, dots = VARIANTS[variant]
-    _check_step(acc, a_tilde, table, params)
+    check_step(acc, a_tilde, table, params)
     _check_tm(params, tm)
-    if not _dispatch(acc.device):
+    if not dispatch(acc.device):
         return variant_step_plain(acc, a_tilde, table, params, rotate, dots, tm)
     out = _step("rustfhe_limb_probe_variant", acc, a_tilde, table, params, int(rotate),
                 int(dots), tm)
@@ -207,8 +196,8 @@ def step_order(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
     as ``limb_step.cmux_step_merged``."""
     if order not in ORDERS:
         raise ValueError(f"unknown order {order!r}; P5 has {', '.join(ORDERS)}")
-    _check_step(acc, a_tilde, table, params)
-    if not _dispatch(acc.device):
+    check_step(acc, a_tilde, table, params)
+    if not dispatch(acc.device):
         return cmux_step_plain(acc, a_tilde, table, params)
     out = _step("rustfhe_limb_probe_order", acc, a_tilde, table, params, int(ORDERS[order]))
     step_order.launches += 1

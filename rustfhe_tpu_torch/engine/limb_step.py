@@ -5,10 +5,10 @@ Counterpart of ``rustfhe_tpu/engine/pallas_step.py``, the JAX engine
 K6 ``fused_cmux_step`` (pallas_step.py:267) and K5
 ``fused_external_product`` (pallas_step.py:158).  The kernels are CUDA C++
 for sm_90a in ``csrc/limb_step.cu`` (with ``csrc/cmux_step.cuh`` and
-``csrc/hopper_common.cuh``), built with nvcc
-into a shared library with a plain C interface on first use (``build``)
-and called through ctypes.  They read the step's doubled int8 limb table
-of ``plain.prepare_trgsw_limbs``, (2L, 2, 4, 2N).
+``csrc/hopper_common.cuh``), built with nvcc into a shared library with a
+plain C interface on first use (``build``) and called through ctypes
+(``launch``).  They read the step's doubled int8 limb table of
+``plain.prepare_trgsw_limbs``, (2L, 2, 4, 2N).
 
 K4 and K6 are K1's step (``cmux_k``) on the limb table: one int8
 tensor-core (``wgmma``) GEMM in three launches from one call, the step's
@@ -18,7 +18,7 @@ and the add in its epilogue (K4's: ``merged_product``; K6's is K1's).
 K4's block tile holds both output halves (2 halves x 4 limbs x 32
 coefficients), K6's one half (4 limbs x 64 coefficients, K1's tile).  Each thread keeps its digit and
 panel buffers per device and stream while their shapes hold
-(``cmux_k._step_buffer``); the library keeps their TMA maps by address.
+(``launch.step_buffer``); the library keeps their TMA maps by address.
 They take N a power of two in [8, 2048] with any l whose sums stay exact
 (``check_bound`` and ``cmux_k.check_shape``).  K5 is to K4/K6 what K2 is
 to K1: the limb panel and the product without the add, on the caller's
@@ -41,11 +41,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .. import poly
 from .._u32 import wrap
 from ..params import TFHEParams
-from . import build, cmux_k, plain
-from .cmux_k import SLICE, _check_tensor, _dispatch
+from . import cmux_k, launch, plain
+from .cmux_k import SLICE
+from .launch import INT, UINT, VP, check_tensor, dispatch
 from .plain import NUM_LIMBS
 
 MERGED_COEFFS = cmux_k.COEFFS // 2  # coefficients of one limb in K4's block tile
@@ -55,23 +55,14 @@ MERGED_COEFFS = cmux_k.COEFFS // 2  # coefficients of one limb in K4's block til
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/limb_step.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("limb_step")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    step = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cu, vp]
-    for name, args in (("rustfhe_limb_cmux_step_merged", step),
-                       ("rustfhe_limb_cmux_step_split", step),
-                       ("rustfhe_limb_panel", [vp, vp, ci, ci, vp]),
-                       ("rustfhe_limb_merged_product", [vp, vp, vp, vp, ci, ci, ci, vp]),
-                       ("rustfhe_limb_external_product", [vp, vp, vp, vp, ci, ci, ci, vp]),
-                       ("rustfhe_limb_smem_optin", [ctypes.POINTER(ci)])):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ci
-    return lib
-
-
-def _check(err: int, what: str) -> None:
-    cmux_k._check(cmux_k.load_library(), err, what)
+    step = [VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, UINT, VP]
+    return launch.bind("limb_step", {
+        "rustfhe_limb_cmux_step_merged": step,
+        "rustfhe_limb_cmux_step_split": step,
+        "rustfhe_limb_panel": [VP, VP, INT, INT, VP],
+        "rustfhe_limb_merged_product": [VP, VP, VP, VP, INT, INT, INT, VP],
+        "rustfhe_limb_external_product": [VP, VP, VP, VP, INT, INT, INT, VP],
+        "rustfhe_limb_smem_optin": [ctypes.POINTER(INT)]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +71,8 @@ def smem_optin(device_index: int) -> int:
     lib = load_library()
     num = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check(lib.rustfhe_limb_smem_optin(ctypes.byref(num)), "shared-memory limit query")
+        launch.check(lib, lib.rustfhe_limb_smem_optin(ctypes.byref(num)),
+                     "shared-memory limit query")
     return num.value
 
 
@@ -95,12 +87,14 @@ def check_bound(params: TFHEParams) -> None:
                          "limb engine's exact int32 range")
 
 
-def _check_step(acc, a_tilde, table, params: TFHEParams) -> None:
+def check_step(acc, a_tilde, table, params: TFHEParams) -> None:
+    """Raise unless ``acc``, ``a_tilde`` and ``table`` are a limb step's
+    operands at ``params`` and its sums stay exact (``check_bound``)."""
     B = acc.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    _check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
-    _check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), acc.device)
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("a_tilde", a_tilde, torch.int32, (B,), acc.device)
+    check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), acc.device)
     check_bound(params)
 
 
@@ -110,29 +104,23 @@ def _check_step(acc, a_tilde, table, params: TFHEParams) -> None:
 def cmux_step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                     params: TFHEParams) -> torch.Tensor:
     """The plain version of K4 and K6: acc + ExtProd(key, Decompose(X^{a~}
-    * acc - acc)), rotate (gather), difference, decomposition, then
-    ``plain.external_product_limbs``."""
-    from ..trgsw import decompose_trlwe
-
-    rot = poly.rotate(acc, a_tilde[:, None])
-    digits = decompose_trlwe(rot - acc, params).to(torch.int8)
-    return acc + plain.external_product_limbs(digits, table)
+    * acc - acc)), ``plain.cmux_step`` on ``plain.external_product_limbs``."""
+    return plain.cmux_step(acc, a_tilde, params, lambda d: plain.external_product_limbs(d, table))
 
 
 def _step(entry: str, acc, a_tilde, table, params: TFHEParams) -> torch.Tensor:
     """The three launches of K4 or K6 (``entry``) into the calling thread's
-    digit and panel buffers (``cmux_k._step_buffer``)."""
+    digit and panel buffers (``cmux_k.step_buffers``, K1's)."""
     B = acc.shape[0]
     N, two_l = params.N, 2 * params.l
     cmux_k.check_shape(N, two_l)
     if table.data_ptr() % 4:  # the panel kernel reads the table as words
         table = table.clone()
-    stream = cmux_k._stream(acc.device)
-    digits = cmux_k._step_buffer("digits", (B, two_l, cmux_k.geometry(N)[0]), acc.device, stream)
-    panel = cmux_k._step_buffer("panel", cmux_k.panel_shape(params), acc.device, stream)
+    stream = launch.current_stream(acc.device)
+    digits, panel = cmux_k.step_buffers("schoolbook", B, params, acc.device, stream)
     out = torch.empty_like(acc)
-    cmux_k._launch(entry, getattr(load_library(), entry), acc, a_tilde, table, out, digits, panel,
-                   B, N, params.l, params.bgbit, params.decomp_mask, stream=stream)
+    launch.call(load_library(), entry, acc, a_tilde, table, out, digits, panel, B, N, params.l,
+                params.bgbit, params.decomp_mask, stream=stream)
     return out
 
 
@@ -141,8 +129,8 @@ def cmux_step_merged(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tens
     """K4, both output halves per block tile: ``acc`` int32 (B, 2, N),
     ``a_tilde`` int32 (B,) in [0, 2N), ``table`` the step's doubled limb
     table int8 (2L, 2, 4, 2N).  Returns the new accumulator."""
-    _check_step(acc, a_tilde, table, params)
-    if not _dispatch(acc.device):
+    check_step(acc, a_tilde, table, params)
+    if not dispatch(acc.device):
         return cmux_step_plain(acc, a_tilde, table, params)
     out = _step("rustfhe_limb_cmux_step_merged", acc, a_tilde, table, params)
     cmux_step_merged.launches += 1
@@ -153,8 +141,8 @@ def cmux_step_split(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tenso
                     params: TFHEParams) -> torch.Tensor:
     """K6, one output half per block tile; the operands and the result of
     ``cmux_step_merged``."""
-    _check_step(acc, a_tilde, table, params)
-    if not _dispatch(acc.device):
+    check_step(acc, a_tilde, table, params)
+    if not dispatch(acc.device):
         return cmux_step_plain(acc, a_tilde, table, params)
     out = _step("rustfhe_limb_cmux_step_split", acc, a_tilde, table, params)
     cmux_step_split.launches += 1
@@ -178,16 +166,16 @@ def external_product(digits: torch.Tensor, table: torch.Tensor,
     limb table ``table`` int8 (2L, 2, 4, 2N).  Returns int32 (B, 2, N).
 
     On the card, K5's two launches: the limb panel into the calling
-    thread's panel buffer (``cmux_k._step_buffer``), then the product of
+    thread's panel buffer (``launch.step_buffer``), then the product of
     ``digits`` without the add, in K1's tile.  The digits go to TMA as they
     are when N is a multiple of SLICE (the limb engine's shapes),
     zero-padded to one slice below it."""
     B = digits.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("digits", digits, torch.int8, (B, two_l, N), digits.device)
-    _check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), digits.device)
+    check_tensor("digits", digits, torch.int8, (B, two_l, N), digits.device)
+    check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), digits.device)
     check_bound(params)
-    if not _dispatch(digits.device):
+    if not dispatch(digits.device):
         return external_product_plain(digits, table)
     cmux_k.check_shape(N, two_l)
     npad = cmux_k.geometry(N)[0]
@@ -197,11 +185,11 @@ def external_product(digits: torch.Tensor, table: torch.Tensor,
         raise ValueError("digits must start on a 16-byte boundary (TMA reads them in place)")
     if table.data_ptr() % 4:  # the panel kernel reads the table as words
         table = table.clone()
-    stream = cmux_k._stream(digits.device)
-    panel = cmux_k._step_buffer("panel", cmux_k.panel_shape(params), digits.device, stream)
+    stream = launch.current_stream(digits.device)
+    panel = launch.step_buffer("panel", cmux_k.panel_shape(params), digits.device, stream)
     out = torch.empty((B, 2, N), dtype=torch.int32, device=digits.device)
-    cmux_k._launch("limb_external_product", load_library().rustfhe_limb_external_product,
-                   digits, table, out, panel, B, N, two_l, stream=stream)
+    launch.call(load_library(), "rustfhe_limb_external_product", digits, table, out, panel, B, N,
+                two_l, stream=stream)
     external_product.launches += 1
     return out
 
@@ -233,14 +221,14 @@ def limb_panel(table: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     """The panels of ``table`` (``limb_panel_plain``'s function), on the
     table's device."""
     N, two_l = params.N, 2 * params.l
-    _check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), table.device)
-    if not _dispatch(table.device):
+    check_tensor("table", table, torch.int8, (two_l, 2, NUM_LIMBS, 2 * N), table.device)
+    if not dispatch(table.device):
         return limb_panel_plain(table, params)
     cmux_k.check_shape(N, two_l)
     if table.data_ptr() % 4:
         table = table.clone()
     panel = torch.empty(cmux_k.panel_shape(params), dtype=torch.int8, device=table.device)
-    cmux_k._launch("limb_panel", load_library().rustfhe_limb_panel, table, panel, N, two_l)
+    launch.call(load_library(), "rustfhe_limb_panel", table, panel, N, two_l)
     return panel
 
 
@@ -281,15 +269,15 @@ def merged_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
     ``digits``; K6's product is K1's (``cmux_k.panel_product``)."""
     B = digits.shape[0]
     N, two_l = params.N, 2 * params.l
-    _check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
-    _check_tensor("panel", panel, torch.int8, cmux_k.panel_shape(params), digits.device)
-    _check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
-    if not _dispatch(digits.device):
+    check_tensor("digits", digits, torch.int8, (B, two_l, cmux_k.geometry(N)[0]), digits.device)
+    check_tensor("panel", panel, torch.int8, cmux_k.panel_shape(params), digits.device)
+    check_tensor("acc", acc, torch.int32, (B, 2, N), digits.device)
+    if not dispatch(digits.device):
         return merged_product_plain(digits, panel, acc, params)
     cmux_k.check_shape(N, two_l)
     out = torch.empty_like(acc)
-    cmux_k._launch("limb_merged_product", load_library().rustfhe_limb_merged_product, digits,
-                   panel, acc, out, B, N, two_l)
+    launch.call(load_library(), "rustfhe_limb_merged_product", digits, panel, acc, out, B, N,
+                two_l)
     return out
 
 

@@ -50,7 +50,7 @@ from .._u32 import wrap
 from ..params import TFHEParams
 from ..poly import to_signed_limbs
 from . import int8_gemm
-from .cmux_k import _dispatch
+from .launch import dispatch
 
 
 def recombine(parts: torch.Tensor, limb_bits: int) -> torch.Tensor:
@@ -122,7 +122,7 @@ class MatmulEngine:
         """d ``(M, D)`` small integers @ ``wt.T`` (``wt`` int8 ``(C, D)``)
         -> int32 ``(M, C)``, exact."""
         if self.use_bf16:
-            if _dispatch(d.device):
+            if dispatch(d.device):
                 # bf16 operands, fp32 output and fp32 compute: exact here (see
                 # the module docstring); TF32 and bf16 reduction flags do not apply.
                 out = torch.mm(d.to(torch.bfloat16), wt.t().to(torch.bfloat16),

@@ -9,9 +9,9 @@ wrapping mod 2^32.  These are the in-block twiddle and the radix-2 stage
 of the transform-domain engine (``engine/transform.py``).
 
 The kernel is CUDA C++ for sm_90a in ``csrc/nuss_primitives.cu``, built
-with nvcc on first use and called through ctypes: a warp owns whole block
-pairs (16-byte loads and stores, the roll and the butterfly by warp
-shuffles), so it moves each word once, as its byte bound counts.
+with nvcc on first use and called through ctypes (``launch``): a warp owns
+whole block pairs (16-byte loads and stores, the roll and the butterfly by
+warp shuffles), so it moves each word once, as its byte bound counts.
 ``nuss_primitives`` dispatches on the device of its tensor: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
 ``nuss_primitives.launches`` counts the kernel launches, and nothing else.
@@ -24,9 +24,8 @@ import functools
 
 import torch
 
-from . import build
-from .cmux_k import _check_tensor, _dispatch
-from .limb_step import _check
+from . import launch
+from .launch import INT, VP, check_tensor, dispatch
 
 BL = 64  # lanes per block
 ROLL = 17  # the probe's roll
@@ -36,18 +35,14 @@ ROLL = 17  # the probe's roll
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/nuss_primitives.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("nuss_primitives")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rustfhe_nuss_primitives.argtypes = [vp, vp, ci, ci, ci, vp]
-    lib.rustfhe_nuss_primitives.restype = ci
-    return lib
+    return launch.bind("nuss_primitives", {"rustfhe_nuss_primitives": [VP, VP, INT, INT, INT, VP]})
 
 
 def _check_args(x: torch.Tensor, s: int) -> None:
     if x.dim() != 2 or x.shape[1] % (2 * BL) or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"x must be (rows, W) with W a multiple of {2 * BL}, got "
                          f"{tuple(x.shape)}")
-    _check_tensor("x", x, torch.int32, tuple(x.shape), x.device)
+    check_tensor("x", x, torch.int32, tuple(x.shape), x.device)
     if not 0 <= s < BL:
         raise ValueError(f"the roll S must lie in [0, {BL}), got {s}")
 
@@ -67,17 +62,12 @@ def nuss_primitives(x: torch.Tensor, s: int = ROLL) -> torch.Tensor:
     """Block roll by ``s`` then block butterfly of int32 words ``x`` (rows,
     W), W a multiple of 128; on the card one launch of the kernel."""
     _check_args(x, s)
-    if not _dispatch(x.device):
+    if not dispatch(x.device):
         return nuss_primitives_plain(x, s)
     if x.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary (the kernel loads 16 bytes a lane)")
-    lib = load_library()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rustfhe_nuss_primitives(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-                                          s, stream)
-    _check(err, "rustfhe_nuss_primitives")
+    launch.call(load_library(), "rustfhe_nuss_primitives", x, out, x.shape[0], x.shape[1], s)
     nuss_primitives.launches += 1
     return out
 

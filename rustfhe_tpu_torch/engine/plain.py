@@ -15,6 +15,8 @@ settings apply to float32 only and do not touch these products.
   version of what the kernels of ``engine/limb_step.py`` compute, against
   the doubled int8 limb table of ``prepare_trgsw_limbs``
   (``limb_table_from_qd`` takes the JAX package's layout of that table).
+* ``cmux_step``: the plain blind-rotate CMux step, acc + product(digits of
+  X^{a~} * acc - acc) (``step_digits``), on any of those products.
 * ``poly_mul_torus_binary``: torus poly times binary poly (encryption,
   phase, keygen).
 * ``prepare_ksk`` / ``key_switch_digits``: the identity key switch as one
@@ -24,9 +26,13 @@ settings apply to float32 only and do not touch these products.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
+from .. import poly
 from .._u32 import wrap
+from ..decomp import decompose_trlwe
 from ..params import TFHEParams
 from ..poly import to_signed_limbs
 
@@ -47,7 +53,7 @@ def prepare_trgsw(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([-rows, rows], dim=-1).contiguous()
 
 
-def _circulant_product(d: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def circulant_product(d: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``d.reshape(B, 2L*N) @ C`` for digits ``d (B, 2L, N)`` and the
     circulant C[(j, i), (c, k)] = T[j, c, k - i + N] of the doubled table
     ``(2L, H, 2N)`` (H output polynomials, 2 for the two halves): float64
@@ -77,7 +83,7 @@ def external_product(digits: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if two_l * N > 1 << 15:
         raise ValueError(f"2L*N = {two_l * N} breaks the float64 exactness bound")
     B = digits.shape[0]
-    return wrap(_circulant_product(digits, table)).reshape(B, 2, N)
+    return wrap(circulant_product(digits, table)).reshape(B, 2, N)
 
 
 def prepare_trgsw_limbs(rows: torch.Tensor) -> torch.Tensor:
@@ -134,9 +140,26 @@ def external_product_limbs(digits: torch.Tensor, table: torch.Tensor) -> torch.T
     B = digits.shape[0]
     out = torch.zeros((B, 2 * N), dtype=torch.int64, device=digits.device)
     for k in range(num_limbs):
-        part = wrap(_circulant_product(digits, table[:, :, k]))
+        part = wrap(circulant_product(digits, table[:, :, k]))
         out += part.to(torch.int64) << (LIMB_BITS * k)
     return wrap(out).reshape(B, 2, N)
+
+
+def step_digits(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The gadget digits of X^{a~} * acc - acc for ``acc`` int32 (B, 2, N)
+    and ``a_tilde`` (B,) in [0, 2N): int32 (B, 2L, N), body digits then mask
+    digits (``decomp.decompose_trlwe``)."""
+    return decompose_trlwe(poly.rotate(acc, a_tilde[:, None]) - acc, params)
+
+
+def cmux_step(acc: torch.Tensor, a_tilde: torch.Tensor, params: TFHEParams,
+              product: Callable[[torch.Tensor], torch.Tensor],
+              dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """One blind-rotate CMux step, acc + ExtProd(key, Decompose(X^{a~} * acc
+    - acc)): ``acc`` plus ``product`` (the step's external product with its
+    key) of ``step_digits`` cast to ``dtype``, int8 for the port's products
+    (|d| <= Bg/2 <= 128), int32 for an engine that takes wider digits."""
+    return acc + product(step_digits(acc, a_tilde, params).to(dtype))
 
 
 def poly_mul_torus_binary(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

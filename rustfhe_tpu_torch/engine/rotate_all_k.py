@@ -5,8 +5,8 @@ Counterpart of ``rustfhe_tpu/engine/pallas_k.py``: K3 replaces
 it, ``rotate_all_steps`` (pallas_k.py:670).  The kernel is CUDA C++ for
 sm_90a in ``csrc/rotate_all_k.cu`` (with ``csrc/cmux_common.cuh``, shared
 with K1), built with nvcc on first use (``build``) and called through
-ctypes.  It reads the standard prepared key that K1 reads; the JAX
-kernel's panel tables are not needed.
+ctypes (``launch``).  It reads the standard prepared key that K1 reads;
+the JAX kernel's panel tables are not needed.
 
 One sample runs on one thread-block cluster of at most N/64 blocks: 16
 while the card holds the whole batch at that size at once, else 8
@@ -36,7 +36,8 @@ import torch
 from .. import poly
 from .._u32 import wrap
 from ..params import TFHEParams
-from . import build, cmux_k
+from . import cmux_k, launch
+from .launch import INT, UINT, VP
 
 # ``bootstrap.blind_rotate`` takes K3 for a latency key when the flattened
 # batch is at most this, and the K1 loop above it: the crossover measured
@@ -53,20 +54,10 @@ MIN_N, MAX_N = 64, 2048
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/rotate_all_k.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    lib = build.load("rotate_all_k")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rustfhe_rotate_all_k.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_uint, ci,
-                                         vp]
-    lib.rustfhe_rotate_all_k.restype = ci
-    lib.rustfhe_rotate_all_clusters.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
-    lib.rustfhe_rotate_all_clusters.restype = ci
-    lib.rustfhe_rotate_all_barrier_floor.argtypes = [ci, ci, ci, ci, vp]
-    lib.rustfhe_rotate_all_barrier_floor.restype = ci
-    return lib
-
-
-def _check(err: int, what: str) -> None:
-    cmux_k._check(cmux_k.load_library(), err, what)
+    return launch.bind("rotate_all_k", {
+        "rustfhe_rotate_all_k": [VP, VP, VP, VP, INT, INT, INT, INT, INT, UINT, INT, VP],
+        "rustfhe_rotate_all_clusters": [INT, INT, INT, ctypes.POINTER(INT)],
+        "rustfhe_rotate_all_barrier_floor": [INT, INT, INT, INT, VP]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,8 +107,9 @@ def max_clusters(params: TFHEParams, cluster: int) -> int:
     once.  Raises when it holds none, or the shape is not supported."""
     lib = load_library()
     num = ctypes.c_int(0)
-    _check(lib.rustfhe_rotate_all_clusters(params.N, params.l, cluster, ctypes.byref(num)),
-           "rotate_all_k cluster query")
+    launch.check(lib, lib.rustfhe_rotate_all_clusters(params.N, params.l, cluster,
+                                                      ctypes.byref(num)),
+                 "rotate_all_k cluster query")
     return num.value
 
 
@@ -125,10 +117,11 @@ def barrier_floor(B: int, params: TFHEParams, device, cluster: int) -> None:
     """Launch B clusters of K3's shape that pass params.n cluster barriers
     and do nothing else: the latency floor under a rotation's n dependent
     steps, for timing (not on any path, not counted)."""
+    lib = load_library()
     with torch.cuda.device(device):
-        err = load_library().rustfhe_rotate_all_barrier_floor(
-            B, params.n, params.N, cluster, torch.cuda.current_stream(device).cuda_stream)
-    _check(err, "rotate_all_k barrier floor")
+        err = lib.rustfhe_rotate_all_barrier_floor(B, params.n, params.N, cluster,
+                                                   launch.current_stream(device))
+    launch.check(lib, err, "rotate_all_k barrier floor")
 
 
 def rotate_all_plain(acc: torch.Tensor, a_steps: torch.Tensor, bk: torch.Tensor,
@@ -172,9 +165,8 @@ def _rotate_all(acc: torch.Tensor, a_steps: torch.Tensor, bk: torch.Tensor,
     if bk.data_ptr() % 16:
         raise ValueError("bk must start on a 16-byte boundary (cp.async reads it in 16 bytes)")
     out = torch.empty_like(acc)
-    cmux_k._launch("rotate_all_k", load_library().rustfhe_rotate_all_k, acc, a_steps, bk, out,
-                   acc.shape[0], params.n, params.N, params.l, params.bgbit, params.decomp_mask,
-                   cluster)
+    launch.call(load_library(), "rustfhe_rotate_all_k", acc, a_steps, bk, out, acc.shape[0],
+                params.n, params.N, params.l, params.bgbit, params.decomp_mask, cluster)
     return out
 
 
@@ -186,10 +178,10 @@ def rotate_all(acc: torch.Tensor, a_steps: torch.Tensor, bk: torch.Tensor,
     rotated accumulator int32 (B, 2, N)."""
     B = acc.shape[0]
     n, N, two_l = params.n, params.N, 2 * params.l
-    cmux_k._check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
-    cmux_k._check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
-    cmux_k._check_tensor("bk", bk, torch.int32, (n, two_l, 2, 2 * N), acc.device)
-    if not cmux_k._dispatch(acc.device):
+    launch.check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    launch.check_tensor("a_steps", a_steps, torch.int32, (n, B), acc.device)
+    launch.check_tensor("bk", bk, torch.int32, (n, two_l, 2, 2 * N), acc.device)
+    if not launch.dispatch(acc.device):
         return rotate_all_plain(acc, a_steps, bk, params)
     check_shape(params)
     out = _rotate_all(acc, a_steps, bk, params, cluster_for(B, params, acc.device))

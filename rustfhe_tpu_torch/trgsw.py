@@ -16,7 +16,7 @@ import torch
 
 from . import tlwe, trlwe
 from ._u32 import srl
-from .decomp import decompose_signed
+from .decomp import decompose_trlwe
 from .engine import cmux_k
 from .engine.plain import poly_mul_torus_binary
 from .params import TFHEParams
@@ -102,13 +102,6 @@ def encrypt_binary(gen: torch.Generator, s: torch.Tensor, bit: torch.Tensor,
 
 def decrypt_binary(rep: torch.Tensor, s: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     return (decrypt_int(rep, s, params) != 0).to(torch.int32)
-
-
-def decompose_trlwe(ct: torch.Tensor, params: TFHEParams) -> torch.Tensor:
-    """Gadget-decompose TRLWE pair(s) (..., 2, N) into int32 (..., 2L, N):
-    body digits, then mask digits."""
-    digits = decompose_signed(ct, params).movedim(-1, -2)  # (..., 2, L, N)
-    return digits.reshape(ct.shape[:-2] + (2 * params.l, params.N))
 
 
 def external_product(prepared: torch.Tensor, ct: torch.Tensor,

@@ -9,6 +9,9 @@ themselves are compared with their plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import ctypes
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ from rustfhe_tpu import trgsw as jtrgsw
 from rustfhe_tpu.engine import get_engine
 from rustfhe_tpu.params import TFHEParams as JParams
 from rustfhe_tpu_torch import TFHE, _u32, params
-from rustfhe_tpu_torch.engine import cmux_k, oracle, plain
+from rustfhe_tpu_torch.engine import build, cmux_k, launch, matmul, oracle, plain
 
 U32 = jnp.uint32
 P1024 = params.TFHEParams(n=8, N=1024)
@@ -95,6 +98,87 @@ def test_wrappers_check_their_operands():
         cmux_k.cmux_step(t_acc.transpose(0, 1).contiguous().transpose(0, 1), t_ai, key, p)
     with pytest.raises(TypeError):
         cmux_k.external_product(torch.from_numpy(digits), key, p)
+
+
+# The product behind each plain step (``plain.cmux_step``): K1's, the limb
+# engine's (K4-K6), and the "matmul" engine's, which takes int32 digits.
+PLAIN_PRODUCTS = {
+    "K1": (lambda rows: (lambda d: plain.external_product(
+        d, plain.prepare_trgsw(_u32.from_numpy(rows)))), torch.int8),
+    "limb": (lambda rows: (lambda d: plain.external_product_limbs(
+        d, plain.prepare_trgsw_limbs(_u32.from_numpy(rows)))), torch.int8),
+    "matmul": (lambda rows: (lambda d: matmul.MatmulEngine().external_product_digits(
+        matmul.MatmulEngine().prepare_trgsw(_u32.from_numpy(rows)), d, P1024)), torch.int32),
+}
+
+
+@pytest.mark.parametrize("product", list(PLAIN_PRODUCTS))
+def test_plain_cmux_step_on_each_product_matches_jax(product):
+    # the one plain step (rotation, difference, digits, then the product) on
+    # each product = the JAX composition, word for word
+    rows, acc, ai, _ = _case(33, 5, P1024)
+    make, dtype = PLAIN_PRODUCTS[product]
+    t_acc, t_ai = _u32.from_numpy(acc), torch.from_numpy(ai)
+    got = plain.cmux_step(t_acc, t_ai, P1024, make(rows), dtype)
+    assert np.array_equal(_u32.to_numpy(got), _jax_step(rows, acc, ai, J1024))
+    rot = jpoly.rotate_binary(jnp.asarray(acc), jnp.asarray(ai)[:, None])
+    want = jtrgsw.decompose_trlwe((rot - jnp.asarray(acc)).astype(U32), J1024)
+    assert np.array_equal(plain.step_digits(t_acc, t_ai, P1024).numpy(), np.asarray(want))
+
+
+# --------------------------------------------------------------------- #
+# The launch module: what every wrapper checks before an entry reads a
+# tensor by address, where it dispatches, and how a library is bound.
+# --------------------------------------------------------------------- #
+_T = torch.zeros((3, 4), dtype=torch.int32)
+LAUNCH_CHECKS = {
+    "dtype": (lambda: launch.check_tensor("x", _T.to(torch.int64), torch.int32, (3, 4),
+                                          _T.device), TypeError, "x must be torch.int32"),
+    "shape": (lambda: launch.check_tensor("x", _T[:2], torch.int32, (3, 4), _T.device),
+              ValueError, r"x must have shape \(3, 4\), got \(2, 4\)"),
+    "device": (lambda: launch.check_tensor("x", _T, torch.int32, (3, 4), torch.device("meta")),
+               ValueError, "x is on cpu, expected meta"),
+    "contiguity": (lambda: launch.check_tensor("x", _T.t().contiguous().t(), torch.int32, (3, 4),
+                                               _T.device), ValueError, "x must be contiguous"),
+    "unsupported device": (lambda: launch.dispatch(torch.device("meta")), ValueError,
+                           "no kernel or plain version for device meta"),
+}
+
+
+@pytest.mark.parametrize("case", list(LAUNCH_CHECKS))
+def test_launch_checks_tensors_and_dispatches(case):
+    fn, error, message = LAUNCH_CHECKS[case]
+    with pytest.raises(error, match=message):
+        fn()
+    launch.check_tensor("x", _T, torch.int32, (3, 4), _T.device)  # all four hold: no error
+    assert launch.dispatch(torch.device("cpu")) is False
+    assert launch.dispatch(torch.device("cuda", 1)) is True
+
+
+def test_launch_binds_a_library_from_its_table(monkeypatch):
+    # bind against a stand-in library: every entry of the table gets its
+    # argument types and an int result, the error string its signature;
+    # check decodes an error with the library's own string
+    def entry():
+        return SimpleNamespace(argtypes=None, restype=None)
+
+    lib = SimpleNamespace(rustfhe_a=entry(), rustfhe_b=entry(), rustfhe_c=entry(),
+                          rustfhe_cuda_error_string=entry())
+    loaded = []
+    monkeypatch.setattr(build, "load", lambda name: loaded.append(name) or lib)
+    table = {"rustfhe_a": [launch.VP, launch.INT], "rustfhe_b": [launch.INT_P, launch.UINT]}
+    assert launch.bind("stand_in", table) is lib
+    assert loaded == ["stand_in"]
+    for name, args in table.items():
+        assert (getattr(lib, name).argtypes, getattr(lib, name).restype) == (args, ctypes.c_int)
+    assert (lib.rustfhe_c.argtypes, lib.rustfhe_c.restype) == (None, None)  # not in the table
+    assert lib.rustfhe_cuda_error_string.argtypes == [ctypes.c_int]
+    assert lib.rustfhe_cuda_error_string.restype is ctypes.c_char_p
+    lib.rustfhe_cuda_error_string = lambda err: b"invalid argument" if err == 1 else b"?"
+    launch.check(lib, 0, "rustfhe_a")
+    with pytest.raises(RuntimeError, match=r"rustfhe_a launch failed: CUDA error 1 "
+                                           r"\(invalid argument\)"):
+        launch.check(lib, 1, "rustfhe_a")
 
 
 # --------------------------------------------------------------------- #

@@ -59,6 +59,42 @@ def test_cmux_rotate_equals_the_plain_step_chain(n, B, per_row):
     assert torch.equal(acc, first)  # the plain version leaves the first accumulator alone
 
 
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("product", ["schoolbook", "karatsuba"])
+def test_rotate_on_either_product_equals_the_plain_step_chain(product, steps):
+    # ``rotate`` takes n from a_steps (here fewer than params.n) and the key
+    # of its product: the doubled tables or their leaf tables
+    p = P16
+    _, _, acc, a_steps, bk = _rotation(60 + steps, 5, p, per_row=True)
+    a_steps, bk = a_steps[:steps].contiguous(), bk[:steps].contiguous()
+    key = bk if product == "schoolbook" else cmux_k.leaf_table(bk, p)
+    want = acc
+    for i in range(steps):
+        want = cmux_k.cmux_step_plain(want, a_steps[i], bk[i], p)
+    counts = (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches)
+    got = cmux_k.rotate(acc, a_steps, key, p, product)
+    assert counts == (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches)
+    assert torch.equal(got, want)
+    other = cmux_k.leaf_table(bk, p) if product == "schoolbook" else bk
+    with pytest.raises((TypeError, ValueError), match="key must"):
+        cmux_k.rotate(acc, a_steps, other, p, product)  # the other product's key
+    with pytest.raises(ValueError, match="unknown product 'fft'"):
+        cmux_k.rotate(acc, a_steps, key, p, "fft")
+
+
+def test_step_buffers_are_each_products_digits_and_panels():
+    p, cpu = params.DEFAULT_PARAMS, torch.device("cpu")
+    digits, panel = cmux_k.step_buffers("schoolbook", 7, p, cpu, 0)
+    assert digits.shape == (7, 2 * p.l, cmux_k.geometry(p.N)[0])
+    assert panel.shape == cmux_k.panel_shape(p)
+    leaf_digits, leaf_panel = cmux_k.step_buffers("karatsuba", 7, p, cpu, 0)
+    npad, _, rows = cmux_k.geometry(p.N // karatsuba.R)
+    assert leaf_digits.shape == (7, karatsuba.T, 2 * p.l, npad)
+    assert leaf_panel.shape == (karatsuba.T, 2 * p.l, 2, cmux_k.LIMBS, rows, cmux_k.SLICE)
+    assert all(t.dtype == torch.int8 for t in (digits, panel, leaf_digits, leaf_panel))
+    assert cmux_k.step_buffers("schoolbook", 7, p, cpu, 0)[0] is digits  # kept while it fits
+
+
 @pytest.mark.parametrize("key", ["standard", "latency"])
 @pytest.mark.parametrize("n", [16, 17])
 def test_blind_rotate_issues_k1_in_one_call(n, key):

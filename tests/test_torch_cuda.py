@@ -146,6 +146,62 @@ def test_cmux_step_threads_keep_their_own_buffers(cuda):
         assert torch.equal(got[t], want[t])
 
 
+def _fresh_thread_calls(cuda):
+    """Calls that plan a product (TMA maps) before they launch anything, no
+    torch kernel before them: a single step on either product, a whole
+    rotation, the int8 GEMM; (name, call, plain version)."""
+    p = params.DEFAULT_PARAMS.replace(n=3)
+    rows, acc, ai, _ = _case(43, 33, p)
+    acc, ai = _u32.from_numpy(acc, cuda), torch.from_numpy(ai).to(cuda)
+    key = plain.prepare_trgsw(_u32.from_numpy(rows, cuda))
+    table = cmux_k.leaf_table(key[None], p)[0]
+    a3 = torch.stack([ai, ai.flip(0), ai]).contiguous()
+    keys = key[None].expand(3, -1, -1, -1).contiguous()
+    first = acc.clone()  # the rotation's, which it overwrites
+    d = torch.from_numpy(np.random.RandomState(44).randint(-128, 128, size=(128, 256))
+                         .astype(np.int8)).to(cuda)
+    w = torch.from_numpy(np.random.RandomState(45).randint(-128, 128, size=(256, 256))
+                         .astype(np.int8)).to(cuda)
+    wt = int8_gemm.prepare_rhs(w)
+
+    def chain():
+        out = acc
+        for i in range(3):
+            out = cmux_k.cmux_step_plain(out, a3[i], key, p)
+        return out
+
+    return [
+        ("cmux_step", lambda: cmux_k.cmux_step(acc, ai, key, p),
+         lambda: cmux_k.cmux_step_plain(acc, ai, key, p)),
+        ("cmux_step_karatsuba", lambda: cmux_k.cmux_step_karatsuba(acc, ai, table, p),
+         lambda: cmux_k.cmux_step_plain(acc, ai, key, p)),
+        ("rotate", lambda: cmux_k.rotate(first, a3, keys, p, "schoolbook"), chain),
+        ("int8_matmul", lambda: int8_gemm.int8_matmul(d, wt),
+         lambda: int8_gemm.int8_matmul_plain(d.cpu(), w.cpu()).to(cuda)),
+    ]
+
+
+def test_a_fresh_threads_first_call_plans_and_launches(cuda):
+    """A thread whose first call into a library plans a product (TMA maps)
+    before any launch of that library: a single K1 step on either product,
+    a rotation, the int8 GEMM, each alone in a new thread, = its plain
+    version."""
+    for name, call, want in _fresh_thread_calls(cuda):
+        got, errors = [], []
+
+        def run():
+            try:
+                got.append(call())
+            except Exception as e:  # re-raised in the test's thread
+                errors.append(e)
+
+        th = threading.Thread(target=run)
+        th.start()
+        th.join(timeout=120)
+        assert not th.is_alive() and not errors, (name, errors)
+        assert torch.equal(got[0], want()), name
+
+
 @pytest.mark.parametrize("name", ["TEST_PARAMS", "DEFAULT_PARAMS"])
 def test_cmux_step_pieces_match_plain(cuda, name):
     # the panel, digit and product kernels alone, each against its plain version
@@ -379,6 +435,39 @@ def test_cmux_rotate_takes_the_karatsuba_step_from_its_threshold(cuda, name):
         got = cmux_k.cmux_rotate(acc.clone(), a, bk, p)
         assert cmux_k.cmux_step_karatsuba.launches - before == steps
         assert torch.equal(got, want)
+
+
+# One step on either product, each side of the Karatsuba threshold's batches.
+SINGLE_STEPS = [("schoolbook", "DEFAULT_PARAMS", 13), ("schoolbook", "PBS_PARAMS", 4096),
+                ("karatsuba", "DEFAULT_PARAMS", 1024), ("karatsuba", "PBS_PARAMS", 512)]
+
+
+@pytest.mark.parametrize("product,name,B", SINGLE_STEPS)
+def test_one_step_is_a_rotation_of_one(cuda, product, name, B):
+    """``cmux_step`` and ``cmux_step_karatsuba`` run their product's rotation
+    entry at n = 1: the plain step word for word (in torch on the card),
+    one step counted and no rotation, ``acc`` not written."""
+    p = CMUX_PARAMS[name]
+    rs = np.random.RandomState(110 + B)
+
+    def words(*shape):
+        return _u32.from_numpy(rs.randint(0, 2**32, size=shape, dtype=np.uint64), cuda)
+
+    acc = words(B, 2, p.N)
+    a = torch.from_numpy(rs.randint(0, 2 * p.N, size=(B,)).astype(np.int32)).to(cuda)
+    key = plain.prepare_trgsw(words(1, 2 * p.l, 2, p.N))
+    first = acc.clone()
+    want = cmux_k.cmux_step_plain(acc, a, key[0], p)
+    before = (cmux_k.cmux_step.launches, cmux_k.cmux_step_karatsuba.launches,
+              cmux_k.cmux_rotate.launches)
+    if product == "schoolbook":
+        got = cmux_k.cmux_step(acc, a, key[0], p)
+    else:
+        got = cmux_k.cmux_step_karatsuba(acc, a, cmux_k.leaf_table(key, p)[0], p)
+    assert (cmux_k.cmux_step.launches - before[0], cmux_k.cmux_step_karatsuba.launches - before[1],
+            cmux_k.cmux_rotate.launches - before[2]) == (1, int(product == "karatsuba"), 0)
+    assert torch.equal(got, want)
+    assert torch.equal(acc, first)
 
 
 @pytest.mark.parametrize("cluster", [8, 16])

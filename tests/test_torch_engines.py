@@ -8,7 +8,9 @@ ciphertexts and must agree word for word (tolerance zero).  The port's
 own keygen is held to correct decryption.
 """
 
+import ast
 import functools
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -284,3 +286,50 @@ def test_one_npz_serves_both_engines(tmp_path):
     assert tlwe.decrypt_binary(outs[0], sk.lv0).tolist() == [1, 0, 0, 1, 0]
     ctx = TFHE.new(8, P_FAST, device="cpu", keyfile=prefix)
     assert ctx.engine_name == "limb" and torch.equal(ctx.ck.bk.table, ck_l.bk.table)
+
+
+# --------------------------------------------------------------------- #
+# The engine's module boundaries
+# --------------------------------------------------------------------- #
+def _reaches(path, own, modules):
+    """The ``_``-prefixed names of the engine modules ``modules`` (other
+    than ``own``) that the file at ``path`` imports or reads as an
+    attribute, and the lines of any import of ``trgsw``, as (line, text)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            source = (node.module or "").split(".")[-1]
+            names = [a.name for a in node.names]
+            if source in modules and source != own:
+                found += [(node.lineno, f"{source}.{n}") for n in names if n.startswith("_")]
+            if "trgsw" in (node.module or "").split(".") or "trgsw" in names:
+                found.append((node.lineno, "imports trgsw"))
+        elif isinstance(node, ast.Import) and any("trgsw" in a.name for a in node.names):
+            found.append((node.lineno, "imports trgsw"))
+        elif (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+              and node.value.id in modules and node.value.id != own
+              and node.attr.startswith("_") and not node.attr.startswith("__")):
+            found.append((node.lineno, f"{node.value.id}.{node.attr}"))
+    return found
+
+
+def test_no_module_reaches_into_another_engine_modules_private_names():
+    # every engine module is used through its public names (the launch
+    # plumbing lives in engine/launch.py), and nothing under engine/
+    # imports the ciphertext layer's trgsw; chip_smoke.py uses cmux_k's
+    # public names alone
+    root = Path(engine.__file__).resolve().parent.parent
+    modules = {p.stem for p in (root / "engine").glob("*.py")} - {"__init__"}
+    found = {}
+    for path in sorted(root.rglob("*.py")):
+        own = path.stem if path.parent.name == "engine" else None
+        hits = [h for h in _reaches(path, own, modules)
+                if h[1] != "imports trgsw" or path.parent.name == "engine"]
+        if hits:
+            found[str(path.relative_to(root))] = hits
+    smoke = root.parent / "chip_smoke.py"
+    hits = [h for h in _reaches(smoke, None, {"cmux_k"}) if h[1] != "imports trgsw"]
+    if hits:
+        found["chip_smoke.py"] = hits
+    assert found == {}
+    assert {"cmux_k", "launch", "limb_step", "rotate_all_k"} <= modules  # the scan saw them
