@@ -26,10 +26,12 @@ Phases, one line each:
      product: panel and product) on the card against their plain torch
      versions, bit for bit, and K2 against the oracle, on edge inputs and
      at the main path's batches (1024 and 4096); K1's Karatsuba step
-     (``cmux_k.cmux_step_karatsuba``, the wide rotations' step) against
-     the plain step, and its tree digits against the plain ones, at the
-     same batches; K1's three kernels alone against their plain versions;
-     times in turns: K1, its Karatsuba step, its pieces, the plain step,
+     (``cmux_k.cmux_step_karatsuba``, the wide rotations' step: leaf
+     panels, tree digits, nine leaf GEMMs, combine) against the plain
+     step, and its tree digits, leaf panels and leaves (read back from its
+     buffers) and its combine (launched alone) against their plain
+     versions, at the same batches; K1's three kernels alone against their
+     plain versions; times in turns: K1, its Karatsuba step, its pieces, the plain step,
      and ``torch._int_mm`` at the step's product shape, K1's and the
      Karatsuba step's shares of their bounds; K2 beside its plain version;
   4. main path: ``TFHE.new`` (keygen on the card, K2 probe), one mixed
@@ -268,7 +270,8 @@ from rustfhe_tpu_torch.utils.timing import time_fn
 KERNEL_SOURCE = "rustfhe_tpu_torch/csrc/cmux_k.cu"
 KARATSUBA_STEP_SOURCE = "rustfhe_tpu_torch/csrc/karatsuba_step.cuh"  # built into cmux_k.cu
 K1_KERNELS = ("key_panel_kernel", "step_digits_kernel", "cmux_product_kernel",  # a step's launches
-              "limb_panel_kernel", "leaf_digits_kernel", "leaf_product_kernel")  # its Karatsuba step's
+              "limb_panel_kernel", "leaf_digits_kernel", "leaf_combine_kernel")  # its Karatsuba step's
+# (the Karatsuba step's product: cmux_product_kernel<false, 1, LeafProduct<0, 0, 0>>)
 # K4/K6's and K5's launches (the digit and product kernels are K1's, csrc/cmux_step.cuh)
 LIMB_KERNELS = ("limb_panel_kernel", "step_digits_kernel", "cmux_product_kernel")
 K3_KERNELS = ("rotate_all_kernel", "barrier_floor_kernel")
@@ -391,26 +394,34 @@ def phase_kernels(p, dev, rs):
     errs["k2"] = max(errs["k2"], exact("K2 random", cmux_k.external_product(rd, key, p),
                                        cmux_k.external_product_plain(rd, key)))
     # K1, its Karatsuba step and K2 at the main path's batches: the mixed batch and the NAND
-    # batch (the Karatsuba step's tree digits read back from its digit buffer).
+    # batch (the Karatsuba step's tree digits, leaf panels and leaves read back from its
+    # buffers, each against its plain version from the step's own inputs to it, and its combine
+    # launched alone on those leaves).
     for b in (MIXED, BATCH):
         accb = words(rs, (b, 2, N), dev)
         aib = torch.from_numpy(rs.randint(0, 2 * N, size=b).astype(np.int32)).to(dev)
         want = cmux_k.cmux_step_plain(accb, aib, key, p)
         errs["k1"] = max(errs["k1"], exact(f"K1 B={b}", cmux_k.cmux_step(accb, aib, key, p), want))
         got = cmux_k.cmux_step_karatsuba(accb, aib, ktab, p)
-        tree = cmux_k.step_buffers("karatsuba", b, p, accb.device,
-                                   launch.current_stream(accb.device))[0]
+        tree, leaf_panel, leaves = cmux_k.step_buffers("karatsuba", b, p, accb.device,
+                                                       launch.current_stream(accb.device))
         errs["k1_karatsuba"] = max(
             errs["k1_karatsuba"], exact(f"K1 Karatsuba B={b}", got, want),
             exact(f"K1 Karatsuba tree digits B={b}", tree,
-                  karatsuba_probe.tree_digits_plain(karatsuba.scan_enter(accb), aib, p)))
+                  karatsuba_probe.tree_digits_plain(karatsuba.scan_enter(accb), aib, p)),
+            exact(f"K1 Karatsuba leaf panels B={b}", leaf_panel,
+                  karatsuba_probe.leaf_panel_plain(ktab, p)),
+            exact(f"K1 Karatsuba leaves B={b}", leaves,
+                  karatsuba_probe.leaves_plain(tree, leaf_panel, ktab, p)),
+            exact(f"K1 Karatsuba combine B={b}", cmux_k.leaf_combine(accb, leaves, p), got))
         db = torch.from_numpy(rs.randint(-hb, hb, size=(b, two_l, N)).astype(np.int8)).to(dev)
         errs["k2"] = max(errs["k2"], exact(f"K2 B={b}", cmux_k.external_product(db, key, p),
                                            cmux_k.external_product_plain(db, key)))
     torch.cuda.synchronize()
     log("kernels", f"K1 and K2 bit-exact against their plain versions on {dev} "
         f"(edge inputs, B=256, B={MIXED}, B={BATCH}); K2 equals the oracle on the probe vectors; "
-        f"K1's Karatsuba step equals the plain step, and its tree digits the plain ones, at "
+        f"K1's Karatsuba step equals the plain step, and its tree digits, leaf panels, leaves "
+        f"and combine (alone) their plain versions, at "
         f"B={MIXED}, B={BATCH}")
 
     # K1's three kernels alone at B=BATCH, each against its plain version.
@@ -3277,7 +3288,8 @@ def main() -> int:
         ("cmux_rotate_k: key_panel_kernel + step_digits_kernel + cmux_product_kernel<true, 1>",
          KERNEL_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", k1_all - k1_kara,
          errs["k1"], *times["k1"], (step_ops(p, BATCH), step_bytes(p, BATCH, key_bytes)), None),
-        ("cmux_rotate_karatsuba: limb_panel_kernel<9> + leaf_digits_kernel + leaf_product_kernel",
+        ("cmux_rotate_karatsuba: limb_panel_kernel<9> + leaf_digits_kernel + "
+         "cmux_product_kernel<false, 1, LeafProduct<RECOMBINE, false, 0>> + leaf_combine_kernel",
          KARATSUBA_STEP_SOURCE, "rustfhe_tpu/engine/pallas_k.py:295", k1_kara,
          errs["k1_karatsuba"], *times["k1_karatsuba"],
          (step_ops(p, BATCH), step_bytes(p, BATCH, leaf_bytes)), None),

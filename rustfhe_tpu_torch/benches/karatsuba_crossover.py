@@ -33,8 +33,8 @@ from . import _timing
 STEPS = 24
 ROUNDS = 3
 BATCHES = {
-    "default": (DEFAULT_PARAMS, (128, 256, 384, 512, 768, 1024, 2048, 4096, 8192, 16384, 32768)),
-    "pbs": (PBS_PARAMS, (128, 256, 320, 384, 448, 512, 768, 1024, 4096, 16384)),
+    "default": (DEFAULT_PARAMS, (256, 512, 576, 640, 768, 1024, 4096, 16384, 32768)),
+    "pbs": (PBS_PARAMS, (128, 192, 256, 320, 384, 448, 512, 1024, 2048, 4096, 16384)),
 }
 
 

@@ -59,11 +59,11 @@
 // step is a rotation of one.
 //
 // Wide batches take the same step on the two-level Karatsuba product
-// (karatsuba_step.cuh: 9/16 of the multiply-adds, the leaf products
-// combined in the product's epilogue), word for word the step above:
-// rustfhe_cmux_rotate_karatsuba issues its rotation the same way, each
-// step's leaf panels cut from the key's leaf table (engine/cmux_k.py
-// leaf_table, prepared once).
+// (karatsuba_step.cuh: 9/16 of the multiply-adds in nine leaf GEMMs on
+// K1's tile, the leaves written out and combined by a fourth launch), word
+// for word the step above: rustfhe_cmux_rotate_karatsuba issues its
+// rotation the same way, each step's leaf panels cut from the key's leaf
+// table (engine/cmux_k.py leaf_table, prepared once).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -169,28 +169,28 @@ int rustfhe_cmux_rotate_k(void* acc, const void* a_steps, const void* key, void*
   return (int)cudaSuccess;
 }
 
-// K1 on the Karatsuba product: a whole rotation of n steps, each karatsuba_step.cuh's three
+// K1 on the Karatsuba product: a whole rotation of n steps, each karatsuba_step.cuh's four
 // launches on `stream`, from one host call, as rustfhe_cmux_rotate_k issues them.  table (n, 2,
-// 9, 4, 2L, N/2) int8, step i's leaf table at i 72 l N bytes; digits (B, 9, 2L, npad) int8 and
-// panel (9, 2L, 2, 4, rows, 128) int8, npad and rows those of ns = N/4.  acc, acc2, a_steps,
-// failed_step and result as rustfhe_cmux_rotate_k has them.
+// 9, 4, 2L, N/2) int8, step i's leaf table at i 72 l N bytes; digits (B, 9, 2L, npad) int8,
+// panel (9, 2L, 2, 4, rows, 128) int8, npad and rows those of ns = N/4, and leaves (B, 9, 2,
+// N/4) words.  acc, acc2, a_steps, failed_step and result as rustfhe_cmux_rotate_k has them.
 int rustfhe_cmux_rotate_karatsuba(void* acc, const void* a_steps, const void* table, void* acc2,
-                                  void* digits, void* panel, int n, int B, int N, int l,
-                                  int bgbit, unsigned int mask, int* failed_step, int* result,
-                                  void* stream) {
+                                  void* digits, void* panel, void* leaves, int n, int B, int N,
+                                  int l, int bgbit, unsigned int mask, int* failed_step,
+                                  int* result, void* stream) {
   namespace kara = rustfhe::karatsuba;
   *failed_step = -1;
   *result = n % 2;
   if (n < 1 || !kara::step_shape_ok(B, N, l, bgbit)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  kara::ProductPlan plan;
+  ProductPlan plan;
   cudaError_t e = kara::plan_product(&plan, digits, panel, B, N, l);
   if (e != cudaSuccess) return (int)e;
   void* bufs[2] = {acc, acc2};
   for (int i = 0; i < n; ++i) {
     e = kara::launch_step(plan, bufs[i % 2], (const int32_t*)a_steps + (size_t)i * B,
                           (const int8_t*)table + i * kara::table_bytes(N, l), bufs[(i + 1) % 2],
-                          digits, panel, B, N, l, bgbit, mask, st);
+                          digits, panel, leaves, B, N, l, bgbit, mask, st);
     if (e != cudaSuccess) {
       *failed_step = i;
       return (int)e;
@@ -240,6 +240,14 @@ int rustfhe_panel_product(const void* digits, const void* panel, const void* acc
                           int N, int two_l, void* stream) {
   if (!shape_ok(B, N, two_l)) return (int)cudaErrorInvalidValue;
   return (int)launch_product<true, 1>(digits, panel, acc, out, B, N, two_l, (cudaStream_t)stream);
+}
+
+// The Karatsuba step's combine: out = acc + the tree combine of leaves (B, 9, 2, N/4) words.
+int rustfhe_leaf_combine(const void* acc, const void* leaves, void* out, int B, int N, int l,
+                         int bgbit, void* stream) {
+  namespace kara = rustfhe::karatsuba;
+  if (!kara::step_shape_ok(B, N, l, bgbit)) return (int)cudaErrorInvalidValue;
+  return (int)kara::launch_leaf_combine(acc, leaves, out, B, N, (cudaStream_t)stream);
 }
 
 }  // extern "C"

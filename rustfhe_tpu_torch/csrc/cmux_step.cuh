@@ -1,7 +1,8 @@
 // The CMux step as one int8 GEMM on Hopper (sm_90a): what the int32-key
 // step K1/K2 (cmux_k.cu), the limb-table steps K4/K6 and K5
 // (limb_step.cu), their ablations P5/P6 (limb_probe.cu) and the Karatsuba
-// step's leaf products (karatsuba_probe.cu) share.  Each library builds its
+// step's leaf products (karatsuba_step.cuh, in K1's wide rotations, and
+// its probes in karatsuba_probe.cu) share.  Each library builds its
 // own key panels (K1's from the int32 key in cmux_k.cu; the others with
 // limb_panel_kernel below) and then launches:
 //

@@ -55,15 +55,10 @@
 // digits); the leaf panels 20.25 MiB; the leaf partials 18 KiB a sample,
 // 151 MB written and read back; ~0.70 GB in all, 0.21 ms at 3.35 TB/s,
 // against the step's 0.234 ms operation bound (2 x 2 x 4 x 2L x 9 x ns^2
-// int8 ops a sample at 1,979 TOP/s).  The combine is materialised because
-// the fused one does not fit K1's tile: a tile of 128 samples x 64
-// positions of one half would hold its positions' nine leaves (288 KiB),
-// or the four output residues (128 KiB) plus the Z terms' halo of the
-// previous position, beside the ring's 193 KiB of the 227 KiB a block has;
-// in registers the four residues take 128 more a consumer thread beside
-// the fragment's 128, of the 232 it has.  Fusing it needs a narrower tile
-// (64 or 128 columns) and a smaller ring; the measured split (PERF.md)
-// says what it would save.
+// int8 ops a sample at 1,979 TOP/s).  K1's wide rotations take this
+// design's product, the same LeafProduct instantiation, with digits and a
+// combine on the standard layout (karatsuba_step.cuh, which defines
+// LeafProduct and says why the leaves go through device memory).
 //
 // Each form (engine/karatsuba_probe.py FORMS; karatsuba.Step) on this design:
 //   rot rotate / norot / skip   kernel 1: diff = X^a~ acc - acc / a~ as a word / 1
@@ -106,38 +101,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "cmux_step.cuh"
 #include "error_string.cuh"
-
-namespace rustfhe {
-namespace karatsuba {
-
-// The leaf product (cmux_step.cuh Product): the nine leaf GEMMs in one
-// launch, with its epilogue, its tile order and its builds.  Outside the
-// anonymous namespace: the product kernel it instantiates keeps external
-// linkage (and hidden visibility).
-template <int EPI_, bool SERIAL_, int BUILD_>
-struct LeafProduct : cmux::Product {
-  static constexpr int LEAVES = 9;
-  static constexpr int EPI = EPI_;
-  static constexpr bool SERIAL = SERIAL_;
-  static constexpr int BUILD = BUILD_;
-  // The residue leaves whose digits sum to leaf t's (r0, r2, r1, r3 are
-  // leaves 0, 1, 3, 4); 0 for a residue leaf.
-  __device__ static int sources(int t, int (&src)[4]) {
-    switch (t) {
-      case 2: src[0] = 0; src[1] = 1; return 2;  // r0 + r2
-      case 5: src[0] = 3; src[1] = 4; return 2;  // r1 + r3
-      case 6: src[0] = 0; src[1] = 3; return 2;  // r0 + r1
-      case 7: src[0] = 1; src[1] = 4; return 2;  // r2 + r3
-      case 8: src[0] = 0; src[1] = 1; src[2] = 3; src[3] = 4; return 4;
-      default: return 0;
-    }
-  }
-};
-
-}  // namespace karatsuba
-}  // namespace rustfhe
+#include "karatsuba_step.cuh"
 
 namespace {
 
@@ -145,9 +110,9 @@ using namespace rustfhe::cmux;
 using rustfhe::rotated_coeff;
 using rustfhe::rounded_diff;
 using rustfhe::tree9;
+using rustfhe::karatsuba::R;     // residues per half (levels 2)
+using rustfhe::karatsuba::TREE;  // leaves
 
-constexpr int R = 4;       // residues per half (levels 2)
-constexpr int TREE = 9;    // leaves
 constexpr int MAX_NS = 512;
 
 // A form's number (engine/karatsuba_probe.py form_code): its bits.

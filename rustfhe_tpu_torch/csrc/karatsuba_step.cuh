@@ -18,42 +18,40 @@
 // Every sum wraps mod 2^32 and every map is linear, so the order of the
 // sums does not change a word.
 //
-// Three launches a step, P4's (benches/k2_floor_probe.py) less its combine:
+// Four launches a step, P4's (benches/k2_floor_probe.py) product on the
+// standard layout's digits and combine:
 //   1. limb_panel_kernel<9> (cmux_step.cuh): the step's leaf panels from
 //      its leaf table, which is prepared once for the whole key
 //      (engine/cmux_k.py leaf_table);
 //   2. leaf_digits_kernel: the nine tree planes of the step's digits, int8
-//      (B, 9, 2L, npad), and zeros in the words of out that the product
-//      adds into with atomics;
-//   3. leaf_product_kernel: a block tile's nine leaf GEMMs one after the
-//      other on cmux_step.cuh's TMA ring and wgmma mainloop, each leaf's
-//      four limbs recombined in registers and added into the tile's four
-//      output residues with the leaf's coefficients; the residues plus acc
-//      are the step's output.  No leaf product goes to device memory and
-//      there is no combine launch.
+//      (B, 9, 2L, npad), read from acc in the standard layout;
+//   3. cmux_product_kernel<false, 1, LeafProduct<RECOMBINE, false,
+//      NO_BUILD>> (cmux_step.cuh, the product P1-P4 and P8 of
+//      karatsuba_probe.cu run too): the nine leaf GEMMs in one launch on
+//      K1's tile (128 samples x one half x 4 limbs x 64 leaf positions,
+//      wgmma m64n256k32, a 4-stage TMA ring), the leaf the slowest
+//      dimension of the persistent tile order; the epilogue recombines each
+//      leaf's four limbs in registers and writes the leaves, (B, 9, 2, ns)
+//      words, to device memory;
+//   4. leaf_combine_kernel: acc plus the tree combine of the nine leaves, a
+//      thread a (sample, half, position): one 16-byte load of acc, the nine
+//      leaves there and five at the position before, one 16-byte store.
 //
-// The tile: 128 samples x one half x SPAN = 32 leaf positions, 4 limbs x 32
-// = 128 columns, wgmma m64n128k32 for each of the two consumer warpgroups.
-// A consumer thread holds the leaf's fragment (64 int32) and two of the four
-// residues of its 16 (sample, position) pairs (32 words), the other two in
-// shared memory: ptxas gives a 384-thread block 168 registers a thread,
-// whatever setmaxnreg grants later, and with all four residues, or K1's
-// 256-column tile, it spills and serialises the wgmmas.  Z moves a
-// value one position on: inside the tile by a shuffle from the lane that
-// holds position m - 1; across tiles, the Z terms of a tile's last position
-// belong to the next tile's first (of the last tile's, negated, to position
-// 0), so both tiles add into those words (residues 0-2 of every SPAN-th
-// position) with atomics, on zeros the digit launch wrote.  A block walks
-// its tiles with the sub-tile fastest, then the half, then the 128 samples,
-// so the blocks resident at one time read the digits of a few sample tiles
-// and find them in L2.  A stage is 16 KiB of digits and 16 KiB of panels;
-// the ring holds RING = 6 of them.
+// Why the leaves go through device memory: with the combine in the
+// product's epilogue (the design this replaces), the four output residues
+// sit beside the 64-word fragment of a consumer thread, and ptxas gives a
+// 384-thread block 168 registers a thread, so the tile had to narrow to 128
+// columns; it ran at ~54 % of its bound, and the step is 7-19 % slower than
+// this one (PERF.md §6).  The product here keeps K1's 256-column tile.
 //
 // What bounds it, at DEFAULT_PARAMS and B = 16384 a step: 2 x 2 x 4 x 2L x
-// 9 x ns^2 int8 operations a sample, 0.47 ms at 1,979 TOP/s; the bytes (the
-// tree digits written and read back, 0.23 GB each way, the accumulator in
-// and out, 0.13 GB each, the leaf panels 21 MiB) take ~0.22 ms at 3.35
-// TB/s, most of it under the product's operations.
+// 9 x ns^2 int8 operations a sample, 0.47 ms at 1,979 TOP/s.  The bytes:
+// the tree digits, 0.23 GB written and read back; the leaves, 18 N bytes a
+// sample (0.30 GB) written by the product and read by the combine; the
+// accumulator read twice (the digits, the combine) and written once, 0.13
+// GB each; the leaf panels 21 MiB: ~1.5 GB in all, 0.45 ms at 3.35 TB/s.
+// The product's own bytes (the digits in, the leaves out) run under its
+// operations; the digits and the combine are bound by their bytes alone.
 
 #pragma once
 
@@ -67,26 +65,38 @@ namespace rustfhe {
 namespace karatsuba {
 
 using namespace rustfhe::hopper;
-using cmux::BM;
-using cmux::CONSUMERS;
 using cmux::Geometry;
-using cmux::LIMBS;
 using cmux::THREADS;
 
-constexpr int R = 4;                // residues of a half (two levels)
-constexpr int TREE = 9;             // leaves
-constexpr int SPAN = 32;            // leaf positions of a block tile: a panel box's rows
-constexpr int JB = SPAN / 8;        // n8 column blocks of one limb
-constexpr int BN = LIMBS * SPAN;    // columns of a block tile
-constexpr int RING = 6;             // stages
-constexpr int A_STAGE = BM * DEPTH;
-constexpr int B_STAGE = BN * DEPTH;
-constexpr int SHARED_RES = 2;       // output residues kept in shared memory (0 and 2)
-constexpr int RES_BYTES = SHARED_RES * BM * SPAN * 4;
-constexpr int SMEM = ALIGN + RING * (A_STAGE + B_STAGE) + RES_BYTES + 2 * RING * 8;
-constexpr int MIN_N = R * SPAN, MAX_N = 2048;
-static_assert(SMEM <= 232448, "the ring fits a block's shared memory");
-static_assert(SPAN * DEPTH % ALIGN == 0, "every panel box starts on a swizzle atom");
+constexpr int R = 4;      // residues of a half (two levels)
+constexpr int TREE = 9;   // leaves
+constexpr int MIN_N = R * cmux::MIN_N, MAX_N = 2048;
+
+// The leaf product (cmux_step.cuh Product): the nine leaf GEMMs in one
+// launch, with its epilogue, its tile order and its builds.  The step takes
+// LeafProduct<RECOMBINE, false, NO_BUILD>; karatsuba_probe.cu's forms the
+// others.
+template <int EPI_, bool SERIAL_, int BUILD_>
+struct LeafProduct : cmux::Product {
+  static constexpr int LEAVES = TREE;
+  static constexpr int EPI = EPI_;
+  static constexpr bool SERIAL = SERIAL_;
+  static constexpr int BUILD = BUILD_;
+  // The residue leaves whose digits sum to leaf t's (r0, r2, r1, r3 are
+  // leaves 0, 1, 3, 4); 0 for a residue leaf.
+  __device__ static int sources(int t, int (&src)[4]) {
+    switch (t) {
+      case 2: src[0] = 0; src[1] = 1; return 2;  // r0 + r2
+      case 5: src[0] = 3; src[1] = 4; return 2;  // r1 + r3
+      case 6: src[0] = 0; src[1] = 3; return 2;  // r0 + r1
+      case 7: src[0] = 1; src[1] = 4; return 2;  // r2 + r3
+      case 8: src[0] = 0; src[1] = 1; src[2] = 3; src[3] = 4; return 4;
+      default: return 0;
+    }
+  }
+};
+
+using StepProduct = LeafProduct<cmux::RECOMBINE, false, cmux::NO_BUILD>;
 
 // Four coefficients in [-1, 1], two bits each (1: +1, 3: -1).
 __host__ __device__ constexpr int coefs(int c0, int c1, int c2, int c3) {
@@ -116,14 +126,12 @@ __host__ __device__ constexpr int coef(int t, int i, bool shifted) {
 // 2. acc (B, 2, N) words; a_tilde (B,) (reduced mod 2N here); digits (B,
 // 9, 2L, npad) int8, npad = ns rounded up to DEPTH: byte m of plane p l +
 // lv of leaf t is tree plane t of the level-lv digits of the residues of
-// X^{a~} * acc - acc at position m of half p, zero for m >= ns; out (B, 2,
-// N): residues 0-2 of every SPAN-th position set to zero.  Thread: sample
-// b, half p, position m (its four coefficients, one 16-byte load), all
-// levels: one byte of each (leaf, plane), a warp's 32 consecutive.
+// X^{a~} * acc - acc at position m of half p, zero for m >= ns.  Thread:
+// sample b, half p, position m (its four coefficients, one 16-byte load),
+// all levels: one byte of each (leaf, plane), a warp's 32 consecutive.
 __global__ RUSTFHE_LOCAL void __launch_bounds__(THREADS)
 leaf_digits_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ a_tilde,
-                   int8_t* __restrict__ digits, int32_t* __restrict__ out, int B, int N, int l,
-                   int bgbit, uint32_t mask) {
+                   int8_t* __restrict__ digits, int B, int N, int l, int bgbit, uint32_t mask) {
   const int ns = N / R;
   const int npad = Geometry(ns).npad;
   const int idx = blockIdx.x * THREADS + threadIdx.x;
@@ -131,11 +139,9 @@ leaf_digits_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ 
   const int m = idx % npad;
   const int p = idx / npad % 2;
   const int b = idx / (2 * npad);
-  const bool live = m < ns;
-  const size_t half = ((size_t)b * 2 + p) * N;
   uint32_t u[R] = {0u, 0u, 0u, 0u};  // residue r at position m
-  if (live) {
-    const int32_t* poly = acc + half;
+  if (m < ns) {
+    const int32_t* poly = acc + ((size_t)b * 2 + p) * N;
     const auto at = [poly](int x) { return (uint32_t)poly[x]; };
     int a = a_tilde[b] % (2 * N);
     if (a < 0) a += 2 * N;
@@ -143,10 +149,6 @@ leaf_digits_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ 
     const uint32_t c[R] = {(uint32_t)cur.x, (uint32_t)cur.y, (uint32_t)cur.z, (uint32_t)cur.w};
 #pragma unroll
     for (int r = 0; r < R; ++r) u[r] = rounded_diff(rotated_coeff(at, R * m + r, a, N), c[r], mask);
-    if (m % SPAN == 0) {
-#pragma unroll
-      for (int r = 0; r < R - 1; ++r) out[half + R * m + r] = 0;
-    }
   }
   int8_t* dst = digits + ((size_t)b * TREE * 2 * l + p * l) * npad + m;
   for (int lv = 0; lv < l; ++lv) {
@@ -159,307 +161,94 @@ leaf_digits_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ 
   }
 }
 
-// Leaf T's fragment folded into a block tile's output residues: its four
-// limbs recombined, shifted by one position for the residues that take its
-// Z term, and added with the leaf's coefficients (leaf 0 sets them).  The
-// fragment's column block lt JB + j holds limb lt at the tile's positions 8j
-// + 2q and + 1 (e = 0, 1) of rows r and r + 8 (r8 = 0, 1): frag[4 (lt JB +
-// j) + 2 r8 + e].  Residues 1 and 3 live in registers (reg[0], reg[1], at
-// (r8, j, e), zero at the tile's start), 0 and 2 in shared memory (res: the thread's row r of each,
-// SPAN words in a swizzle that keeps a warp's rows on distinct banks; row r
-// + 8 at res + 8 SPAN); each thread touches its own words alone.  next:
-// the Z terms of the next tile's first position, from the tile's last (the
-// lanes q = 3 hold it).
-template <int T>
-__device__ __forceinline__ void fold_leaf(const int32_t (&frag)[BN / 2],
-                                          uint32_t (&reg)[2][2][JB][2],
-                                          uint32_t (&next)[R - 1][2], uint32_t* res, int q,
-                                          int prev_lane, int swizzle) {
-  constexpr bool SHIFTED = coef(T, 0, true) || coef(T, 1, true) || coef(T, 2, true);
-#pragma unroll
-  for (int r8 = 0; r8 < 2; ++r8) {
-    uint32_t v[JB][2], z[JB][2];  // leaf T at (j, e), and at the position before
-#pragma unroll
-    for (int j = 0; j < JB; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        uint32_t x = 0u;
-#pragma unroll
-        for (int lt = 0; lt < LIMBS; ++lt)
-          x += (uint32_t)frag[4 * (lt * JB + j) + 2 * r8 + e] << (8 * lt);
-        v[j][e] = x;
-        z[j][e] = 0u;
-      }
-    if (SHIFTED) {
-      uint32_t up[JB];  // column 2q - 1 (mod 8) of block j
-#pragma unroll
-      for (int j = 0; j < JB; ++j) up[j] = __shfl_sync(0xFFFFFFFFu, v[j][1], prev_lane);
-#pragma unroll
-      for (int j = 0; j < JB; ++j) {
-        z[j][1] = v[j][0];
-        // q = 0: the last column of block j - 1; before block 0, the previous tile's (its
-        // `next`, added with atomics).
-        z[j][0] = q ? up[j] : j > 0 ? up[j > 0 ? j - 1 : 0] : 0u;
-      }
-#pragma unroll
-      for (int i = 0; i < R - 1; ++i) next[i][r8] += (uint32_t)coef(T, i, true) * v[JB - 1][1];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const uint32_t cv = (uint32_t)coef(T, i, false), cz = (uint32_t)coef(T, i, true);
-      if (cv == 0u && cz == 0u) continue;
-#pragma unroll
-      for (int j = 0; j < JB; ++j) {
-        const uint32_t a0 = cv * v[j][0] + cz * z[j][0], a1 = cv * v[j][1] + cz * z[j][1];
-        if (i % 2) {
-          reg[i / 2][r8][j][0] += a0;
-          reg[i / 2][r8][j][1] += a1;
-        } else {
-          uint2* at = reinterpret_cast<uint2*>(res + (i / 2 * BM + 8 * r8) * SPAN +
-                                               ((8 * j + 2 * q) ^ swizzle));
-          if (T) {
-            const uint2 x = *at;
-            *at = make_uint2(x.x + a0, x.y + a1);
-          } else {
-            *at = make_uint2(a0, a1);
-          }
-        }
-      }
-    }
-  }
-}
-
-// 3. tma_d: digits (B rows, 9 2L npad bytes), boxes of (BM, DEPTH); tma_p:
-// leaf panels (9 2L 2 LIMBS rows, DEPTH) (limb_panel_kernel<9> at N := ns),
-// boxes of (SPAN, DEPTH).  out = acc_in + the step's product, (B, 2, N)
-// words, with the words leaf_digits_kernel zeroes at zero.
-__global__ RUSTFHE_LOCAL void __launch_bounds__(Shape<CONSUMERS>::THREADS, 1)
-leaf_product_kernel(const __grid_constant__ CUtensorMap tma_d,
-                    const __grid_constant__ CUtensorMap tma_p, const int32_t* __restrict__ acc_in,
-                    int32_t* __restrict__ out, int B, int N, int two_l) {
-  using S = Shape<CONSUMERS>;
+// 4. out = acc + the tree combine of the leaves, both (B, 2, N) words;
+// leaves (B, 9, 2, ns) words, leaf t of half c at position m.  Thread:
+// sample b, half c, position m: output residues 0-3 there, from the leaves
+// at m and (the Z terms of leaves 1, 3, 4, 5, 7) at m - 1, negated from
+// ns - 1 at m = 0.
+__global__ RUSTFHE_LOCAL void __launch_bounds__(THREADS)
+leaf_combine_kernel(const int32_t* __restrict__ acc, const uint32_t* __restrict__ leaves,
+                    int32_t* __restrict__ out, int B, int N) {
   const int ns = N / R;
-  const Geometry g(ns);
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
-  const uint32_t a_ring = base;
-  const uint32_t b_ring = base + RING * A_STAGE;
-  const uint32_t res_at = b_ring + RING * B_STAGE;  // (SHARED_RES, BM, SPAN) words
-  const uint32_t full = res_at + RES_BYTES;          // RING barriers of 8 bytes
-  const uint32_t empty = full + RING * 8;
-
-  const int wg = threadIdx.x / WG;
-  const int KT = two_l * g.slices;  // K slices of a leaf: plane j = ks / slices, slice ks % slices
-  const int subs = ns / SPAN;       // sub-tiles of a half
-  const int units = (B + BM - 1) / BM * 2 * subs;
-  // Unit u: samples BM (u / 2 subs) on, half u / subs % 2, positions SPAN (u % subs) on.
-  const auto unit = [subs](int u, int& tm, int& c, int& s) {
-    tm = u / (2 * subs);
-    c = u / subs % 2;
-    s = u % subs;
-  };
-
-  if (threadIdx.x == 0) ring_init(full, empty, CONSUMERS * WG / 32, RING);
-  __syncthreads();
-
-  // As in cmux_product_kernel, `it` counts the stages a thread has passed
-  // through the ring over all its tiles (stage it % RING in round it / RING).
-  if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) {
-      prefetch_map(&tma_d);
-      prefetch_map(&tma_p);
-      int it = 0;
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        int tm, c, s;
-        unit(u, tm, c, s);
-        for (int t = 0; t < TREE; ++t) {
-          for (int ks = 0; ks < KT; ++ks, ++it) {
-            const int st = it % RING;
-            mbar_wait(empty + 8 * st, ((it / RING) & 1) ^ 1);
-            mbar_expect_tx(full + 8 * st, A_STAGE + B_STAGE);
-            tma_load(a_ring + st * A_STAGE, &tma_d, full + 8 * st, (t * KT + ks) * DEPTH, tm * BM);
-            // Limb k's box: the panel rows of positions SPAN s .. over slice kb of plane j.
-            const int j = ks / g.slices, kb = ks - j * g.slices;
-            const int y = ((t * two_l + j) * 2 + c) * LIMBS * g.rows + s * SPAN + ns - kb * DEPTH -
-                          g.x0;
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= B * 2 * ns) return;
+  const int m = idx % ns;
+  const int bc = idx / ns;  // b 2 + c
+  const uint32_t* leaf = leaves + ((size_t)(bc / 2) * TREE * 2 + bc % 2) * ns;  // leaf t at t 2 ns
+  const int before = m > 0 ? m - 1 : ns - 1;
+  const uint32_t sign = m > 0 ? 1u : 0u - 1u;
+  const size_t at = (size_t)bc * N + R * m;
+  const int4 a = *reinterpret_cast<const int4*>(acc + at);
+  uint32_t o[R] = {(uint32_t)a.x, (uint32_t)a.y, (uint32_t)a.z, (uint32_t)a.w};
 #pragma unroll
-            for (int k = 0; k < LIMBS; ++k)
-              tma_load(b_ring + st * B_STAGE + k * SPAN * DEPTH, &tma_p, full + 8 * st, 0,
-                       y + k * g.rows);
-          }
-        }
-      }
-    }
-  } else {
-    // Consumers: warpgroup cw computes samples 64 cw .. 64 cw + 63 of each tile.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
-    const int cw = wg - 1;
-    const int th = threadIdx.x % WG;
-    const int w = th / 32, ln = th % 32, q = ln % 4;
-    const int prev_lane = (ln & ~3) | ((ln + 3) & 3);  // holds the columns 2q - 2, 2q - 1 (mod 8)
-    const int row = cw * 64 + w * 16 + ln / 4;          // the thread's first row of a tile
-    const int swizzle = (row & 3) << 3;
-    uint32_t* res = reinterpret_cast<uint32_t*>(smem_raw + (res_at - smem_u32(smem_raw))) +
-                    row * SPAN;
-    int32_t frag[BN / 2];  // set by each leaf's first wgmma (scale 0)
-    int it = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      int tm, c, s;
-      unit(u, tm, c, s);
-      uint32_t reg[2][2][JB][2];  // residues 1 and 3 (fold_leaf)
-      uint32_t next[R - 1][2];    // the Z terms of the next tile's first position (lanes q = 3)
+  for (int t = 0; t < TREE; ++t) {
+    const uint32_t v = leaf[(size_t)t * 2 * ns + m];
+    const bool shifted = coef(t, 0, true) || coef(t, 1, true) || coef(t, 2, true);
+    const uint32_t z = shifted ? sign * leaf[(size_t)t * 2 * ns + before] : 0u;
 #pragma unroll
-      for (int r8 = 0; r8 < 2; ++r8) {
-#pragma unroll
-        for (int j = 0; j < JB; ++j) reg[0][r8][j][0] = reg[0][r8][j][1] = reg[1][r8][j][0] =
-            reg[1][r8][j][1] = 0u;
-#pragma unroll
-        for (int i = 0; i < R - 1; ++i) next[i][r8] = 0u;
-      }
-      for (int t = 0; t < TREE; ++t) {
-        for (int ks = 0; ks < KT; ++ks, ++it) {
-          const int st = it % RING;
-          mbar_wait(full + 8 * st, (it / RING) & 1);
-          __syncwarp();  // the warp converges before the .aligned wgmma instructions
-          const uint32_t a_s = a_ring + st * A_STAGE + cw * 64 * DEPTH;
-          const uint32_t b_s = b_ring + st * B_STAGE;
-          fence_acc(frag);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < DEPTH / KSTEP; ++kk)
-            Wgmma<BN>::mma(frag, smem_desc(a_s + kk * KSTEP), smem_desc(b_s + kk * KSTEP),
-                           (ks | kk) != 0);
-          wgmma_commit();
-          wgmma_wait<1>();  // the previous stage's products have retired
-          fence_acc(frag);
-          if (ks > 0 && ln == 0) mbar_arrive(empty + 8 * ((it - 1) % RING));
-        }
-        wgmma_wait<0>();
-        fence_acc(frag);
-        if (ln == 0) mbar_arrive(empty + 8 * ((it - 1) % RING));
-        switch (t) {
-#define RUSTFHE_FOLD(T) \
-  case T:               \
-    fold_leaf<T>(frag, reg, next, res, q, prev_lane, swizzle); \
-    break;
-          RUSTFHE_FOLD(0) RUSTFHE_FOLD(1) RUSTFHE_FOLD(2) RUSTFHE_FOLD(3) RUSTFHE_FOLD(4)
-          RUSTFHE_FOLD(5) RUSTFHE_FOLD(6) RUSTFHE_FOLD(7) RUSTFHE_FOLD(8)
-#undef RUSTFHE_FOLD
-        }
-      }
-
-      // acc plus the residues, four words (the residues of one position) a store; the tile's
-      // first position's residues 0-2 and the next tile's Z terms by atomics.
-#pragma unroll
-      for (int r8 = 0; r8 < 2; ++r8) {
-        const int b = tm * BM + row + 8 * r8;
-        if (b >= B) continue;
-        const size_t half = ((size_t)b * 2 + c) * N;
-#pragma unroll
-        for (int j = 0; j < JB; ++j) {
-          const int col = (8 * j + 2 * q) ^ swizzle;
-          const uint2 r0 = *reinterpret_cast<const uint2*>(res + 8 * r8 * SPAN + col);
-          const uint2 r2 = *reinterpret_cast<const uint2*>(res + (BM + 8 * r8) * SPAN + col);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const size_t at = half + R * (s * SPAN + 8 * j + 2 * q + e);
-            const int4 a = *reinterpret_cast<const int4*>(acc_in + at);
-            const uint32_t o0 = (uint32_t)a.x + (e ? r0.y : r0.x);
-            const uint32_t o1 = (uint32_t)a.y + reg[0][r8][j][e];
-            const uint32_t o2 = (uint32_t)a.z + (e ? r2.y : r2.x);
-            const uint32_t o3 = (uint32_t)a.w + reg[1][r8][j][e];
-            if (j == 0 && e == 0 && q == 0) {
-              uint32_t* o = reinterpret_cast<uint32_t*>(out + at);
-              atomicAdd(o, o0);
-              atomicAdd(o + 1, o1);
-              atomicAdd(o + 2, o2);
-              o[3] = o3;
-            } else {
-              *reinterpret_cast<int4*>(out + at) =
-                  make_int4((int32_t)o0, (int32_t)o1, (int32_t)o2, (int32_t)o3);
-            }
-          }
-        }
-        if (q == 3) {
-          // Z at position 0 is minus the last position's value.
-          const bool wraps = (s + 1) * SPAN == ns;
-          uint32_t* o = reinterpret_cast<uint32_t*>(out + half + (wraps ? 0 : R * (s + 1) * SPAN));
-#pragma unroll
-          for (int i = 0; i < R - 1; ++i) atomicAdd(o + i, wraps ? 0u - next[i][r8] : next[i][r8]);
-        }
-      }
-    }
+    for (int i = 0; i < R; ++i)
+      o[i] += (uint32_t)coef(t, i, false) * v + (uint32_t)coef(t, i, true) * z;
   }
+  *reinterpret_cast<int4*>(out + at) =
+      make_int4((int32_t)o[0], (int32_t)o[1], (int32_t)o[2], (int32_t)o[3]);
 }
 
-// Shapes the step takes: N a power of two in [MIN_N, MAX_N] (whole
-// sub-tiles), digit tree sums in int8 (half_bg * 4 <= 128), and the leaf
-// product's shapes (cmux_step.cuh shape_ok at N := ns).
+// Shapes the step takes: N a power of two in [MIN_N, MAX_N], digit tree
+// sums in int8 (half_bg * 4 <= 128), and the leaf product's shapes
+// (cmux_step.cuh shape_ok at N := ns).
 static bool step_shape_ok(int B, int N, int l, int bgbit) {
   if (N < MIN_N || N > MAX_N || (N & (N - 1)) || l < 1 || bgbit < 1 || bgbit > 6) return false;
   return cmux::shape_ok(B, N / R, 2 * l);
 }
 
 // The bytes of one step's leaf table: (2, 9, LIMBS, 2L, 2ns) int8.
-static size_t table_bytes(int N, int l) { return (size_t)2 * TREE * LIMBS * 2 * l * (N / 2); }
+static size_t table_bytes(int N, int l) {
+  return (size_t)2 * TREE * cmux::LIMBS * 2 * l * (N / 2);
+}
 
 static cudaError_t launch_leaf_panel(const void* table, void* panel, int N, int l,
                                      cudaStream_t stream) {
   return cmux::launch_limb_panel<TREE>(table, panel, N / R, 2 * l, stream);
 }
 
-static cudaError_t launch_leaf_digits(const void* acc, const void* a_tilde, void* digits, void* out,
-                                      int B, int N, int l, int bgbit, unsigned int mask,
+static cudaError_t launch_leaf_digits(const void* acc, const void* a_tilde, void* digits, int B,
+                                      int N, int l, int bgbit, unsigned int mask,
                                       cudaStream_t stream) {
-  if ((uintptr_t)digits % 16 || (uintptr_t)acc % 16 || (uintptr_t)out % 16)
-    return cudaErrorMisalignedAddress;
+  if ((uintptr_t)digits % 16 || (uintptr_t)acc % 16) return cudaErrorMisalignedAddress;
   leaf_digits_kernel<<<cmux::blocks(B * 2 * Geometry(N / R).npad), THREADS, 0, stream>>>(
-      (const int32_t*)acc, (const int32_t*)a_tilde, (int8_t*)digits, (int32_t*)out, B, N, l,
-      bgbit, (uint32_t)mask);
+      (const int32_t*)acc, (const int32_t*)a_tilde, (int8_t*)digits, B, N, l, bgbit,
+      (uint32_t)mask);
   return cudaGetLastError();
 }
 
-// The product's TMA maps and grid, fetched once for the steps of a rotation.
-struct ProductPlan {
-  CUtensorMap map_d, map_p;
-  int grid;
-};
-
-static cudaError_t plan_product(ProductPlan* plan, const void* digits, const void* panel, int B,
-                                int N, int l) {
-  static bool ready[MAX_DEVICES];
-  if ((uintptr_t)digits % 16 || (uintptr_t)panel % 16) return cudaErrorMisalignedAddress;
-  int sms = 0;
-  const cudaError_t e = prepare_kernel((const void*)leaf_product_kernel, SMEM,
-                                       Shape<CONSUMERS>::LAUNCH_REGS, ready, &sms);
-  if (e != cudaSuccess) return e;
-  const Geometry g(N / R);
-  if (!cmux::maps.get(&plan->map_d, digits, B, TREE * 2 * l * g.npad, BM) ||
-      !cmux::maps.get(&plan->map_p, panel, TREE * 2 * l * 2 * LIMBS * g.rows, DEPTH, SPAN))
-    return cudaErrorInvalidValue;
-  const int units = (B + BM - 1) / BM * 2 * (N / R / SPAN);
-  plan->grid = units < sms ? units : sms;
-  return cudaSuccess;
-}
-
-static cudaError_t launch_product(const ProductPlan& plan, const void* acc_in, void* out, int B,
-                                  int N, int l, cudaStream_t stream) {
-  if ((uintptr_t)acc_in % 16 || (uintptr_t)out % 16) return cudaErrorMisalignedAddress;
-  leaf_product_kernel<<<plan.grid, Shape<CONSUMERS>::THREADS, SMEM, stream>>>(
-      plan.map_d, plan.map_p, (const int32_t*)acc_in, (int32_t*)out, B, N, 2 * l);
+static cudaError_t launch_leaf_combine(const void* acc, const void* leaves, void* out, int B,
+                                       int N, cudaStream_t stream) {
+  if ((uintptr_t)acc % 16 || (uintptr_t)leaves % 4 || (uintptr_t)out % 16)
+    return cudaErrorMisalignedAddress;
+  leaf_combine_kernel<<<cmux::blocks(B * 2 * (N / R)), THREADS, 0, stream>>>(
+      (const int32_t*)acc, (const uint32_t*)leaves, (int32_t*)out, B, N);
   return cudaGetLastError();
 }
 
-// One step's three launches: acc -> out (distinct buffers), into the
-// caller's digit and panel buffers, on the step's leaf table.
-static cudaError_t launch_step(const ProductPlan& plan, const void* acc, const void* a_tilde,
-                               const void* table, void* out, void* digits, void* panel, int B,
-                               int N, int l, int bgbit, unsigned int mask, cudaStream_t stream) {
+// The leaf product's TMA maps and grid (cmux_step.cuh ProductPlan), fetched
+// once for the steps of a rotation.
+static cudaError_t plan_product(cmux::ProductPlan* plan, const void* digits, const void* panel,
+                                int B, int N, int l) {
+  return cmux::plan_product<false, 1, StepProduct>(plan, digits, panel, B, N / R, 2 * l);
+}
+
+// One step's four launches: acc -> out (distinct buffers), into the
+// caller's digit, panel and leaf buffers, on the step's leaf table.
+static cudaError_t launch_step(const cmux::ProductPlan& plan, const void* acc, const void* a_tilde,
+                               const void* table, void* out, void* digits, void* panel,
+                               void* leaves, int B, int N, int l, int bgbit, unsigned int mask,
+                               cudaStream_t stream) {
   cudaError_t e = launch_leaf_panel(table, panel, N, l, stream);
+  if (e == cudaSuccess) e = launch_leaf_digits(acc, a_tilde, digits, B, N, l, bgbit, mask, stream);
   if (e == cudaSuccess)
-    e = launch_leaf_digits(acc, a_tilde, digits, out, B, N, l, bgbit, mask, stream);
-  if (e == cudaSuccess) e = launch_product(plan, acc, out, B, N, l, stream);
+    e = cmux::launch_planned<false, 1, StepProduct>(plan, digits, nullptr, leaves, B, N / R, 2 * l,
+                                                     stream);
+  if (e == cudaSuccess) e = launch_leaf_combine(acc, leaves, out, B, N, stream);
   return e;
 }
 

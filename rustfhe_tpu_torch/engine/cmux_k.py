@@ -25,16 +25,18 @@ At ``KARATSUBA_MIN_ROWS`` rows or more (per parameter set, measured on the
 card) ``cmux_rotate`` takes the same step on the two-level Karatsuba
 product instead (``cmux_step_karatsuba``, ``csrc/karatsuba_step.cuh``): the
 nine leaf products of ``engine/karatsuba.py`` at 9/16 of the schoolbook
-multiply-adds, combined in the product's epilogue, on each step's leaf
-table (``leaf_table``, prepared once for the whole key), every output word
-the same.  ``product_for`` says which product a rotation of B rows takes.
+multiply-adds, written out as the step's leaves and added back by a
+combine launch (``leaf_combine``), on each step's leaf table
+(``leaf_table``, prepared once for the whole key), every output word the
+same.  ``product_for`` says which product a rotation of B rows takes.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor takes the plain torch version beside it, a CUDA tensor launches the
 kernel or raises.  There is no fallback from a failed launch to the plain
 version.  ``cmux_step.launches`` counts K1's steps (three kernel launches
-each), a single step's and every rotation's, ``cmux_rotate.launches`` the
-``cmux_rotate`` calls, ``cmux_step_karatsuba.launches`` the steps on the
+each, four on the Karatsuba product), a single step's and every
+rotation's, ``cmux_rotate.launches`` the ``cmux_rotate`` calls,
+``cmux_step_karatsuba.launches`` the steps on the
 Karatsuba product, ``cmux_step_panel.launches`` steps on a prebuilt panel (two
 each: the digits and the product), ``external_product.launches`` K2's
 calls (two each) and ``key_panel.launches`` the panel kernel launched alone
@@ -71,10 +73,11 @@ SMEM_BYTES = 1024 + 4 * (128 * SLICE + 4 * COEFFS * SLICE) + 8 * 8
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the library of ``csrc/cmux_k.cu``.
     Raises RuntimeError when no CUDA device is available."""
-    rotation = [VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, INT, UINT, INT_P, INT_P, VP]
+    counts = [INT, INT, INT, INT, INT, UINT, INT_P, INT_P, VP]  # n, B, N, l, bgbit, mask, ...
     return launch.bind("cmux_k", {
-        "rustfhe_cmux_rotate_k": rotation,
-        "rustfhe_cmux_rotate_karatsuba": rotation,
+        "rustfhe_cmux_rotate_k": [VP] * 6 + counts,
+        "rustfhe_cmux_rotate_karatsuba": [VP] * 7 + counts,
+        "rustfhe_leaf_combine": [VP, VP, VP, INT, INT, INT, INT, VP],
         "rustfhe_cmux_step_panel": [VP, VP, VP, VP, VP, INT, INT, INT, INT, UINT, VP],
         "rustfhe_external_product_k": [VP, VP, VP, VP, INT, INT, INT, VP],
         "rustfhe_key_panel": [VP, VP, INT, INT, VP],
@@ -143,20 +146,19 @@ cmux_step.launches = 0
 # --------------------------------------------------------------------- #
 # K1 on the two-level Karatsuba product: the wide batches' step
 # --------------------------------------------------------------------- #
-SPAN = 32  # leaf positions of the Karatsuba product's block tile (csrc/karatsuba_step.cuh)
-
 # The fewest rows at which the Karatsuba step is faster than the schoolbook
 # one, per (N, l, bgbit), from the two steps timed in turns on the card
 # (``benches/karatsuba_crossover.py``, PERF.md §6): DEFAULT_PARAMS and
-# PBS_PARAMS.  A parameter set not here keeps the schoolbook step.
-KARATSUBA_MIN_ROWS = {(1024, 3, 6): 768, (2048, 4, 6): 512}
+# PBS_PARAMS, where the schoolbook product's tiles first outgrow one wave
+# of the card's SMs.  A parameter set not here keeps the schoolbook step.
+KARATSUBA_MIN_ROWS = {(1024, 3, 6): 576, (2048, 4, 6): 320}
 
 
 def karatsuba_takes(params: TFHEParams) -> bool:
     """True when the Karatsuba step takes ``params``: N a power of two in
-    [4 SPAN, MAX_N] (whole block tiles of leaf positions) and the digit tree
-    and leaf sums in range (``karatsuba.check_bound``)."""
-    if not 4 * SPAN <= params.N <= MAX_N or params.N & (params.N - 1):
+    [R MIN_N, MAX_N] (the leaf product is K1's at ring degree N/R) and the
+    digit tree and leaf sums in range (``karatsuba.check_bound``)."""
+    if not karatsuba.R * MIN_N <= params.N <= MAX_N or params.N & (params.N - 1):
         return False
     try:
         karatsuba.check_bound(params)
@@ -215,17 +217,18 @@ def cmux_step_karatsuba_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: t
 
 def _check_karatsuba(params: TFHEParams) -> None:
     if not karatsuba_takes(params):
-        raise ValueError(f"the Karatsuba step takes N a power of two in [{4 * SPAN}, {MAX_N}] "
+        raise ValueError(f"the Karatsuba step takes N a power of two in "
+                         f"[{karatsuba.R * MIN_N}, {MAX_N}] "
                          f"with half_bg * 4 <= 128, got N={params.N}, bgbit={params.bgbit}")
 
 
 def cmux_step_karatsuba(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,
                         params: TFHEParams) -> torch.Tensor:
     """``cmux_step`` on the Karatsuba product: ``table`` the step's leaf
-    table int8 (2, 9, 4, 2L, N/2) (a row of ``leaf_table``).  Three
-    launches: the leaf panels, the tree digits and the product with the
-    combine and the add in its epilogue; on the card ``rotate`` of this one
-    step, ``acc`` not written."""
+    table int8 (2, 9, 4, 2L, N/2) (a row of ``leaf_table``).  Four
+    launches: the leaf panels, the tree digits, the nine leaf products and
+    their combine with the add (``leaf_combine``); on the card ``rotate`` of
+    this one step, ``acc`` not written."""
     B = acc.shape[0]
     N = params.N
     check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
@@ -248,21 +251,23 @@ ROTATIONS = {"schoolbook": "rustfhe_cmux_rotate_k", "karatsuba": "rustfhe_cmux_r
 
 
 def step_buffers(product: str, B: int, params: TFHEParams, device: torch.device,
-                 stream: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The calling thread's digit and panel buffers of K1's steps on
-    ``product`` for B rows on ``stream`` (``launch.step_buffer``), holding
-    the last such step's digits and panels: int8 (B, 2L, npad) and
-    ``panel_shape`` for the schoolbook product; the tree digits (B, 9, 2L,
-    npad) and leaf panels (9, 2L, 2, LIMBS, rows, SLICE), npad and rows
-    those of ns = N/4, for the Karatsuba one."""
+                 stream: int) -> tuple[torch.Tensor, ...]:
+    """The calling thread's scratch buffers of K1's steps on ``product`` for
+    B rows on ``stream`` (``launch.step_buffer``), holding the last such
+    step's: the digits int8 (B, 2L, npad) and panels ``panel_shape`` for
+    the schoolbook product; the tree digits int8 (B, 9, 2L, npad), the leaf
+    panels int8 (9, 2L, 2, LIMBS, rows, SLICE), npad and rows those of ns =
+    N/4, and the leaves int32 (B, 9, 2, ns) for the Karatsuba one."""
     two_l = 2 * params.l
     if product == "schoolbook":
         return (launch.step_buffer("digits", (B, two_l, geometry(params.N)[0]), device, stream),
                 launch.step_buffer("panel", panel_shape(params), device, stream))
-    npad, _, rows = geometry(params.N // karatsuba.R)
+    ns = params.N // karatsuba.R
+    npad, _, rows = geometry(ns)
     return (launch.step_buffer("leaf_digits", (B, karatsuba.T, two_l, npad), device, stream),
             launch.step_buffer("leaf_panel", (karatsuba.T, two_l, 2, LIMBS, rows, SLICE), device,
-                               stream))
+                               stream),
+            launch.step_buffer("leaves", (B, karatsuba.T, 2, ns), device, stream, torch.int32))
 
 
 def rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor, params: TFHEParams,
@@ -299,14 +304,14 @@ def rotate(acc: torch.Tensor, a_steps: torch.Tensor, key: torch.Tensor, params: 
     if product == "schoolbook":  # the Karatsuba step's shapes: _check_karatsuba
         check_shape(N, two_l)
     stream = launch.current_stream(acc.device)
-    digits, panel = step_buffers(product, B, params, acc.device, stream)
+    scratch = step_buffers(product, B, params, acc.device, stream)
     other = torch.empty_like(acc)
     failed, result = ctypes.c_int(-1), ctypes.c_int(0)
     lib = load_library()
     with torch.cuda.device(acc.device):
         err = getattr(lib, ROTATIONS[product])(
             acc.data_ptr(), a_steps.data_ptr(), key.data_ptr(), other.data_ptr(),
-            digits.data_ptr(), panel.data_ptr(), n, B, N, params.l, params.bgbit,
+            *[t.data_ptr() for t in scratch], n, B, N, params.l, params.bgbit,
             params.decomp_mask, ctypes.byref(failed), ctypes.byref(result), stream)
     launch.check(lib, err, f"{ROTATIONS[product]} (step {failed.value} of {n})")
     cmux_step.launches += n
@@ -530,6 +535,26 @@ def panel_product(digits: torch.Tensor, panel: torch.Tensor, acc: torch.Tensor,
     check_shape(N, two_l)
     out = torch.empty_like(acc)
     launch.call(load_library(), "rustfhe_panel_product", digits, panel, acc, out, B, N, two_l)
+    return out
+
+
+# The Karatsuba step's combine's plain version: the tree combine in the standard layout.
+leaf_combine_plain = karatsuba.combine_leaves
+
+
+def leaf_combine(acc: torch.Tensor, leaves: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The Karatsuba step's last launch, ``leaf_combine_plain``'s function
+    on the device of ``acc``: ``acc`` int32 (B, 2, N) plus the tree combine
+    of ``leaves`` int32 (B, 9, 2, N/4), the step's leaf products."""
+    B, N = acc.shape[0], params.N
+    check_tensor("acc", acc, torch.int32, (B, 2, N), acc.device)
+    check_tensor("leaves", leaves, torch.int32, (B, karatsuba.T, 2, N // karatsuba.R), acc.device)
+    _check_karatsuba(params)
+    if not dispatch(acc.device):
+        return leaf_combine_plain(acc, leaves)
+    out = torch.empty_like(acc)
+    launch.call(load_library(), "rustfhe_leaf_combine", acc, leaves, out, B, N, params.l,
+                params.bgbit)
     return out
 
 

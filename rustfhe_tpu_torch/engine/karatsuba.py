@@ -22,6 +22,8 @@ p1r3]``: segment (p, r) holds the coefficients i = 4m + r of half p
 * ``prepare_table``: the leaf limb table of ``PallasKaratsubaEngine.
   prepare_trgsw`` at levels 2 (pallas_k.py:575), in the port's layout;
   ``table_from_qd`` maps the JAX layout (random bytes too) into it;
+* ``combine_leaves``: the tree combine of K1's Karatsuba step (its
+  leaves, in the standard layout, into the accumulator);
 * ``step_plain``: the plain Karatsuba step, with every measurement
   variant of the probes that time it (``engine/karatsuba_probe.py``),
   in the leaf-first recombination order (``_karatsuba_accumulate``,
@@ -314,6 +316,15 @@ def combine_parts(acc: torch.Tensor, part: torch.Tensor, v: Step) -> torch.Tenso
             outs = [o + (r << sh) for o, r in zip(outs, res)]
     flat = torch.stack(outs, dim=2).reshape(acc.shape)  # (B, c, i, ns) -> (B, 2N)
     return wrap(acc.to(torch.int64) + flat)
+
+
+def combine_leaves(acc: torch.Tensor, leaves: torch.Tensor) -> torch.Tensor:
+    """acc plus the tree combine of a step's leaves, in the standard layout:
+    ``acc`` int32 (B, 2, N), ``leaves`` int32 (B, T, 2, ns) (leaf t of half
+    c at position m, recombined mod 2^32).  Output coefficient 4m + r of
+    half c is residue r of ``tree_combine`` at position m."""
+    res = tree_combine([leaves[:, t].to(torch.int64) for t in range(T)], shiftz1)
+    return wrap(acc.to(torch.int64) + torch.stack(res, dim=-1).reshape(acc.shape))
 
 
 def step_plain(acc: torch.Tensor, a_tilde: torch.Tensor, table: torch.Tensor,

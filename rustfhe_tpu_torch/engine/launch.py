@@ -91,16 +91,16 @@ def call(lib, entry: str, *args, stream: int | None = None) -> None:
 _scratch = threading.local()  # each thread's step buffers, {(device, stream, role): tensor}
 
 
-def step_buffer(role: str, shape: tuple[int, ...], device: torch.device,
-                stream: int) -> torch.Tensor:
-    """The calling thread's int8 ``role`` buffer (the digits or the panels
-    of a step) for steps on ``stream``, kept while its shape holds.  Steps
-    on one stream run in order, so a step never overwrites a buffer that
-    an earlier step still reads, and no other thread's step writes it.
-    Two allocations per step made the host-bound K1 loop at B <= 32 8-25 %
-    slower (PERF.md §6)."""
+def step_buffer(role: str, shape: tuple[int, ...], device: torch.device, stream: int,
+                dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """The calling thread's ``role`` buffer (the digits, the panels or the
+    leaves of a step; one dtype a role) for steps on ``stream``, kept while
+    its shape holds.  Steps on one stream run in order, so a step never
+    overwrites a buffer that an earlier step still reads, and no other
+    thread's step writes it.  Two allocations per step made the host-bound
+    K1 loop at B <= 32 8-25 % slower (PERF.md §6)."""
     bufs = _scratch.__dict__.setdefault("bufs", {})
     buf = bufs.get((device, stream, role))
     if buf is None or tuple(buf.shape) != shape:
-        buf = bufs[device, stream, role] = torch.empty(shape, dtype=torch.int8, device=device)
+        buf = bufs[device, stream, role] = torch.empty(shape, dtype=dtype, device=device)
     return buf

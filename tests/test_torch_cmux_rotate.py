@@ -87,11 +87,13 @@ def test_step_buffers_are_each_products_digits_and_panels():
     digits, panel = cmux_k.step_buffers("schoolbook", 7, p, cpu, 0)
     assert digits.shape == (7, 2 * p.l, cmux_k.geometry(p.N)[0])
     assert panel.shape == cmux_k.panel_shape(p)
-    leaf_digits, leaf_panel = cmux_k.step_buffers("karatsuba", 7, p, cpu, 0)
+    leaf_digits, leaf_panel, leaves = cmux_k.step_buffers("karatsuba", 7, p, cpu, 0)
     npad, _, rows = cmux_k.geometry(p.N // karatsuba.R)
     assert leaf_digits.shape == (7, karatsuba.T, 2 * p.l, npad)
     assert leaf_panel.shape == (karatsuba.T, 2 * p.l, 2, cmux_k.LIMBS, rows, cmux_k.SLICE)
     assert all(t.dtype == torch.int8 for t in (digits, panel, leaf_digits, leaf_panel))
+    # the leaf products, words: 302 MB at 16,384 rows of DEFAULT_PARAMS
+    assert leaves.shape == (7, karatsuba.T, 2, p.N // karatsuba.R) and leaves.dtype == torch.int32
     assert cmux_k.step_buffers("schoolbook", 7, p, cpu, 0)[0] is digits  # kept while it fits
 
 
@@ -147,7 +149,7 @@ def _lower_threshold(monkeypatch, p, rows):
 
 
 @pytest.mark.parametrize("B", [1, 5, 33])
-@pytest.mark.parametrize("N", [256, 1024])
+@pytest.mark.parametrize("N", [32, 64, 256, 1024])
 def test_karatsuba_step_plain_equals_the_schoolbook_step(N, B):
     p = params.DEFAULT_PARAMS.replace(n=2, N=N)
     _, _, acc, a_steps, bk = _rotation(5 * N + B, B, p, per_row=True)
@@ -158,6 +160,39 @@ def test_karatsuba_step_plain_equals_the_schoolbook_step(N, B):
         assert got.dtype == torch.int32 and torch.equal(got, want)
         assert torch.equal(got, cmux_k.cmux_step_karatsuba_plain(acc, a_steps[i], tables[i], p))
         acc = got
+
+
+@pytest.mark.parametrize("N", [32, 256, 1024])
+def test_leaf_combine_plain_is_the_tree_combine(N):
+    """The plain version of the Karatsuba step's combine launch
+    (``karatsuba.combine_leaves``, ``cmux_k.leaf_combine`` on the CPU) =
+    ``tree_combine`` in the residue layout (``karatsuba.combine_parts`` of
+    the leaves as one unshifted limb), from random words."""
+    p = params.DEFAULT_PARAMS.replace(N=N)
+    rs = np.random.RandomState(N)
+    acc = _u32.from_numpy(rs.randint(0, 2**32, size=(3, 2, N), dtype=np.uint64))
+    leaves = _u32.from_numpy(rs.randint(0, 2**32, size=(3, karatsuba.T, 2, N // karatsuba.R),
+                                        dtype=np.uint64))
+    got = cmux_k.leaf_combine(acc, leaves, p)
+    want = karatsuba.combine_parts(karatsuba.scan_enter(acc), leaves.to(torch.int64)[:, :, :, None],
+                                   karatsuba.Step(limbs=1))
+    assert got.dtype == torch.int32 and torch.equal(got, karatsuba.scan_exit(want))
+    assert torch.equal(got, karatsuba.combine_leaves(acc, leaves))
+
+
+def test_leaf_combine_wraps_position_zero():
+    """One word x at the last position of leaf 1 (half 1): residues 0 and 1
+    take it at position 0 through Z, negated (-x, +x: r0 = Z L1 + ..., r1 =
+    -Z L1 + ...), residues 2 and 3 at the last position (-x, +x)."""
+    p = params.DEFAULT_PARAMS.replace(N=64)
+    ns = p.N // karatsuba.R
+    x = 0x9E3779B9 - 2**32
+    leaves = torch.zeros((2, karatsuba.T, 2, ns), dtype=torch.int32)
+    leaves[1, 1, 1, ns - 1] = x
+    got = cmux_k.leaf_combine(torch.zeros((2, 2, p.N), dtype=torch.int32), leaves, p)
+    want = torch.zeros((2, 2, p.N), dtype=torch.int64)
+    want[1, 1, [0, 1, p.N - 2, p.N - 1]] = torch.tensor([-x, x, -x, x])
+    assert torch.equal(got, _u32.wrap(want))
 
 
 def test_leaf_table_is_each_steps_table_kept_with_its_key():
@@ -217,12 +252,13 @@ def test_product_for_follows_the_measured_thresholds():
         assert cmux_k.karatsuba_takes(p)
         assert cmux_k.product_for(p, least - 1) == "schoolbook"
         assert cmux_k.product_for(p, least) == "karatsuba"
-    # no measured threshold, or a shape the step does not take (N < 128; Bg = 2^8: tree sums
+    # no measured threshold, or a shape the step does not take (N < 32; Bg = 2^8: tree sums
     # past int8): the schoolbook step at any batch
     for p in (params.TEST_PARAMS, params.FAST_PARAMS, params.N2048_PARAMS, P16):
         assert cmux_k.product_for(p, 1 << 20) == "schoolbook"
     assert not cmux_k.karatsuba_takes(params.FAST_PARAMS)
-    assert not cmux_k.karatsuba_takes(params.DEFAULT_PARAMS.replace(N=64))
+    assert not cmux_k.karatsuba_takes(params.DEFAULT_PARAMS.replace(N=16))
+    assert cmux_k.karatsuba_takes(params.DEFAULT_PARAMS.replace(N=32))  # leaves of 8 positions
     assert cmux_k.karatsuba_takes(P16)
 
 
@@ -234,8 +270,8 @@ def test_cmux_step_karatsuba_checks_its_operands():
         cmux_k.cmux_step_karatsuba(acc, a_steps[0], table[:1], p)
     with pytest.raises(TypeError, match="table must be torch.int8"):
         cmux_k.cmux_step_karatsuba(acc, a_steps[0], table.to(torch.int32), p)
-    q = p.replace(N=64)
-    small = torch.zeros((3, 2, 64), dtype=torch.int32)
+    q = p.replace(N=16)
+    small = torch.zeros((3, 2, 16), dtype=torch.int32)
     with pytest.raises(ValueError, match="the Karatsuba step takes"):
         cmux_k.cmux_step_karatsuba(small, a_steps[0],
                                    torch.zeros(karatsuba.table_shape(q), dtype=torch.int8), q)

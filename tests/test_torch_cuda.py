@@ -470,6 +470,102 @@ def test_one_step_is_a_rotation_of_one(cuda, product, name, B):
     assert torch.equal(acc, first)
 
 
+def _karatsuba_case(seed, B, p, steps, cuda):
+    """A Karatsuba rotation's inputs: a random accumulator, ``steps`` rows of
+    rotations whose first samples take a~ = 0, 1, N, 2N - 2 and 2N - 1, a
+    random prepared key and its leaf tables."""
+    rs = np.random.RandomState(seed)
+
+    def words(*shape):
+        return _u32.from_numpy(np.frombuffer(rs.bytes(4 * int(np.prod(shape))),
+                                             dtype=np.uint32).reshape(shape), cuda)
+
+    a = rs.randint(0, 2 * p.N, size=(steps, B)).astype(np.int32)
+    edge = [0, 1, p.N, 2 * p.N - 2, 2 * p.N - 1]
+    a[:, :min(B, len(edge))] = edge[:B]
+    key = plain.prepare_trgsw(words(steps, 2 * p.l, 2, p.N))
+    return words(B, 2, p.N), torch.from_numpy(a).to(cuda), key, cmux_k.leaf_table(key, p)
+
+
+def _karatsuba_rows(rows, p):
+    """The batch a card test names: the measured threshold, a count past it
+    that is no multiple of 128 (a ragged tile of samples), or a number."""
+    least = cmux_k.KARATSUBA_MIN_ROWS[(p.N, p.l, p.bgbit)]
+    return {"threshold": least, "ragged": least + 77}.get(rows, rows)
+
+
+@pytest.mark.parametrize("rows", ["threshold", "ragged", 4096])
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_karatsuba_step_and_rotation_at_the_threshold_and_edge_rotations(cuda, name, rows):
+    """The four-launch Karatsuba step (leaf panels, tree digits, the nine
+    leaf GEMMs, the combine) = ``cmux_step_plain`` word for word: a single
+    ``cmux_step_karatsuba`` and a 3-step rotation on the Karatsuba product,
+    with a~ = 0 and a~ near 2N among the rows; then the step's leaf products,
+    read back from its buffer, = their plain version from its tree digits
+    and leaf panels."""
+    p = CMUX_PARAMS[name]
+    B = _karatsuba_rows(rows, p)
+    acc, a, key, tables = _karatsuba_case(120 + B, B, p, 3, cuda)
+    want = acc
+    for i in range(3):
+        want = cmux_k.cmux_step_plain(want, a[i], key[i], p)
+        if i == 0:
+            got = cmux_k.cmux_step_karatsuba(acc, a[0], tables[0], p)
+            assert torch.equal(got, want)
+            digits, panel, leaves = cmux_k.step_buffers(
+                "karatsuba", B, p, acc.device, torch.cuda.current_stream(cuda).cuda_stream)
+            assert torch.equal(leaves, karatsuba_probe.leaves_plain(digits, panel, tables[0], p))
+    before = cmux_k.cmux_step_karatsuba.launches
+    assert torch.equal(cmux_k.rotate(acc.clone(), a, tables, p, "karatsuba"), want)
+    assert cmux_k.cmux_step_karatsuba.launches == before + 3
+
+
+@pytest.mark.parametrize("B", [1, 13, 4096])
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_leaf_combine_matches_the_plain_tree_combine(cuda, name, B):
+    """The Karatsuba step's combine launch alone = the plain tree combine
+    (``karatsuba.combine_leaves`` on the CPU) from random words, where every
+    position 0 takes its Z terms from position ns - 1, negated; and one word
+    at the last position of leaf 1 lands at position 0 (-x, +x in residues
+    0, 1) and at the last position (-x, +x in residues 2, 3)."""
+    p = CMUX_PARAMS[name]
+    ns = p.N // karatsuba.R
+    rs = np.random.RandomState(140 + B)
+    acc = rs.randint(0, 2**32, size=(B, 2, p.N), dtype=np.uint64).astype(np.uint32)
+    leaves = rs.randint(0, 2**32, size=(B, karatsuba.T, 2, ns), dtype=np.uint64).astype(np.uint32)
+    want = karatsuba.combine_leaves(_u32.from_numpy(acc), _u32.from_numpy(leaves))
+    got = cmux_k.leaf_combine(_u32.from_numpy(acc, cuda), _u32.from_numpy(leaves, cuda), p)
+    assert torch.equal(got.cpu(), want)
+    one = torch.zeros((B, karatsuba.T, 2, ns), dtype=torch.int32, device=cuda)
+    one[-1, 1, 1, ns - 1] = x = 0x9E3779B9 - 2**32
+    got = cmux_k.leaf_combine(torch.zeros((B, 2, p.N), dtype=torch.int32, device=cuda), one, p)
+    want = torch.zeros((B, 2, p.N), dtype=torch.int64)
+    want[-1, 1, [0, 1, p.N - 2, p.N - 1]] = torch.tensor([-x, x, -x, x])
+    assert torch.equal(got.cpu(), _u32.wrap(want))
+
+
+@pytest.mark.parametrize("B", [4096, 4099])
+@pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "PBS_PARAMS"])
+def test_karatsuba_rotation_of_24_steps_equals_the_schoolbook_rotation(cuda, name, B):
+    """24 steps from one call on each product (``benches/karatsuba_crossover.py``'s
+    rotation) give the same words."""
+    p = CMUX_PARAMS[name].replace(n=24)
+    acc, a, key, tables = _karatsuba_case(160 + B, B, p, p.n, cuda)
+    assert torch.equal(cmux_k.rotate(acc.clone(), a, tables, p, "karatsuba"),
+                       cmux_k.rotate(acc.clone(), a, key, p, "schoolbook"))
+
+
+@pytest.mark.parametrize("B", [13, 300])
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_karatsuba_step_at_small_ring_degrees(cuda, N, B):
+    """Leaves of 8-32 positions, narrower than one panel box of the leaf
+    product's tile: a Karatsuba step = ``cmux_step_plain``."""
+    p = params.DEFAULT_PARAMS.replace(N=N)
+    acc, a, key, tables = _karatsuba_case(180 + N + B, B, p, 1, cuda)
+    assert torch.equal(cmux_k.cmux_step_karatsuba(acc, a[0], tables[0], p),
+                       cmux_k.cmux_step_plain(acc, a[0], key[0], p))
+
+
 @pytest.mark.parametrize("cluster", [8, 16])
 @pytest.mark.parametrize("name", ["DEFAULT_PARAMS", "N2048_PARAMS"])
 def test_rotate_all_kernel_at_both_cluster_sizes(cuda, name, cluster):
