@@ -167,7 +167,8 @@ def gate_bootstrapping_tlwe2tlwe(ct: torch.Tensor,
     """lv0 TLWE -> lv1 TLWE encrypting mu * sign."""
     mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=ct.device)
     rotated = blind_rotate(ct, bk, trlwe.trivial(mu), params)
-    return trlwe.sample_extract(rotated, 0)
+    with trace.span("extract", rows=rotated.shape[:-2].numel(), t=1):
+        return trlwe.sample_extract(rotated, 0)
 
 
 def identity_key_switch(ct_lv1: torch.Tensor, ksk: torch.Tensor,

@@ -153,7 +153,9 @@ def _bootstrap_local(pre: torch.Tensor, bk, ksk_local: torch.Tensor, params: TFH
     with trace.span("bootstrap", rows=pre.shape[:-1].numel()):
         mu = torch.full((params.N,), params.mu, dtype=torch.int32, device=pre.device)
         rotated = blind_rotate(pre, bk, trlwe.trivial(mu), params)
-        return ks_fn(trlwe.sample_extract(rotated, 0), ksk_local)
+        with trace.span("extract", rows=rotated.shape[:-2].numel(), t=1):
+            lv1 = trlwe.sample_extract(rotated, 0)
+        return ks_fn(lv1, ksk_local)
 
 
 def _gate_local(kind: str, params: TFHEParams, boot):

@@ -159,14 +159,18 @@ def pbs(ck: CloudKey, ct: torch.Tensor, table, *, space: int, params: TFHEParams
     Cost: one gate bootstrap (the same blind rotation, sample extraction
     and key switch).  ``ct`` is not written to.
     """
-    with trace.span("pbs", rows=ct.shape[:-1].numel(), tables=1):
+    rows = ct.shape[:-1].numel()
+    with trace.span("pbs", rows=rows, tables=1):
         _check_space(space, params)
         _gate_margin(params, space, 1, unsafe, "pbs")
-        # Half-bucket pre-offset centres each bucket's phase window (module doc).
-        pre = tlwe.add_to_body(ct, (1 << 32) // (4 * space))
-        testvec = lut_testvec(table, space, params, raw=raw, device=ct.device)
+        with trace.span("pbs.prepare", rows=rows, t=1) as span:
+            # Half-bucket pre-offset centres each bucket's phase window (module doc).
+            pre = tlwe.add_to_body(ct, (1 << 32) // (4 * space))
+            testvec = lut_testvec(table, space, params, raw=raw, device=ct.device)
+            span.set(tv_rows=testvec.shape[:-2].numel())
         rotated = blind_rotate(pre, ck.bk, testvec, params)
-        lv1 = trlwe.sample_extract(rotated, 0)
+        with trace.span("extract", rows=rotated.shape[:-2].numel(), t=1):
+            lv1 = trlwe.sample_extract(rotated, 0)
         return identity_key_switch(lv1, ck.ksk, params)
 
 
@@ -209,20 +213,23 @@ def rotate_extract_many(bk, ct: torch.Tensor, tables, space: int, params: TFHEPa
     t = _shape(tables)[-2]
     _check_many(space, t, params)
     shift = 32 - params.nbit - 1
-    pre = tlwe.add_to_body(ct, (1 << 32) // (4 * space))
-    tau = t.bit_length() - 1
-    if tau:
-        # Coarse modulus switch: round every word to the 2^(shift+tau) grid
-        # (wrapping), so b~ and every a~_i, and hence their signed sum mod
-        # 2N, are multiples of t.  blind_rotate's own floor/round then
-        # passes the grid through exactly.  The mask has the top bit set:
-        # it is the int32 word with the uint32 bits.
-        half = 1 << (shift + tau - 1)
-        mask = ((1 << 32) - 1) ^ ((1 << (shift + tau)) - 1)
-        pre = (pre + s32(half)) & s32(mask)
-    testvec = many_lut_testvec(tables, space, params, raw=raw, device=ct.device)
+    with trace.span("pbs.prepare", rows=ct.shape[:-1].numel(), t=t) as span:
+        pre = tlwe.add_to_body(ct, (1 << 32) // (4 * space))
+        tau = t.bit_length() - 1
+        if tau:
+            # Coarse modulus switch: round every word to the 2^(shift+tau) grid
+            # (wrapping), so b~ and every a~_i, and hence their signed sum mod
+            # 2N, are multiples of t.  blind_rotate's own floor/round then
+            # passes the grid through exactly.  The mask has the top bit set:
+            # it is the int32 word with the uint32 bits.
+            half = 1 << (shift + tau - 1)
+            mask = ((1 << 32) - 1) ^ ((1 << (shift + tau)) - 1)
+            pre = (pre + s32(half)) & s32(mask)
+        testvec = many_lut_testvec(tables, space, params, raw=raw, device=ct.device)
+        span.set(tv_rows=testvec.shape[:-2].numel())
     rotated = blind_rotate(pre, bk, testvec, params)
-    return torch.stack([trlwe.sample_extract(rotated, j) for j in range(t)], dim=-2)
+    with trace.span("extract", rows=rotated.shape[:-2].numel(), t=t):
+        return torch.stack([trlwe.sample_extract(rotated, j) for j in range(t)], dim=-2)
 
 
 def pbs_many(ck: CloudKey, ct: torch.Tensor, tables, *, space: int, params: TFHEParams,

@@ -31,6 +31,13 @@ Spans of the port (name: where; attributes):
 * ``bootstrap``: ``bootstrap.bootstrap``, and a rank's rows in
   ``parallel.sharded``; ``rows``
 * ``pbs``: ``pbs.pbs``, ``pbs.pbs_many``; ``rows``, ``tables`` (lookups a row)
+* ``pbs.prepare``: in ``pbs.pbs`` and ``pbs.rotate_extract_many``, the
+  half-bucket offset, the coarse modulus switch (t > 1) and the test
+  vector's build; ``rows``, ``tv_rows`` (the test vectors built), ``t``
+* ``extract``: the sample extraction(s) after a rotation, in
+  ``bootstrap.gate_bootstrapping_tlwe2tlwe``, a rank's rows in
+  ``parallel.sharded``, ``pbs.pbs`` and ``pbs.rotate_extract_many``;
+  ``rows``, ``t`` (coefficients extracted a row)
 * ``blind_rotate``: ``bootstrap.blind_rotate``; ``rows``, ``tv_rows``,
   ``path`` (``k1``, ``k3``, ``hybrid``, ``limb``, ``generic``), ``steps``
   (n, 1 for K3's single launch), ``calls`` (the host calls that issued the

@@ -7,9 +7,9 @@ gates, a batch of 8 (split over ``data``) and one of 6 (which 4 does not
 divide: computed whole on every rank of the (4, 1) mesh).  Every rank's
 outputs equal the benchmark's plain reference (``fhebench/reference/tfhe.py``,
 torch alone) word for word, and its spans are the one-card bootstrap's
-(``bootstrap`` over ``key_switch``) with a ``collective`` span around each
-collective, whose ``bytes`` are those that cross cards; no collective runs
-on a group of one rank.
+(``bootstrap`` over ``extract`` and ``key_switch``) with a ``collective``
+span around each collective, whose ``bytes`` are those that cross cards;
+no collective runs on a group of one rank.
 """
 
 import json
@@ -50,15 +50,16 @@ def run():
 
 def expected_spans(op: str, b: int, data: int, model: int) -> list:
     """The spans of one gate call on one rank, in the order they close:
-    per bootstrap pass (MUX: a (2, b) pass, then a (b,) one) the key
-    switch's all-reduce over ``model``, ``key_switch``, ``bootstrap``, and
-    the all-gather over ``data``; a collective only on a group of more
-    than one rank."""
+    per bootstrap pass (MUX: a (2, b) pass, then a (b,) one) the
+    extraction, the key switch's all-reduce over ``model``, ``key_switch``,
+    ``bootstrap``, and the all-gather over ``data``; a collective only on a
+    group of more than one rank."""
     width = TEST_PARAMS.n + 1
     out = []
     for lanes in ((2 * b, b) if op == "mux" else (b,)):
         split = b % data == 0
         rows = lanes // data if split else lanes
+        out.append(["extract", {"rows": rows, "t": 1}])
         if model > 1:
             out.append(["collective", {"op": "all_reduce", "ranks": model,
                                        "bytes": 2 * (model - 1) * rows * width * 8 // model}])

@@ -1,8 +1,8 @@
 """The port's tracer (``utils/trace.py``): off by default and free there,
 and when on, the span tree of the table in its docstring, with rows and
 padding rows that equal the plan's, one root per call into the port, the
-rotation's path and step count, the cap, and the spans on a profiler's
-trace."""
+rotation's path and step count, a lookup's preparation and extraction, the
+cap, and the spans on a profiler's trace."""
 
 import json
 import subprocess
@@ -130,11 +130,72 @@ def test_an_add_and_a_pbs_many_make_the_span_tree(monkeypatch):
     assert [c.attrs for c in calls] == [{"rows": 5, "tables": 2}] * 2
     for c in calls:
         inner = [r for r in recs if r.root == c.id and r is not c]
-        assert sorted(r.name for r in inner) == ["blind_rotate", "key_switch"]
+        assert sorted(r.name for r in inner) == ["blind_rotate", "extract", "key_switch",
+                                                 "pbs.prepare"]
         assert all(r.parent == c.id for r in inner)
         (rot,) = by_name(inner, "blind_rotate")
         assert rot.attrs["rows"] == 5 and rot.attrs["tv_rows"] == 1
         assert by_name(inner, "key_switch")[0].attrs == {"rows": 10}
+
+
+@pytest.fixture(scope="module")
+def pbs_ctx():
+    return TFHE.new(13, PBS_TEST_PARAMS, device="cpu")
+
+
+def lookup(ctx, t):
+    """Six rows through a table per row: ``pbs.pbs`` at t = 1, else
+    ``pbs.pbs_many``; the outputs decrypted, and the tables' entries they
+    must equal."""
+    x = np.array([0, 3, 1, 2, 3, 0])
+    tables = np.random.RandomState(14).randint(0, 4, size=(6, t, 4))
+    ct = ctx.encrypt_int(x, 4)
+    if t == 1:
+        out = pbs.pbs(ctx.ck, ct, tables[:, 0], space=4, params=ctx.params)[:, None]
+    else:
+        out = pbs.pbs_many(ctx.ck, ct, tables, space=4, params=ctx.params, unsafe=True)
+    return ctx.decrypt_int(out, 4).numpy(), tables[np.arange(6), :, x]
+
+
+@pytest.mark.parametrize("t", [1, 2])
+def test_a_lookup_records_its_preparation_and_extraction(pbs_ctx, t):
+    trace.enable()
+    got, want = lookup(pbs_ctx, t)
+    trace.enable(False)
+    np.testing.assert_array_equal(got, want)
+    recs = trace.records()
+    (call,) = by_name(recs, "pbs")
+    (prep,) = by_name(recs, "pbs.prepare")
+    (rot,) = by_name(recs, "blind_rotate")
+    (ext,) = by_name(recs, "extract")
+    assert call.attrs == {"rows": 6, "tables": t}
+    assert prep.attrs == {"rows": 6, "tv_rows": 6, "t": t}
+    assert ext.attrs == {"rows": 6, "t": t}
+    assert rot.attrs["rows"] == rot.attrs["tv_rows"] == 6
+    assert prep.parent == rot.parent == ext.parent == call.id
+    assert prep.t1_ns <= rot.t0_ns and rot.t1_ns <= ext.t0_ns
+
+
+def test_a_gate_bootstrap_records_its_extraction():
+    ctx = TFHE.new(15, TEST_PARAMS, device="cpu", engine_name="cmux_k")
+    x, y = ctx.encrypt([0, 1, 0, 1]), ctx.encrypt([0, 0, 1, 1])
+    trace.enable()
+    out = ctx.nand(x, y)
+    trace.enable(False)
+    assert ctx.decrypt(out).tolist() == [1, 1, 1, 0]
+    recs = trace.records()
+    (boot,) = by_name(recs, "bootstrap")
+    (rot,) = by_name(recs, "blind_rotate")
+    (ext,) = by_name(recs, "extract")
+    assert ext.attrs == {"rows": 4, "t": 1} and ext.parent == boot.id
+    assert rot.t1_ns <= ext.t0_ns and not by_name(recs, "pbs.prepare")
+
+
+@pytest.mark.parametrize("t", [1, 2])
+def test_with_the_tracer_off_a_lookup_records_nothing(pbs_ctx, t):
+    got, want = lookup(pbs_ctx, t)
+    np.testing.assert_array_equal(got, want)
+    assert trace.records() == [] and trace.dropped() == 0
 
 
 @pytest.mark.parametrize("case,path,steps,calls", [

@@ -252,8 +252,8 @@ def suite_dp_gates(x: dict, mesh, mesh_of) -> dict:
     """The four-card gate server's request path at TEST_PARAMS on K1's plain
     version: ``gates.gate_circuit`` over ``GateSession.bootstrap_raw`` on
     the whole batch, every gate at each batch size, with the tracer on;
-    each gate call's ``bootstrap``, ``key_switch`` and ``collective`` spans
-    in the order they closed, as JSON."""
+    each gate call's ``bootstrap``, ``extract``, ``key_switch`` and
+    ``collective`` spans in the order they closed, as JSON."""
     import json
 
     from rustfhe_tpu_torch import _u32, gates
@@ -277,7 +277,7 @@ def suite_dp_gates(x: dict, mesh, mesh_of) -> dict:
                                                       boot=sess.bootstrap_raw)
                 spans[f"{op}_{b}"] = [
                     [r.name, r.attrs] for r in trace.records()
-                    if r.name in ("bootstrap", "key_switch", "collective")]
+                    if r.name in ("bootstrap", "extract", "key_switch", "collective")]
     finally:
         trace.enable(False)
         trace.clear()
